@@ -1,0 +1,141 @@
+"""Model/architecture configuration schema — the port's own copy.
+
+Same fields and defaults as the JAX package's ``ModelConfig`` so a config
+can be described once and compared field by field; the only change is that
+``dtype()``/``pdtype()`` return ``torch`` dtypes.  ``param_dtype`` and
+``compute_dtype`` stay strings so ``dataclasses.replace(cfg,
+param_dtype="float32", compute_dtype="float32")`` works as it does there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; expected one of "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: Optional[int] = None    # default d_model // num_heads
+
+    # --- attention ---------------------------------------------------------
+    attn_type: str = "gqa"            # gqa | mla
+    rope_theta: float = 1e4
+    rotary_fraction: float = 1.0      # ChatGLM3: 0.5 ("2d" half-rotary)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    # --- MoE -----------------------------------------------------------------
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    moe_layer_period: int = 1
+    moe_layer_offset: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    capacity_factor: float = 1.25
+
+    # --- SSM / hybrid --------------------------------------------------------
+    block_pattern: Tuple[str, ...] = ()
+    ssm_state_dim: int = 16
+    ssm_conv_dim: int = 4
+    ssm_expand: int = 2
+    mlstm_chunk: int = 256
+
+    # --- VLM / enc-dec -------------------------------------------------------
+    cross_attn_period: int = 0
+    num_image_tokens: int = 0
+    encoder_layers: int = 0
+    max_source_positions: int = 0
+    decoder_prefill_len: int = 1024
+
+    # --- numerics ------------------------------------------------------------
+    ffn_type: str = "swiglu"          # swiglu | gelu | relu2
+    vocab_padding: int = 0
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    moment_dtype: str = "float32"
+
+    loss_chunk: int = 2048
+    remat: str = "block"
+    fsdp: bool = False
+    moe_2d_shard: bool = False
+
+    # ------------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def padded_vocab(self) -> int:
+        return self.vocab_size + self.vocab_padding
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        return self.block_pattern or ("attn",)
+
+    def layer_kind(self, i: int) -> str:
+        return self.pattern[i % len(self.pattern)]
+
+    def layer_is_moe(self, i: int) -> bool:
+        if not self.is_moe or i < self.first_dense_layers:
+            return False
+        return (i % self.moe_layer_period) == self.moe_layer_offset
+
+    @property
+    def dense_ffn_dim(self) -> int:
+        return self.dense_d_ff or self.d_ff
+
+    def dtype(self) -> torch.dtype:
+        return torch_dtype(self.compute_dtype)
+
+    def pdtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def param_count(self) -> int:
+        """Analytic parameter count of a dense GQA decoder (the only family
+        the port runs so far)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        qd, kvd = self.num_heads * hd, self.num_kv_heads * hd
+        mats = 3 if self.ffn_type == "swiglu" else 2
+        per_layer = d * (qd + 2 * kvd) + qd * d + mats * d * self.dense_ffn_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return emb + self.num_layers * per_layer + d
+
+
+__all__ = ["ModelConfig", "torch_dtype"]

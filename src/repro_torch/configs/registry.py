@@ -1,0 +1,53 @@
+"""Architecture registry: ``--arch <id>`` → config module.
+
+Lists only the architectures the port can run.  The JAX package's other
+ids are known here so that asking for one names the ROADMAP item that will
+port it instead of reading as a typo.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from . import llama3_8b
+from .base import ModelConfig
+
+_MODULES = {
+    "llama3-8b": llama3_8b,
+}
+
+# arch id → the ROADMAP.md item that ports what it needs
+NOT_PORTED = {
+    "minitron-4b": "Queue 1 item 7 (dense configs: relu2 FFN)",
+    "chatglm3-6b": "Queue 1 item 7 (dense configs: half-rotary GQA)",
+    "yi-9b": "Queue 1 item 7 (dense configs)",
+    "deepseek-v2-lite-16b": "Queue 1 item 8 (MLA) and item 9 (MoE)",
+    "whisper-medium": "Queue 1 item 8 (encoder-decoder attention)",
+    "llama-3.2-vision-11b": "Queue 1 item 8 (cross-attention)",
+    "llama4-scout-17b-a16e": "Queue 1 item 9 (MoE)",
+    "xlstm-1.3b": "Queue 1 item 10 (SSM families)",
+    "jamba-1.5-large-398b": "Queue 1 items 9-10 (MoE, SSM families)",
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def _module(arch: str):
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported to repro_torch yet; see ROADMAP.md "
+            f"{NOT_PORTED[arch]}")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return _MODULES[arch]
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()
+
+
+__all__ = ["ARCH_IDS", "NOT_PORTED", "get_config", "get_smoke_config"]

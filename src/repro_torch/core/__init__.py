@@ -1,0 +1,24 @@
+"""repro_torch.core — the port's own copy of the Kvik policy layer that the
+serving path uses.  Plain Python: no torch, no JAX.
+
+* Divisibles:  ``WorkRange``, ``SeqWork``
+* Adaptors:    ``bound_depth``/``BoundDepth``, ``cap``/``Cap``,
+               ``StealContext``
+* Plans:       ``PlanNode``, ``Plan``, ``build_plan``, ``demand_split``,
+               ``geometric_blocks``
+* Schedulers:  ``ByBlocks``, ``BlockStats``
+"""
+
+from .divisible import Divisible, WorkRange, SeqWork
+from .adaptors import (Adaptor, StealContext, BoundDepth,
+                       bound_depth, Cap, cap)
+from .plan import Plan, PlanNode, build_plan, demand_split, geometric_blocks
+from .schedulers import ByBlocks, BlockStats
+
+__all__ = [
+    "Divisible", "WorkRange", "SeqWork",
+    "Adaptor", "StealContext", "BoundDepth", "bound_depth",
+    "Cap", "cap",
+    "Plan", "PlanNode", "build_plan", "demand_split", "geometric_blocks",
+    "ByBlocks", "BlockStats",
+]

@@ -1,0 +1,152 @@
+"""Build, bind and count the hand-written CUDA kernels.
+
+Each ``src/repro_torch/csrc/<name>.cu`` is compiled on first use by ``nvcc``
+for ``sm_90a`` into its own shared library under ``<repo>/build/kernels/``,
+named by a hash of the source and the shared ``*.cuh`` headers so an edit
+rebuilds it, and bound with ``ctypes``: every pointer and the stream go as
+``c_void_p``, ints as ``c_int``.  Each source exposes plain C entry points
+that launch on the stream they are given and return ``cudaGetLastError()``.
+
+Nothing here runs at import: the CPU tests import every module, and a
+machine without a card may have no ``nvcc``.  :func:`build_all` starts one
+``nvcc`` per source at once and waits for all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C signature of every entry point: (source stem, function) → argtypes
+SIGNATURES: Dict[str, Dict[str, Sequence]] = {
+    "flash_attention": {
+        # q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale, q_offset,
+        # is_bf16, stream
+        "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, P],
+    },
+    "flash_decode": {
+        # q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit,
+        # scale, is_bf16, stream
+        "flash_decode_partials": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                  F, I, P],
+        # m, l, acc, out, B, H, hd, nsplit, is_bf16, stream
+        "flash_decode_combine": [P, P, P, P, I, I, I, I, I, P],
+    },
+}
+
+
+class Kernel:
+    """One C entry point plus its launch counter.  ``launches`` counts the
+    calls that launched the kernel on the card, and nothing else."""
+
+    def __init__(self, source: str, func: str):
+        self.source, self.func = source, func
+        self.launches = 0
+        self._lib = self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            lib = ctypes.CDLL(str(build(self.source)))
+            fn = getattr(lib, self.func)
+            fn.argtypes = list(SIGNATURES[self.source][self.func])
+            fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            self._lib, self._fn = lib, fn
+        err = self._fn(*args)
+        if err != 0:
+            name = self._lib.repro_error_string(err).decode()
+            raise RuntimeError(
+                f"{self.func} launch failed: cudaError {err} ({name})")
+        self.launches += 1
+
+
+KERNELS: Dict[str, Kernel] = {
+    func: Kernel(src, func)
+    for src, funcs in SIGNATURES.items() for func in funcs}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built on the machine with the card")
+
+
+def _lib_path(source: str) -> Path:
+    """The library's path carries a hash of the source, the shared headers
+    and the flags, so an edit to any of them builds a new library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{source}_{h.hexdigest()[:16]}.so"
+
+
+def _start(source: str) -> "subprocess.Popen | None":
+    out = _lib_path(source)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.out_path, proc.tmp_path = out, tmp
+    return proc
+
+
+def _finish(source: str, proc: "subprocess.Popen | None") -> str:
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(proc.tmp_path, proc.out_path)   # atomic: no half-written .so
+    return log
+
+
+def build(source: str) -> Path:
+    """Build one source if its library is missing; return the library."""
+    _finish(source, _start(source))
+    return _lib_path(source)
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel source in parallel (one ``nvcc`` each).  Returns
+    each source's compiler log (``-Xptxas -v``: registers, shared memory,
+    spills); empty for a library that was already built."""
+    sources: List[str] = list(SIGNATURES)
+    procs = {s: _start(s) for s in sources}
+    return {s: _finish(s, procs[s]) for s in sources}
+
+
+__all__ = ["Kernel", "KERNELS", "build", "build_all", "reset_launches",
+           "launches", "BUILD_DIR"]

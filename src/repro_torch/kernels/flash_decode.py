@@ -1,0 +1,187 @@
+"""K2: split-KV flash decode — the hand-written Hopper kernels
+(``csrc/flash_decode.cu``: partials, then combine) and their plain PyTorch
+twins.
+
+Replaces ``repro/kernels/flash_decode.py::decode_partials`` +
+``combine_partials`` and the reduce in ``flash_decode``.  The KV range
+[0, S) is cut into ``num_splits(S)`` blocks of ``block_k`` positions — a
+``demand_split``-free fixed grid, a function of S alone so batched and
+one-at-a-time decoding sum in the same order.  Each block yields a partial
+softmax (m, l, acc) in fp32; the combine is the associative LSE merge.
+
+Positions >= lengths[b] are masked.  A block wholly past lengths[b] yields
+(m, l, acc) = (-1e30, 0, 0), which merges with weight 0; ``lengths`` must be
+>= 1 (the decode path passes lengths + 1), since a row with no valid
+position at all gives 0 here where a dense softmax would average V.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+BLOCK_K = 128
+PARTIALS = _build.KERNELS["flash_decode_partials"]
+COMBINE = _build.KERNELS["flash_decode_combine"]
+MAX_HEAD_DIM = 128
+GROUPS = (1, 2, 4, 8, 16)        # H / KV values the kernel is built for
+MAX_BLOCK_K = 256
+
+Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def num_splits(S: int, block_k: int = BLOCK_K) -> int:
+    return -(-S // block_k)
+
+
+def decode_partials_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          block_k: int = BLOCK_K,
+                          scale: Optional[float] = None) -> Partials:
+    """The partials kernel's function in plain PyTorch.  q: (B,H,hd);
+    caches (B,S,KV,hd); lengths (B,) → m, l (B,H,nk), acc (B,H,nk,hd)."""
+    B, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    nk = num_splits(S, block_k)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    pad = nk * block_k - S
+    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, 0, 0, pad))
+    kf = kf.reshape(B, nk, block_k, KV, hd)
+    vf = vf.reshape(B, nk, block_k, KV, hd)
+    qf = (q.float() * scale).reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bnjkd->bkgnj", qf, kf)
+    pos = torch.arange(nk * block_k, device=q.device).reshape(nk, block_k)
+    valid = pos[None] < lengths.to(q.device).reshape(B, 1, 1)   # (B,nk,bk)
+    valid = valid[:, None, None]                                 # bcast k,g
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgnj,bnjkd->bkgnd", p, vf)
+    return (m.reshape(B, H, nk), l.reshape(B, H, nk),
+            acc.reshape(B, H, nk, hd))
+
+
+def combine_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The combine kernel's function: LSE merge over the split axis, then
+    acc / max(l, 1e-30) in ``dtype``.  → (B,H,hd)."""
+    mx = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - mx)
+    lsum = (l * w).sum(dim=-1)
+    a = (acc * w[..., None]).sum(dim=-2)
+    return (a / torch.clamp(lsum, min=1e-30)[..., None]).to(dtype)
+
+
+def flash_decode_plain(q, k_cache, v_cache, lengths, *,
+                       block_k: int = BLOCK_K,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    m, l, acc = decode_partials_plain(q, k_cache, v_cache, lengths,
+                                      block_k=block_k, scale=scale)
+    return combine_plain(m, l, acc, v_cache.dtype)
+
+
+def _check(q, k_cache, v_cache, lengths, block_k: int) -> None:
+    dev = q.device
+    if not (q.is_cuda and k_cache.device == dev and v_cache.device == dev
+            and lengths.device == dev):
+        raise ValueError("flash_decode: q, caches and lengths must be on one "
+                         "CUDA device")
+    if q.dtype not in (torch.bfloat16, torch.float32) or \
+            k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"flash_decode takes bf16 or fp32 q/caches of one "
+                        f"dtype, got {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    if lengths.dtype != torch.int32 or lengths.dim() != 1:
+        raise TypeError(f"flash_decode: lengths must be (B,) int32, got "
+                        f"{lengths.dtype} {tuple(lengths.shape)}")
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
+    B, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    if k_cache.shape[0] != B or lengths.shape[0] != B or \
+            k_cache.shape[3] != hd or H % KV != 0:
+        raise ValueError(f"flash_decode: q{tuple(q.shape)}, "
+                         f"k{tuple(k_cache.shape)}, lengths"
+                         f"{tuple(lengths.shape)} do not match")
+    if hd > MAX_HEAD_DIM or hd % 4 or H // KV not in GROUPS:
+        raise ValueError(f"flash_decode: head_dim {hd} must be a multiple "
+                         f"of 4 and <= {MAX_HEAD_DIM}, H/KV {H // KV} one "
+                         f"of {GROUPS}")
+    if not 1 <= block_k <= MAX_BLOCK_K:
+        raise ValueError(f"flash_decode: block_k {block_k} outside "
+                         f"[1, {MAX_BLOCK_K}]")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_decode: {name} must be contiguous")
+        if name != "lengths" and t.data_ptr() % 16:
+            raise ValueError(f"flash_decode: {name} must be 16-byte "
+                             f"aligned (vector loads)")
+
+
+def decode_partials(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
+                    scale: Optional[float] = None) -> Partials:
+    """Partials kernel (one launch); plain twin for CPU tensors."""
+    if q.device.type == "cpu":
+        return decode_partials_plain(q, k_cache, v_cache, lengths,
+                                     block_k=block_k, scale=scale)
+    _check(q, k_cache, v_cache, lengths, block_k)
+    B, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    nk = num_splits(S, block_k)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    m = torch.empty((B, H, nk), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((B, H, nk, hd), dtype=torch.float32, device=q.device)
+    PARTIALS(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+             B, S, H, KV, hd, block_k, nk, float(scale),
+             int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    return m, l, acc
+
+
+def combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Combine kernel (one launch); plain twin for CPU tensors."""
+    if m.device.type == "cpu":
+        return combine_plain(m, l, acc, dtype)
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_decode combine: output dtype {dtype}")
+    for t in (m, l, acc):
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                not t.is_cuda or t.device != m.device:
+            raise ValueError("flash_decode combine: partials must be "
+                             "contiguous fp32 on one CUDA device")
+    B, H, nk = m.shape
+    hd = acc.shape[-1]
+    if l.shape != m.shape or acc.shape != (B, H, nk, hd):
+        raise ValueError("flash_decode combine: partial shapes differ")
+    out = torch.empty((B, H, hd), dtype=dtype, device=m.device)
+    COMBINE(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            B, H, hd, nk, int(dtype == torch.bfloat16),
+            torch.cuda.current_stream(m.device).cuda_stream)
+    return out
+
+
+def flash_decode(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """One-token attention: q (B,H,hd), caches (B,S,KV,hd), lengths (B,)
+    int32 → (B,H,hd) in the cache dtype.  Two launches on CUDA."""
+    m, l, acc = decode_partials(q, k_cache, v_cache, lengths,
+                                block_k=block_k, scale=scale)
+    return combine(m, l, acc, v_cache.dtype)
+
+
+__all__ = ["flash_decode", "flash_decode_plain", "decode_partials",
+           "decode_partials_plain", "combine", "combine_plain", "num_splits",
+           "BLOCK_K", "PARTIALS", "COMBINE"]

@@ -1,0 +1,189 @@
+"""Layer specs, periods and the dense decoder layer — the dense subset of
+``repro.models.transformer``.
+
+Layers are grouped into *periods* (the smallest repeating unit of specs) and
+parameters are stacked over period repeats, as in the JAX package, so a
+weight tree converts between the two packages by name alone.  A Python loop
+over repeats takes the place of ``lax.scan``.
+
+Caches are updated in place: the prefill chunk writes its K/V into the
+cache slice, and the decode step writes the new token's K/V at each row's
+length (rows already at the cache width write nothing, the JAX package's
+mask-select semantics).  The JAX versions return new arrays instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .attention import (attn_chunk_sizes, blockwise_attention,
+                        decode_attention, gqa_init, gqa_project_kv,
+                        gqa_project_qkv, gqa_self_attention, plain_attention)
+from .layers import Params, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+
+# spec kinds the JAX package has and the port does not run yet → ROADMAP item
+NOT_PORTED = {
+    "mla": "ROADMAP.md Queue 1 item 8 (MLA attention)",
+    "mamba": "ROADMAP.md Queue 1 item 10 (SSM families)",
+    "mlstm": "ROADMAP.md Queue 1 item 10 (SSM families)",
+    "slstm": "ROADMAP.md Queue 1 item 10 (SSM families)",
+    "moe": "ROADMAP.md Queue 1 item 9 (MoE)",
+    "cross": "ROADMAP.md Queue 1 item 8 (cross-attention)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str          # attn | mla | mamba | mlstm | slstm
+    is_moe: bool
+    has_cross: bool
+    has_ffn: bool
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    specs = []
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        if kind == "attn" and cfg.attn_type == "mla":
+            kind = "mla"
+        has_cross = bool(cfg.cross_attn_period) and \
+            (i % cfg.cross_attn_period == cfg.cross_attn_period - 1)
+        has_ffn = cfg.d_ff > 0 or (cfg.is_moe and cfg.layer_is_moe(i))
+        specs.append(LayerSpec(kind, cfg.layer_is_moe(i), has_cross, has_ffn))
+    return specs
+
+
+def stage_layout(cfg: ModelConfig
+                 ) -> Tuple[List[LayerSpec], List[LayerSpec], int]:
+    """Returns (prefix_specs, period_specs, n_repeats)."""
+    specs = layer_specs(cfg)
+    pre = cfg.first_dense_layers
+    prefix, rest = specs[:pre], specs[pre:]
+    for p in range(1, len(rest) + 1):
+        if len(rest) % p != 0:
+            continue
+        if all(rest[i] == rest[i % p] for i in range(len(rest))):
+            return prefix, rest[:p], len(rest) // p
+    return prefix, rest, 1
+
+
+def check_ported(cfg: ModelConfig, spec: LayerSpec) -> None:
+    """Raise for what the port cannot run yet, naming the ROADMAP item."""
+    if spec.kind != "attn":
+        raise NotImplementedError(f"layer kind {spec.kind!r}: "
+                                  f"{NOT_PORTED[spec.kind]}")
+    if spec.is_moe:
+        raise NotImplementedError(f"MoE layers: {NOT_PORTED['moe']}")
+    if spec.has_cross or cfg.is_encdec:
+        raise NotImplementedError(
+            f"cross-attention / encoder-decoder: {NOT_PORTED['cross']}")
+    if cfg.norm != "rmsnorm" or (spec.has_ffn and cfg.ffn_type != "swiglu"):
+        raise NotImplementedError(
+            f"{cfg.norm}/{cfg.ffn_type}: ROADMAP.md Queue 1 item 7 (dense "
+            f"configs)")
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, *,
+               lead: Tuple[int, ...] = ()) -> Params:
+    """One layer's parameters, stacked over ``lead`` (the period repeats)."""
+    check_ported(cfg, spec)
+    dev = gen.device
+    p: Params = {"ln1": rmsnorm_init(cfg.d_model, cfg.pdtype(), dev,
+                                     lead=lead),
+                 "mixer": gqa_init(gen, cfg, lead=lead)}
+    if spec.has_ffn:
+        p["ln2"] = rmsnorm_init(cfg.d_model, cfg.pdtype(), dev, lead=lead)
+        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.dense_ffn_dim,
+                               cfg.pdtype(), lead=lead)
+    return p
+
+
+def _ffn(cfg: ModelConfig, spec: LayerSpec, lp: Params,
+         x: torch.Tensor) -> torch.Tensor:
+    if not spec.has_ffn:
+        return x
+    return x + swiglu(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+
+def layer_apply(cfg: ModelConfig, spec: LayerSpec, lp: Params,
+                x: torch.Tensor, positions: torch.Tensor, *,
+                causal: bool = True, collect_cache: bool = False):
+    """Full-sequence layer.  Returns (x, cache payload or None)."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + gqa_self_attention(lp["mixer"], cfg, h, positions, causal=causal)
+    payload = None
+    if collect_cache:
+        k, v = gqa_project_kv(lp["mixer"], cfg, h, positions)
+        payload = {"k": k, "v": v}
+    return _ffn(cfg, spec, lp, x), payload
+
+
+def layer_decode(cfg: ModelConfig, spec: LayerSpec, lp: Params,
+                 x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 positions: torch.Tensor, lengths: torch.Tensor
+                 ) -> torch.Tensor:
+    """x: (B,1,D); writes the token's K/V into ``cache`` in place (it
+    attends to itself), then attends over lengths + 1 positions."""
+    B = x.shape[0]
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, k_new, v_new = gqa_project_qkv(lp["mixer"], cfg, h,
+                                      positions[:, None])
+    kc, vc = cache["k"], cache["v"]
+    S_max = kc.shape[1]
+    rows = torch.arange(B, device=x.device)
+    at = lengths.clamp(max=S_max - 1).long()
+    keep = (lengths < S_max)[:, None, None]    # a full row writes nothing
+    # in place: one cache row per sequence, instead of a new cache array
+    kc[rows, at] = torch.where(keep, k_new[:, 0], kc[rows, at])
+    vc[rows, at] = torch.where(keep, v_new[:, 0], vc[rows, at])
+    o = decode_attention(q[:, 0], kc, vc, lengths + 1)
+    x = x + (o.reshape(B, -1) @ lp["mixer"]["wo"])[:, None]
+    return _ffn(cfg, spec, lp, x)
+
+
+def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
+                        x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                        pos0: int) -> torch.Tensor:
+    """Process chunk positions [pos0, pos0+c) against cached history.
+    Writes the chunk's K/V into ``cache`` in place; attention runs over
+    the full cache width with the causal mask doing the windowing (K1
+    prunes the kv loop at pos0 + c)."""
+    B, c, D = x.shape
+    S_max = cache["k"].shape[1]
+    if pos0 < 0 or pos0 + c > S_max:
+        raise ValueError(f"chunk [{pos0}, {pos0 + c}) outside the cache "
+                         f"width {S_max}")
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    positions = pos0 + torch.arange(c, device=x.device).expand(B, c)
+    q, k, v = gqa_project_qkv(lp["mixer"], cfg, h, positions)
+    cache["k"][:, pos0:pos0 + c] = k      # in place into the cache slice
+    cache["v"][:, pos0:pos0 + c] = v
+    kc, vc = cache["k"], cache["v"]
+    if c <= 256 and S_max <= 1024:
+        o = plain_attention(q, kc, vc, causal=True, q_offset=pos0)
+    else:
+        qc, kvc = attn_chunk_sizes(c, S_max)
+        o = blockwise_attention(q, kc, vc, causal=True, q_chunk=qc,
+                                kv_chunk=kvc, q_offset=pos0)
+    x = x + o.reshape(B, c, -1) @ lp["mixer"]["wo"]
+    return _ffn(cfg, spec, lp, x)
+
+
+def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                      max_seq: int
+                      ) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """Returns {name: (shape, dtype)} for one layer's decode state."""
+    check_ported(cfg, spec)
+    hd, kv, dt = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.dtype()
+    return {"k": ((batch, max_seq, kv, hd), dt),
+            "v": ((batch, max_seq, kv, hd), dt)}
+
+
+__all__ = [
+    "LayerSpec", "layer_specs", "stage_layout", "check_ported", "layer_init",
+    "layer_apply", "layer_decode", "layer_prefill_chunk", "layer_cache_shape",
+]

@@ -1,0 +1,138 @@
+"""The port's own copies of the Kvik policy layer (``repro_torch.core``)
+against ``repro.core``, and the rule that the port imports neither JAX nor
+the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import repro.core as jcore
+import repro_torch.core as tcore
+from repro_torch.configs.registry import NOT_PORTED, get_config
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("total,first,growth,align,cap", [
+    (1000, 32, 2.0, 32, 256), (97, 16, 2.0, 16, 64), (4096, 128, 2.0, 128,
+                                                      4096),
+    (300, 7, 1.5, 1, None), (1, 32, 2.0, 32, 256)])
+def test_geometric_blocks_matches_reference(total, first, growth, align, cap):
+    kw = dict(first=first, growth=growth, align=align, cap=cap)
+    assert tcore.geometric_blocks(total, **kw) == \
+        jcore.geometric_blocks(total, **kw)
+
+
+@pytest.mark.parametrize("n,demand", [(8, 3), (1, 4), (17, 5), (64, 64),
+                                      (10, 1)])
+def test_demand_split_matches_reference(n, demand):
+    t = tcore.demand_split(tcore.SeqWork(0, n), demand)
+    j = jcore.demand_split(jcore.SeqWork(0, n), demand)
+    assert t.leaf_sizes() == j.leaf_sizes()
+    assert [(w.start, w.stop) for w in t.leaves()] == \
+        [(w.start, w.stop) for w in j.leaves()]
+    assert t.divisions == j.divisions
+
+
+@pytest.mark.parametrize("n,depth,align", [(2048, 0, 1), (300, 2, 1),
+                                           (1000, 3, 32), (96, 5, 16)])
+def test_bound_depth_plan_matches_reference(n, depth, align):
+    t = tcore.build_plan(tcore.bound_depth(tcore.SeqWork(0, n, align=align),
+                                           depth))
+    j = jcore.build_plan(jcore.bound_depth(jcore.SeqWork(0, n, align=align),
+                                           depth))
+    assert t.leaf_sizes() == j.leaf_sizes()
+    assert t.depth() == j.depth()
+    assert t.map_reduce(lambda w: w.size(), lambda a, b: a + b) == n
+
+
+def test_by_blocks_matches_reference():
+    kw = dict(first=32, growth=2.0, align=32, cap=256)
+    t, j = tcore.ByBlocks(**kw), jcore.ByBlocks(**kw)
+    tb = [(b.start, b.stop) for b in t.blocks(tcore.SeqWork(40, 1000))]
+    jb = [(b.start, b.stop) for b in j.blocks(jcore.SeqWork(40, 1000))]
+    assert tb == jb
+    stop = lambda c: c >= 300                         # noqa: E731
+    tc, ts = t.run(tcore.SeqWork(0, 1000), lambda b, c: c + b.size(), 0,
+                   should_stop=stop)
+    jc, js = j.run(jcore.SeqWork(0, 1000), lambda b, c: c + b.size(), 0,
+                   should_stop=stop)
+    assert tc == jc and ts == tcore.BlockStats(**vars(js))
+
+
+def test_cap_counter_and_hooks_match_reference():
+    """threshold_fn shrinks the live cap, on_event sees every counter
+    change, on_finish returns leases — the same trace in both packages."""
+    def drive(core):
+        events, limit = [], [10]
+        c = core.Cap(core.WorkRange(0, 100), 4,
+                     threshold_fn=lambda: limit[0],
+                     on_event=lambda kind, live: events.append((kind, live)))
+        trace = [c.should_be_divided()]
+        lease, rest = c.divide_at(10)
+        lease2, rest = rest.divide_at(5)
+        trace.append(rest.should_be_divided())
+        limit[0] = 2
+        trace.append(rest.should_be_divided())
+        lease.on_finish()
+        lease2.on_finish()
+        trace.append(rest.should_be_divided())
+        return events, trace, rest.counter.value, (lease.size(), rest.size())
+
+    assert drive(tcore) == drive(jcore)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
+    assert bad == []
+
+
+def test_port_runs_with_jax_unimportable():
+    """``sys.modules["jax"] = None`` makes any import of JAX raise: the port
+    still imports and runs a CPU decode step."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import torch\n"
+        "import repro_torch.serve, repro_torch.weights\n"
+        "from repro_torch.configs.registry import get_smoke_config\n"
+        "from repro_torch.models.model import Model\n"
+        "m = Model(get_smoke_config('llama3-8b'), device='cpu')\n"
+        "p = m.init(0)\n"
+        "logits, cache = m.prefill(p, torch.tensor([[5, 6, 7, 8]]), "
+        "max_seq=8)\n"
+        "out, _ = m.decode_step(p, torch.tensor([3], dtype=torch.int32), "
+        "cache, torch.tensor([4], dtype=torch.int32))\n"
+        "assert out.shape == (1, 512) and torch.isfinite(out).all()\n"
+        "assert not any(k.startswith('repro.') for k in sys.modules)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_unported_arch_names_its_roadmap_item():
+    assert get_config("llama3-8b").num_layers == 32
+    for arch, item in NOT_PORTED.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
+        assert "Queue 1" in item
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
