@@ -9,18 +9,32 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    TF32 off for matmuls and convolutions;
-1. build every kernel of the serving path from ``src/repro_torch/csrc``;
-2. hold each kernel against its plain PyTorch version at the serving
-   path's shapes (bf16 and fp32) and time kernel, plain version and the
-   library yardstick ``F.scaled_dot_product_attention(enable_gqa=True)``;
-3. the main path: llama3-8b at full width and full depth (32 layers, bf16,
-   seeded random weights) serves 16 requests through ``ContinuousEngine``
-   and 4 through the sync ``Engine``; every attention call must have
-   launched a kernel (launch counters = layers x chunks / decode steps);
+1. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all at once);
+2. hold each kernel against its plain PyTorch version at its path's shapes
+   and time kernel, plain version and, where one PyTorch call computes the
+   same function, that call (``F.scaled_dot_product_attention`` for K1/K2;
+   none exists for the K4 scans): K1, K2 (with a zero-length row), K4
+   ``logspace`` (mLSTM carry, with extreme gates) and K4 ``affine`` (Mamba);
+3. the dense path: llama3-8b at full width and full depth (32 layers,
+   bf16, seeded random weights) serves 16 requests through
+   ``ContinuousEngine`` and 4 through the sync ``Engine``; every attention
+   call must have launched a kernel (launch counters = layers x chunks /
+   decode steps);
 4. fp32 checks at full width, 2 layers: the card's logits against the CPU
    plain path on the same weights, and continuous-batching tokens against
    one-at-a-time tokens;
-5. the kernels line, then the last line
+5. the SSM path: xlstm-1.3b at full width and depth (48 blocks, bf16,
+   ``scan_impl="pallas"``): ``Model.prefill`` of 4 x 2048 tokens (K4 once
+   per mLSTM layer) and 32 decode steps, then 16 requests through
+   ``ContinuousEngine`` with O(1) state slots;
+6. fp32 checks at xlstm's full width, one period (8 blocks): card logits
+   against the CPU plain path, pallas == lax tokens, batched ==
+   one-at-a-time tokens, and the entropy-gated stream an exact prefix;
+7. the Mamba layer path: one Mamba mixer at jamba-1.5-large's width
+   (d_model 8192) over 512 tokens, ``scan_impl="pallas"`` (K4 affine once
+   per chunk) against ``"lax"``;
+8. the kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  Details
@@ -45,12 +59,20 @@ SRC = ROOT / "src"
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LOGIT_TOL = 1e-3          # fp32 card logits vs the CPU plain path
 NEAR_TIE = 1e-3           # top-2 logit gap below which a token flip is a tie
+# K4 vs its plain twin, fp32: max |kernel - twin| / max |twin| per leaf.
+# Both run the same sequential fold with each product and sum rounded on
+# its own; only expf may differ from torch.exp
+K4_TOL = 1e-5
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 
 
+T_START = time.perf_counter()
+
+
 def say(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke +{time.perf_counter() - T_START:.0f}s] {msg}",
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -74,6 +96,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
     torch.cuda.set_device(0)
@@ -94,6 +117,8 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import tile_scan as ts
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -166,6 +191,89 @@ def main() -> None:
                       fd.flash_decode_plain(q.float(), kc.float(),
                                             vc.float(), lens))
             record("flash_decode (partials+combine)", dtype, e2e, B=B, S=S)
+        # a row with no valid position: the reference's all-masked softmax
+        # is uniform, the mean of V over the whole cache
+        q = randn(4, H, hd, dtype=dtype)
+        kc = randn(4, 2048, KV, hd, dtype=dtype)
+        vc = randn(4, 2048, KV, hd, dtype=dtype)
+        lens = torch.tensor([0, 1, 700, 2048], dtype=torch.int32, device=dev)
+        out = fd.flash_decode(q, kc, vc, lens)
+        ref = fd.flash_decode_plain(q.float(), kc.float(), vc.float(), lens)
+        torch.cuda.synchronize()
+        record("flash_decode zero-length row", dtype, err(out, ref), B=4,
+               S=2048, lengths=lens.tolist())
+        mean_v = vc[0].float().mean(0).repeat_interleave(H // KV, 0)
+        check(err(ref[0], mean_v) <= 1e-4, "K2's twin: a zero-length row "
+              "is not the mean of V")
+
+    # K4: both scans against their plain fold, fp32 (normwise relative)
+    k4_worst = {}
+
+    def k4_record(kernel, got, want, **case):
+        e_rel = max(float((g - w).abs().max() / w.abs().max().clamp_min(
+            1e-30)) for g, w in zip(got, want))
+        e_abs = max(err(g, w) for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        report["cases"].append(dict(kernel=kernel, dtype="float32",
+                                    max_rel_err=e_rel, max_abs_err=e_abs,
+                                    tol=K4_TOL, **case))
+        w = k4_worst.setdefault(kernel, {"rel": 0.0, "abs": 0.0})
+        w["rel"], w["abs"] = max(w["rel"], e_rel), max(w["abs"], e_abs)
+        check(finite and e_rel <= K4_TOL, f"{kernel} {case}: relative err "
+              f"{e_rel:.3g} > tol {K4_TOL} (or not finite)")
+
+    def logspace_inputs(nc, B, Hh, dh, extreme=False):
+        la, mS = randn(nc, B, Hh, dtype=torch.float32), \
+            randn(nc, B, Hh, dtype=torch.float32)
+        if extreme:     # tests/test_ssm_scan.py's gate log-sums, past exp
+            la = torch.tensor([1e3, -1e3, 500.0, 0.0, -700.0, 300.0, 88.0],
+                              device=dev).reshape(7, 1, 1)
+            mS = torch.tensor([-1e3, 1e3, -500.0, 700.0, 0.0, -88.0, 2.0],
+                              device=dev).reshape(7, 1, 1)
+        C = randn(nc, B, Hh, dh, dh, dtype=torch.float32)
+        nn_ = randn(nc, B, Hh, dh, dtype=torch.float32)
+        m0 = randn(B, Hh, dtype=torch.float32)
+        carry = (torch.zeros_like(m0), m0,
+                 randn(B, Hh, dh, dh, dtype=torch.float32),
+                 randn(B, Hh, dh, dtype=torch.float32))
+        return (la, mS, C, nn_), carry
+
+    for shape, extreme in (((8, 4, 4, 1024), False), ((7, 1, 1, 1024), True)):
+        xs, carry = logspace_inputs(*shape, extreme=extreme)
+        for inclusive in (False, True):
+            got = ts.logspace_scan(*xs, carry, inclusive=inclusive)
+            want = ts.fold(xs, ss.logspace_affine_combine, carry,
+                           inclusive=inclusive, axis=0)
+            torch.cuda.synchronize()
+            k4_record("tile_scan_logspace", got, want, shape=shape,
+                      inclusive=inclusive, extreme_gates=extreme)
+        del xs, carry, got, want
+
+    def affine_inputs(B, L, Di, N):
+        dA = torch.exp(-F.softplus(randn(B, L, Di, N, dtype=torch.float32)))
+        dBx = 0.1 * randn(B, L, Di, N, dtype=torch.float32)
+        return dA, dBx, randn(B, Di, N, dtype=torch.float32)
+
+    for shape in ((1, 256, 16384, 16), (2, 100, 96, 8)):
+        dA, dBx, h0 = affine_inputs(*shape)
+        seed = (torch.ones_like(h0), h0)
+        for inclusive in (True, False):
+            got = ts.affine_scan(dA, dBx, *seed, inclusive=inclusive)
+            want = ts.fold((dA, dBx), ss.affine_combine, seed,
+                           inclusive=inclusive, axis=1)
+            torch.cuda.synchronize()
+            k4_record("tile_scan_affine", got, want, shape=shape,
+                      inclusive=inclusive, gains=True)
+        got = ss.mamba_assoc_scan(dA, dBx, h0)       # states only
+        want = ts.fold((dA, dBx), ss.affine_combine, seed, inclusive=True,
+                       axis=1)
+        torch.cuda.synchronize()
+        k4_record("tile_scan_affine", (got,), want[1:], shape=shape,
+                  inclusive=True, gains=False)
+        del dA, dBx, h0, seed, got, want
+    for kname, w in k4_worst.items():
+        say(f"{kname}: max relative err {w['rel']:.3g}, max abs err "
+            f"{w['abs']:.3g} (tol {K4_TOL} relative, fp32)")
     for kname, w in worst.items():
         say(f"{kname}: max abs err " + ", ".join(
             f"{d} {e:.3g} (tol {TOL[d]})" for d, e in w.items()))
@@ -212,7 +320,6 @@ def main() -> None:
         alone = graph_ms(flush, iters)
         return max(both - alone, 0.0) / iters
 
-    import torch.nn.functional as F
     bf = torch.bfloat16
 
     def k1_case(c, off, Sk, B=1):
@@ -306,6 +413,53 @@ def main() -> None:
             f"{part['bound_by']}), combine {comb['ms']:.4f} ms (plain "
             f"{comb['plain_ms']:.4f}, bound {comb['bound_ms']:.4f}), "
             f"sdpa decode {part['library_ms']:.4f} ms [{card}]")
+
+    def k4_row(kernel_fn, plain_fn, nbytes, ops, shape):
+        bb, bo = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["float32"]
+        return dict(ms=device_ms(kernel_fn, cold=True),
+                    plain_ms=device_ms(plain_fn, cold=True),
+                    library_ms=None, bound_ms=max(bb, bo) * 1e3,
+                    bound_by="bytes" if bb >= bo else "operations",
+                    shape=shape)
+
+    # K4 logspace at the slice's shape: Model.prefill of 4 x 2048 tokens,
+    # 256-token chunks, 4 heads of 1024 (exclusive, seeded by the carry)
+    nc, Bx, Hx, dhx = 8, 4, 4, 1024
+    xs, carry = logspace_inputs(nc, Bx, Hx, dhx)
+    G, FCN = Bx * Hx, dhx * dhx + dhx
+    elems = nc * G * (2 + FCN)                 # la, m, C, n of all chunks
+    r = k4_row(lambda: ts.logspace_scan(*xs, carry, inclusive=False),
+               lambda: ts.fold(xs, ss.logspace_affine_combine, carry,
+                               inclusive=False, axis=0),
+               nbytes=4.0 * (2 * elems + G * (2 + FCN)),
+               ops=3.0 * nc * G * FCN,
+               shape=dict(nc=nc, B=Bx, H=Hx, dh=dhx, dtype="float32",
+                          inclusive=False))
+    report["timings"]["tile_scan_logspace nc=8 B=4 H=4 dh=1024"] = r
+    say(f"K4 logspace nc={nc} B={Bx} H={Hx} dh={dhx} fp32: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no library call [{card}]")
+    k4_rows = {"tile_scan_logspace": r}
+    del xs, carry
+    # K4 affine at jamba-1.5-large's Mamba width: one 256-token chunk of
+    # Di=16384, N=16, the states only (mamba_assoc_scan)
+    Bm, Lm, Di, Nm = 1, 256, 16384, 16
+    dA, dBx, h0 = affine_inputs(Bm, Lm, Di, Nm)
+    seed = (torch.ones_like(h0), h0)
+    Fm = Di * Nm
+    r = k4_row(lambda: ss.mamba_assoc_scan(dA, dBx, h0),
+               lambda: ts.fold((dA, dBx), ss.affine_combine, seed,
+                               inclusive=True, axis=1),
+               nbytes=4.0 * (3 * Bm * Lm * Fm + 2 * Bm * Fm),
+               ops=3.0 * Bm * Lm * Fm,
+               shape=dict(B=Bm, c=Lm, Di=Di, N=Nm, dtype="float32",
+                          inclusive=True, gains_written=False))
+    report["timings"]["tile_scan_affine B=1 c=256 Di=16384 N=16"] = r
+    say(f"K4 affine B={Bm} c={Lm} Di={Di} N={Nm} fp32: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), no library call [{card}]")
+    k4_rows["tile_scan_affine"] = r
+    del dA, dBx, h0, seed
     say(f"timing took {time.perf_counter() - t0:.1f} s")
     rows = {
         "flash_attention_fwd": report["timings"][
@@ -316,6 +470,7 @@ def main() -> None:
         "flash_decode_combine": report["timings"][
             f"flash_decode_combine B=8 S=2048 mean_len="
             f"{main_lens.mean():.0f}"],
+        **k4_rows,
     }
     del flush_buf
 
@@ -369,7 +524,14 @@ def main() -> None:
     torch.cuda.synchronize()
     t_cont = time.perf_counter() - t0
     calls_cont = dict(model.calls)
-    launches_cont = _build.launches()
+    dense_kernels = ("flash_attention_fwd", "flash_decode_partials",
+                     "flash_decode_combine")
+
+    def path_launches():
+        return {k: v for k, v in _build.launches().items()
+                if k in dense_kernels}
+
+    launches_cont = path_launches()
     t0 = time.perf_counter()
     se = Engine(model, params, EngineConfig(max_batch=4, max_seq=2048,
                                             eos_id=7))
@@ -378,7 +540,10 @@ def main() -> None:
     sync_done = {r.rid: r for r in se.step()}
     torch.cuda.synchronize()
     t_sync = time.perf_counter() - t0
-    launches = _build.launches()
+    launches = path_launches()
+    check(_build.launches()["tile_scan_logspace"] == 0
+          and _build.launches()["tile_scan_affine"] == 0,
+          "the dense path launched a scan kernel")
     calls = dict(model.calls)
     peak = torch.cuda.max_memory_allocated()
 
@@ -410,7 +575,7 @@ def main() -> None:
           == L * calls_cont["decode_step"], "continuous-engine launches")
     gen_cont = sum(len(r.result) for r in done.values())
     gen_sync = sum(len(r.result) for r in sync_done.values())
-    say(f"main path: launches {launches} = {L} layers x "
+    say(f"dense path: launches {launches} = {L} layers x "
         f"{calls['prefill_chunk']} prefill chunks / "
         f"{calls['decode_step']} decode steps")
     say(f"ContinuousEngine: 16 requests, {gen_cont} tokens in {t_cont:.2f} s"
@@ -449,6 +614,8 @@ def main() -> None:
             g = ("flash_attention_fwd" if "flash_fwd_kernel" in name else
                  "flash_decode_partials" if "decode_partials_kernel" in name
                  else "flash_decode_combine" if "decode_combine_kernel" in name
+                 else "tile_scan_logspace" if "logspace_scan_kernel" in name
+                 else "tile_scan_affine" if "affine_scan_kernel" in name
                  else "matmul" if any(s in name.lower() for s in (
                      "gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk"))
                  else "other")
@@ -502,6 +669,15 @@ def main() -> None:
         nxt, lengths = torch.argmax(cl, -1).to(torch.int32), lengths + 1
     say(f"fp32 logits, card vs CPU plain path (2 layers, prefill 300 + 4 "
         f"decode steps): max abs err {worst_logit:.3g} (tol {LOGIT_TOL})")
+    # which side rounds: one fp32 matmul of the logit head's size on each,
+    # against float64
+    a = torch.randn(8, 4096, dtype=torch.float64)
+    b = torch.randn(4096, 4096, dtype=torch.float64)
+    exact = a @ b
+    say("fp32 matmul (8x4096 @ 4096x4096) max abs err vs float64: CPU "
+        f"{float((a.float() @ b.float() - exact).abs().max()):.3g}, card "
+        f"{float((a.float().cuda() @ b.float().cuda()).cpu().double().sub(exact).abs().max()):.3g}"
+        f" (fp32 precision {torch.get_float32_matmul_precision()!r})")
     check(worst_logit <= LOGIT_TOL, "card logits disagree with the CPU")
     del cpu_model, cpu_params, ccache, gcache
 
@@ -541,8 +717,295 @@ def main() -> None:
     say(f"fp32 ContinuousEngine == one-at-a-time Engine tokens for "
         f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties)")
     report["fp32"] = dict(max_logit_err=worst_logit, near_ties=ties)
+    del ce, params, model
+    torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- 5. report
+    # ------------------------------------------ 5. the SSM path: xlstm-1.3b
+    xcfg = get_config("xlstm-1.3b")
+    t0 = time.perf_counter()
+    xmodel = Model(xcfg, device="cuda", scan_impl="pallas")
+    xparams = xmodel.init(args.seed)
+    torch.cuda.synchronize()
+    n_mlstm = xmodel.repeats * sum(s.kind == "mlstm"
+                                   for s in xmodel.period_specs)
+    say(f"{xcfg.name}: {xcfg.num_layers} blocks ({n_mlstm} mLSTM), d_model "
+        f"{xcfg.d_model}, {xcfg.param_count() / 1e9:.2f}B params in "
+        f"{xcfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    V = xcfg.vocab_size
+    xrng = np.random.RandomState(args.seed)
+    prompts = torch.as_tensor(xrng.randint(3, V, size=(4, 2048)),
+                              dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    xmodel.calls = dict.fromkeys(xmodel.calls, 0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, xcache = xmodel.prefill(xparams, prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    ssm_launches = _build.launches()
+    check(ssm_launches["tile_scan_logspace"]
+          == n_mlstm * xmodel.calls["prefill"] == n_mlstm,
+          f"K4 launches {ssm_launches['tile_scan_logspace']} != {n_mlstm} "
+          f"mLSTM layers x {xmodel.calls['prefill']} prefill calls")
+    check(tuple(logits.shape) == (4, V) and bool(torch.isfinite(
+        logits).all()), f"prefill logits {tuple(logits.shape)} not finite "
+        f"(4, {V})")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    lengths = torch.full((4,), 2048, dtype=torch.int32, device=dev)
+    gen_ssm = [tok]
+    t0 = time.perf_counter()
+    for _ in range(32):
+        logits, xcache = xmodel.decode_step(xparams, tok, xcache, lengths)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        lengths += 1
+        gen_ssm.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    gen_ssm = torch.stack(gen_ssm, 1)
+    check(bool(torch.isfinite(logits).all())
+          and bool(((gen_ssm >= 0) & (gen_ssm < V)).all()),
+          "xlstm decode gave non-finite logits or tokens out of range")
+    peak_prefill = torch.cuda.max_memory_allocated()
+    say(f"SSM path: Model.prefill 4 x 2048 tokens in {t_prefill:.2f} s "
+        f"({4 * 2048 / t_prefill:.0f} tok/s), K4 logspace launches "
+        f"{ssm_launches['tile_scan_logspace']} = {n_mlstm} mLSTM layers x "
+        f"1 prefill; 32 decode steps x 4 rows in {t_decode:.2f} s "
+        f"({4 * 32 / t_decode:.1f} tok/s); peak memory "
+        f"{peak_prefill / 2**30:.2f} GiB [{card}]")
+
+    xreqs = []
+    for i in range(16):
+        plen = int(xrng.randint(64, 2049))
+        xreqs.append(Request(rid=i, prompt=xrng.randint(
+            3, V, size=plen).astype(np.int32),
+            max_new=int(xrng.randint(16, 65))))
+    del xcache
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    xmodel.calls = dict.fromkeys(xmodel.calls, 0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xce = ContinuousEngine(xmodel, xparams, EngineConfig(
+        max_batch=8, max_seq=2048, decode_tick=8, page_size=32, eos_id=7))
+    check(xce._state_slots and all(xce._slot_span(r) == 32 for r in xreqs),
+          "xlstm requests do not span one state slot (page_size)")
+    for r in xreqs:
+        xce.submit(r)
+    xdone = drain(xce)
+    torch.cuda.synchronize()
+    t_xce = time.perf_counter() - t0
+    peak_xce = torch.cuda.max_memory_allocated()
+    eng_launches = _build.launches()
+    check(len(xdone) == 16, f"served {len(xdone)}/16 xlstm requests")
+    for r in xdone.values():
+        res = np.asarray(r.result)
+        check(1 <= len(res) <= r.max_new and bool(
+            ((res >= 0) & (res < V)).all()), f"xlstm request {r.rid}: "
+            f"{len(res)} tokens for max_new {r.max_new}, or out of range")
+    check(xce.telemetry.pages_per_request == 1.0
+          and len(xce.pages.free) == xce.pages.num_pages
+          and xce._admission.counter.value == 1
+          and xce.telemetry.retired == 16,
+          "state slots: pages per request != 1, or not all freed/retired")
+    gen_x = sum(len(r.result) for r in xdone.values())
+    say(f"SSM path: ContinuousEngine served 16 requests (prompts "
+        f"{min(len(r.prompt) for r in xreqs)}-"
+        f"{max(len(r.prompt) for r in xreqs)}), {gen_x} tokens in "
+        f"{t_xce:.2f} s = {gen_x / t_xce:.1f} tok/s, "
+        f"{xmodel.calls['prefill_chunk']} prefill chunks, "
+        f"{xmodel.calls['decode_step']} decode steps, one page per request; "
+        f"peak memory {peak_xce / 2**30:.2f} GiB [{card}]")
+    say(f"SSM path: the engine launched K4 "
+        f"{eng_launches['tile_scan_logspace']} times, as the reference "
+        f"would: its prefill blocks are at most 256 tokens and mlstm_chunk "
+        f"is 256, so every block takes the one-chunk form (the chunk-"
+        f"parallel K4 form needs S > chunk); Model.prefill above runs K4")
+    check(eng_launches["tile_scan_logspace"] == 0,
+          "the engine's 256-token blocks reached K4 (they should not)")
+    report["ssm_path"] = dict(
+        prefill_s=t_prefill, decode_s=t_decode, launches=ssm_launches,
+        peak_bytes_prefill=peak_prefill, engine_s=t_xce,
+        engine_tokens=gen_x, engine_calls=dict(xmodel.calls),
+        engine_launches=eng_launches, peak_bytes_engine=peak_xce,
+        telemetry=xce.telemetry.snapshot())
+    del xce
+
+    pcache = None
+    ptoks = prompts
+
+    def ssm_prefill():
+        nonlocal pcache
+        pcache = None               # free the last one before the next
+        _, pcache = xmodel.prefill(xparams, ptoks)
+
+    ssm_prefill()
+    dtok = torch.argmax(logits, -1).to(torch.int32)
+    for what, fn, reps in (
+            ("xlstm decode step B=4 after 2048", lambda: xmodel.decode_step(
+                xparams, dtok, pcache, lengths), 5),
+            ("xlstm Model.prefill B=4 S=2048", ssm_prefill, 1)):
+        wall, groups = breakdown(fn, reps)
+        dev_ms = sum(groups.values())
+        report.setdefault("breakdown", {})[what] = dict(
+            wall_ms=wall, device_ms=dev_ms, groups=groups)
+        say(f"{what}, {xcfg.num_layers} blocks: wall {wall:.2f} ms, device "
+            f"{dev_ms:.2f} ms (" + ", ".join(f"{g} {t:.2f}" for g, t in sorted(
+                groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
+    del pcache, xparams, xmodel, prompts, ptoks
+    torch.cuda.empty_cache()
+
+    # ----------------------------- 6. fp32 at xlstm's full width, one period
+    x32 = dataclasses.replace(xcfg, num_layers=8, param_dtype="float32",
+                              compute_dtype="float32")
+    m_pal = Model(x32, device="cuda", scan_impl="pallas")
+    m_lax = Model(x32, device="cuda", scan_impl="lax")
+    p32 = m_pal.init(args.seed + 1)
+    cpu_model = Model(x32, device="cpu", scan_impl="pallas")
+    cpu_params = _tree_to(p32, "cpu")
+    toks = torch.as_tensor(xrng.randint(3, V, size=(2, 512)),
+                           dtype=torch.int32)
+    _build.reset_launches()
+    gl, gcache = m_pal.prefill(p32, toks.cuda())
+    torch.cuda.synchronize()
+    check(_build.launches()["tile_scan_logspace"] == 7,
+          "fp32 period: K4 did not run once per mLSTM layer")
+    cl, ccache = cpu_model.prefill(cpu_params, toks)
+    ll, lcache = m_lax.prefill(p32, toks.cuda())
+    worst_logit = err(gl.cpu(), cl)
+    lengths = torch.full((2,), 512, dtype=torch.int32)
+    nxt = torch.argmax(cl, -1).to(torch.int32)
+    pal_toks, lax_toks = [torch.argmax(gl, -1)], [torch.argmax(ll, -1)]
+    pal_logits = [gl]
+    for _ in range(8):
+        gl, gcache = m_pal.decode_step(p32, nxt.cuda(), gcache,
+                                       lengths.cuda())
+        ll, lcache = m_lax.decode_step(p32, nxt.cuda(), lcache,
+                                       lengths.cuda())
+        cl, ccache = cpu_model.decode_step(cpu_params, nxt, ccache, lengths)
+        worst_logit = max(worst_logit, err(gl.cpu(), cl))
+        nxt, lengths = torch.argmax(cl, -1).to(torch.int32), lengths + 1
+        pal_toks.append(torch.argmax(gl, -1))
+        lax_toks.append(torch.argmax(ll, -1))
+        pal_logits.append(gl)
+    say(f"fp32 xlstm logits, card (K4) vs CPU plain path (8 blocks, prefill "
+        f"2 x 512 + 8 decode steps): max abs err {worst_logit:.3g} (tol "
+        f"{LOGIT_TOL})")
+    check(worst_logit <= LOGIT_TOL, "card xlstm logits disagree with the CPU")
+    pal_toks, lax_toks = torch.stack(pal_toks, 1), torch.stack(lax_toks, 1)
+    ssm_ties = 0
+    for row in range(2):
+        diff = (pal_toks[row] != lax_toks[row]).nonzero()
+        if len(diff):
+            t = int(diff[0])
+            top2 = torch.topk(pal_logits[t][row, :V], 2).values
+            gap = float(top2[0] - top2[1])
+            say(f"row {row}: pallas and lax tokens differ at step {t}; "
+                f"top-2 logit gap there {gap:.3g}")
+            check(gap < NEAR_TIE, f"row {row}: pallas/lax divergence is not "
+                  f"a near-tie (gap {gap:.3g} >= {NEAR_TIE})")
+            ssm_ties += 1
+    say(f"fp32 scan_impl='pallas' == 'lax' tokens for {2 - ssm_ties}/2 rows "
+        f"x 9 tokens ({ssm_ties} near-ties)")
+    del cpu_model, cpu_params, ccache, gcache, lcache, m_lax
+
+    # one request per engine (max_batch=1) against all through 3 lanes: the
+    # continuous engine pads each prompt alone, so a request's recurrent
+    # state does not depend on its neighbours
+    lens6, news6 = (40, 300, 77, 520, 129, 260), (10, 6, 14, 8, 12, 5)
+    reqs6 = [(xrng.randint(3, V, size=n).astype(np.int32), mn)
+             for n, mn in zip(lens6, news6)]
+
+    def serve6(max_batch, **kw):
+        eng = ContinuousEngine(m_pal, p32, EngineConfig(
+            max_batch=max_batch, eos_id=7, max_seq=1024, decode_tick=4,
+            page_size=32, **kw))
+        for i, (pr, mn) in enumerate(reqs6):
+            eng.submit(Request(rid=i, prompt=pr, max_new=mn))
+        return {rid: np.asarray(r.result)
+                for rid, r in drain(eng).items()}, eng
+
+    alone, _ = serve6(1)
+    batched, _ = serve6(3)
+    gated, geng = serve6(3, exit_entropy=math.log(V) + 0.5, exit_patience=3)
+    ties = 0
+    for rid, (pr, _) in enumerate(reqs6):
+        a, b = batched[rid], alone[rid]
+        if np.array_equal(a, b):
+            continue
+        t = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                 min(len(a), len(b)))
+        # the engine's state at step t: the prompt (whose last real
+        # position gives token 0), its pad tokens, then tokens 0..t-1
+        padded = np.pad(pr, (0, -(-len(pr) // 32) * 32 - len(pr)))
+        ctx = pr if t == 0 else np.concatenate([padded, b[:t]])
+        logits, _ = m_pal.prefill(p32, torch.as_tensor(
+            ctx.astype(np.int32)[None], device="cuda"))
+        top2 = torch.topk(logits[0, :V], 2).values
+        gap = float(top2[0] - top2[1])
+        say(f"xlstm request {rid}: batched and one-at-a-time tokens differ "
+            f"at step {t}; top-2 logit gap there {gap:.3g}")
+        check(gap < NEAR_TIE, f"xlstm request {rid}: divergence is not a "
+              f"near-tie (gap {gap:.3g} >= {NEAR_TIE})")
+        ties += 1
+    check(geng.telemetry.early_exits > 0, "the entropy gate never fired")
+    for rid in batched:
+        g = gated[rid]
+        check(np.array_equal(g, batched[rid][:len(g)]),
+              f"xlstm request {rid}: gated stream {g.tolist()} is not a "
+              f"prefix of {batched[rid].tolist()}")
+    say(f"fp32 xlstm ContinuousEngine (3 lanes) == one-at-a-time tokens for "
+        f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties); "
+        f"gated (tau ln V + 0.5, patience 3): {geng.telemetry.early_exits} "
+        f"early exits, every gated stream an exact prefix")
+    report["fp32_ssm"] = dict(max_logit_err=worst_logit,
+                              pallas_lax_ties=ssm_ties, near_ties=ties,
+                              early_exits=geng.telemetry.early_exits)
+    del m_pal, p32
+    torch.cuda.empty_cache()
+
+    # --------------------- 7. the Mamba layer path at jamba-1.5-large width
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.ssm import mamba_forward, mamba_init
+    mcfg = ModelConfig(
+        name="jamba-1.5-large-398b Mamba layer", family="hybrid",
+        num_layers=1, d_model=8192, num_heads=64, num_kv_heads=8,
+        head_dim=128, d_ff=24576, vocab_size=65536, block_pattern=("mamba",),
+        ssm_state_dim=16, ssm_expand=2, ssm_conv_dim=4, mlstm_chunk=256)
+    mparams = mamba_init(torch.Generator(device=dev).manual_seed(
+        args.seed + 2), mcfg)
+    xm = randn(1, 512, mcfg.d_model, dtype=bf)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ym, stm = mamba_forward(mparams, mcfg, xm, scan_impl="pallas")
+    torch.cuda.synchronize()
+    t_mamba = time.perf_counter() - t0
+    mamba_launches = _build.launches()
+    yl, stl = mamba_forward(mparams, mcfg, xm, scan_impl="lax")
+    torch.cuda.synchronize()
+    e_y = err(ym, yl) / float(yl.float().abs().max())
+    e_h = err(stm["ssm"], stl["ssm"]) / float(stl["ssm"].abs().max())
+    check(mamba_launches["tile_scan_affine"] == 2,
+          f"Mamba layer: K4 affine launches "
+          f"{mamba_launches['tile_scan_affine']} != 2 chunks")
+    check(e_y <= TOL["bfloat16"] and e_h <= 1e-4,
+          f"Mamba layer pallas vs lax: output {e_y:.3g} (tol "
+          f"{TOL['bfloat16']}), state {e_h:.3g} (tol 1e-4), relative")
+    say(f"Mamba layer path (d_model 8192, Di 16384, N 16, 512 tokens, "
+        f"bf16): K4 affine launches {mamba_launches['tile_scan_affine']} = "
+        f"2 chunks, {t_mamba * 1e3:.1f} ms; pallas vs lax relative err: "
+        f"output {e_y:.3g}, final state {e_h:.3g} [{card}]")
+    report["mamba_layer"] = dict(launches=mamba_launches, wall_s=t_mamba,
+                                 rel_err_output=e_y, rel_err_state=e_h)
+    del mparams, xm, ym, yl, stm, stl
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 8. report
+    path_launches_by_kernel = {
+        **launches, "tile_scan_logspace": ssm_launches["tile_scan_logspace"],
+        "tile_scan_affine": mamba_launches["tile_scan_affine"]}
     kernels = []
     meta = {
         "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
@@ -551,17 +1014,29 @@ def main() -> None:
                                   "src/repro/kernels/flash_decode.py:53"),
         "flash_decode_combine": ("src/repro_torch/csrc/flash_decode.cu",
                                  "src/repro/kernels/flash_decode.py:94"),
+        "tile_scan_logspace": ("src/repro_torch/csrc/tile_scan.cu",
+                               "src/repro/kernels/tile_scan.py:181"),
+        "tile_scan_affine": ("src/repro_torch/csrc/tile_scan.cu",
+                             "src/repro/kernels/tile_scan.py:181"),
     }
     for name, (source, replaces) in meta.items():
-        row, w = rows[name], worst[name]
-        main_dtype = "float32" if name == "flash_decode_partials" \
-            else "bfloat16"
+        row = rows[name]
+        if name in k4_worst:
+            w = k4_worst[name]
+            errs = {"max_abs_err": w["abs"], "max_err": w["abs"],
+                    "max_rel_err": w["rel"], "tol": K4_TOL,
+                    "tol_kind": "relative", "max_abs_err_fp32": w["abs"]}
+        else:
+            w = worst[name]
+            main_dtype = "float32" if name == "flash_decode_partials" \
+                else "bfloat16"
+            errs = {"max_abs_err": w[main_dtype], "max_err": w[main_dtype],
+                    "tol": TOL[main_dtype],
+                    "max_abs_err_fp32": w.get("float32")}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": w[main_dtype], "max_err": w[main_dtype],
-            "tol": TOL[main_dtype],
-            "max_abs_err_fp32": w.get("float32"),
+            "replaces": replaces,
+            "launches": path_launches_by_kernel[name], **errs,
             "ms": row["ms"], "kernel_ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -128,14 +128,35 @@ class ModelConfig:
         return torch_dtype(self.param_dtype)
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense GQA decoder (the only family
-        the port runs so far)."""
+        """Analytic parameter count, the reference's formula for the layer
+        kinds the port runs (GQA attention, Mamba, mLSTM, sLSTM, dense
+        FFN)."""
+        if self.attn_type == "mla" or self.is_moe or self.cross_attn_period \
+                or self.is_encdec:
+            raise NotImplementedError(
+                "param_count of MLA / MoE / cross-attention / encoder "
+                "configs: ROADMAP.md Queue 1 items 8-9")
         d, hd = self.d_model, self.resolved_head_dim
-        qd, kvd = self.num_heads * hd, self.num_kv_heads * hd
+        di = self.ssm_expand * d
         mats = 3 if self.ffn_type == "swiglu" else 2
-        per_layer = d * (qd + 2 * kvd) + qd * d + mats * d * self.dense_ffn_dim
-        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return emb + self.num_layers * per_layer + d
+        qd, kvd = self.num_heads * hd, self.num_kv_heads * hd
+        dt_rank = max(1, d // 16)
+        per_kind = {
+            "attn": d * (qd + 2 * kvd) + qd * d,
+            "mamba": (d * 2 * di + di * self.ssm_conv_dim
+                      + di * (dt_rank + 2 * self.ssm_state_dim)
+                      + dt_rank * di + di + di * self.ssm_state_dim
+                      + di * 2 + di * d),
+            "mlstm": (d * 2 * di + 3 * self.num_heads * (di // self.num_heads)
+                      ** 2 + 2 * di * self.num_heads + di * d),
+            "slstm": 4 * d * d + 4 * d * d + int(4 / 3 * d * d) * 2,
+        }
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.num_layers):
+            n += per_kind[self.layer_kind(i)]
+            if self.d_ff > 0 and self.dense_ffn_dim > 0:
+                n += mats * d * self.dense_ffn_dim
+        return n + d
 
 
 __all__ = ["ModelConfig", "torch_dtype"]

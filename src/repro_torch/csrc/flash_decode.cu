@@ -28,7 +28,10 @@
 // Positions >= lengths[b] are not read at all: a split that lies wholly
 // past lengths[b] writes m = -1e30, l = 0, acc = 0 without touching the
 // cache, and masked positions of a split contribute exactly 0 (no -inf
-// anywhere, so no inf - inf = nan).  S need not be a multiple of block_k.
+// anywhere, so no inf - inf = nan).  A row with lengths[b] <= 0 gives the
+// reference's dense softmax over all-masked logits, the mean of V: it
+// masks no position and scores each with the same logit -1e30 (one branch
+// at the score store, no extra pass).  S need not be a multiple of block_k.
 // The split count is a function of S alone, never of B or lengths, so
 // batched and one-at-a-time decode sum in the same order.
 //
@@ -59,7 +62,8 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(lengths[b], S);
+  const bool none = lengths[b] <= 0;  // no valid position: attend all S
+  const int len = none ? S : min(lengths[b], S);
   const int s0 = split * block_k;
   const int n = min(s0 + block_k, len) - s0;   // valid positions here
   const size_t kv_row = (size_t)KV * hd;
@@ -118,7 +122,8 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           x += __shfl_xor_sync(0xffffffffu, x, off);
-        if (lane == 0 && jb + u < n) sS[g * block_k + jb + u] = x;
+        if (lane == 0 && jb + u < n)
+          sS[g * block_k + jb + u] = none ? NEG_INF : x;
       }
     }
   }

@@ -46,6 +46,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # m, l, acc, out, B, H, hd, nsplit, is_bf16, stream
         "flash_decode_combine": [P, P, P, P, I, I, I, I, I, P],
     },
+    "tile_scan": {
+        # la, m, C, n, la0, m0, C0, n0, la_out, m_out, C_out, n_out,
+        # L, G, FC, FN, inclusive, stream
+        "tile_scan_logspace": [P] * 12 + [I, I, I, I, I, P],
+        # a, b, a0, h0, gain_out (or null), h_out, B, L, F, inclusive, stream
+        "tile_scan_affine": [P] * 6 + [I, I, I, I, P],
+    },
 }
 
 

@@ -10,9 +10,10 @@ one-at-a-time decoding sum in the same order.  Each block yields a partial
 softmax (m, l, acc) in fp32; the combine is the associative LSE merge.
 
 Positions >= lengths[b] are masked.  A block wholly past lengths[b] yields
-(m, l, acc) = (-1e30, 0, 0), which merges with weight 0; ``lengths`` must be
->= 1 (the decode path passes lengths + 1), since a row with no valid
-position at all gives 0 here where a dense softmax would average V.
+(m, l, acc) = (-1e30, 0, 0), which merges with weight 0.  A row with no
+valid position (lengths[b] <= 0) gives what the reference's dense softmax
+over all-masked logits gives, the mean of V over all S positions: every
+position of it is scored with the one logit -1e30 and none is masked.
 """
 
 from __future__ import annotations
@@ -58,9 +59,11 @@ def decode_partials_plain(q: torch.Tensor, k_cache: torch.Tensor,
     qf = (q.float() * scale).reshape(B, KV, G, hd)
     s = torch.einsum("bkgd,bnjkd->bkgnj", qf, kf)
     pos = torch.arange(nk * block_k, device=q.device).reshape(nk, block_k)
-    valid = pos[None] < lengths.to(q.device).reshape(B, 1, 1)   # (B,nk,bk)
+    lens = lengths.to(q.device).reshape(B, 1, 1)
+    none = lens <= 0                       # no valid position: attend all S
+    valid = pos[None] < torch.where(none, S, lens)               # (B,nk,bk)
     valid = valid[:, None, None]                                 # bcast k,g
-    s = s.masked_fill(~valid, NEG_INF)
+    s = s.masked_fill(~valid | none[:, None, None], NEG_INF)
     m = s.amax(dim=-1)
     p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)

@@ -143,7 +143,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
     """One-token attention against a cache.  q: (B,H,hd)  caches:
-    (B,S,KV,·)  lengths: (B,) valid prefix lengths (≥ 1).  K2 on CUDA."""
+    (B,S,KV,·)  lengths: (B,) valid prefix lengths; a row with none
+    averages V over all S positions, as the reference does.  K2 on CUDA."""
     if q.is_cuda:
         return flash_decode(q, k_cache, v_cache, lengths.to(torch.int32),
                             scale=scale)

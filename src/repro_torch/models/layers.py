@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE (full and ``rotary_dims``), SwiGLU, embedding.
+"""Shared layers: RMSNorm, RoPE (full and ``rotary_dims``), SwiGLU, GELU,
+embedding.
 
 Plain functions over explicit parameter trees (nested dicts of tensors), the
 counterpart of ``repro.models.layers``.  Initializers draw from an explicit
@@ -114,6 +115,12 @@ def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(g) * u) @ params["down"]
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
+    default is the erf form, up to ~1e-3 away)."""
+    return F.gelu(x, approximate="tanh")
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
@@ -130,5 +137,5 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "Params", "dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
     "rope_freqs", "rope_table", "apply_rope", "swiglu_init", "swiglu",
-    "embedding_init", "embed",
+    "gelu", "embedding_init", "embed",
 ]

@@ -1,5 +1,6 @@
-"""The Model facade for a decoder-only dense LM: init / prefill / chunked
-prefill / decode — the decoder-only subset of ``repro.models.model``.
+"""The Model facade for a decoder-only LM (dense GQA, recurrent xLSTM /
+Mamba stacks): init / prefill / chunked prefill / decode — the decoder-only
+subset of ``repro.models.model``.
 
 Parameter and cache trees have the JAX package's layout: ``"stage"`` is a
 list with one dict per period position whose leaves are stacked over the
@@ -8,8 +9,11 @@ so weights convert between the packages by name (``repro_torch.weights``).
 
 The model lives on one explicit device, ``"cuda"`` by default; only the
 tests pass ``"cpu"``.  ``calls`` counts prefill, chunked-prefill and decode
-calls, so a run can check each layer call launched exactly one attention
-kernel.
+calls, so a run can check each layer call launched exactly one kernel.
+``scan_impl`` picks the SSM recurrence backend for full-sequence paths, as
+in the reference: ``"lax"`` (the sequential chunk loop) or ``"pallas"``
+(the chunk-parallel form around one K4 launch; the name is the
+reference's).
 """
 
 from __future__ import annotations
@@ -20,9 +24,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import Params, embed, embedding_init, rmsnorm, rmsnorm_init
-from .transformer import (check_ported, layer_apply, layer_cache_shape,
-                          layer_decode, layer_init, layer_prefill_chunk,
-                          stage_layout)
+from .transformer import (SSM_KINDS, check_ported, layer_apply,
+                          layer_cache_shape, layer_decode, layer_init,
+                          layer_prefill_chunk, stage_layout)
 
 
 def resolve_device(device) -> torch.device:
@@ -43,8 +47,13 @@ def _index(tree: Any, r: int) -> Any:
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 scan_impl: str = "lax"):
+        if scan_impl not in ("lax", "pallas"):
+            raise ValueError(
+                f"scan_impl must be 'lax' or 'pallas', got {scan_impl!r}")
         self.cfg = cfg
+        self.scan_impl = scan_impl
         self.device = resolve_device(device)
         self.prefix_specs, self.period_specs, self.repeats = stage_layout(cfg)
         if self.prefix_specs:
@@ -54,6 +63,15 @@ class Model:
         for s in self.period_specs:
             check_ported(cfg, s)
         self.calls = {"prefill": 0, "prefill_chunk": 0, "decode_step": 0}
+
+    @property
+    def recurrent_only(self) -> bool:
+        """True when decode state is O(1) per layer (no attention KV grows
+        with the sequence): serving then needs a constant page span per
+        request instead of prompt + max_new cache positions."""
+        return (not self.cfg.is_encdec
+                and all(s.kind in SSM_KINDS and not s.has_cross
+                        for s in self.prefix_specs + self.period_specs))
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> Params:
@@ -118,9 +136,13 @@ class Model:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         for spec, lp, lc in self._layers(params, cache):
             x, payload = layer_apply(self.cfg, spec, lp, x, positions,
-                                     collect_cache=True)
+                                     collect_cache=True,
+                                     scan_impl=self.scan_impl)
             for name, arr in payload.items():
-                lc[name][:, :S] = arr
+                if name in ("k", "v"):
+                    lc[name][:, :S] = arr
+                else:                       # recurrent state: O(1) per row
+                    lc[name].copy_(arr)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return self._logits_head(params, x[:, -1:])[:, 0], cache
 
@@ -135,7 +157,8 @@ class Model:
         pos0 = int(pos0)
         x = self._embed_in(params, tokens)
         for spec, lp, lc in self._layers(params, cache):
-            x = layer_prefill_chunk(self.cfg, spec, lp, x, lc, pos0)
+            x = layer_prefill_chunk(self.cfg, spec, lp, x, lc, pos0,
+                                    scan_impl=self.scan_impl)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         if all_logits:
             return self._logits_head(params, x), cache

@@ -1,5 +1,5 @@
-"""Layer specs, periods and the dense decoder layer — the dense subset of
-``repro.models.transformer``.
+"""Layer specs, periods and the decoder layers — GQA attention, Mamba,
+mLSTM and sLSTM — the counterpart of ``repro.models.transformer``.
 
 Layers are grouped into *periods* (the smallest repeating unit of specs) and
 parameters are stacked over period repeats, as in the JAX package, so a
@@ -9,7 +9,8 @@ over repeats takes the place of ``lax.scan``.
 Caches are updated in place: the prefill chunk writes its K/V into the
 cache slice, and the decode step writes the new token's K/V at each row's
 length (rows already at the cache width write nothing, the JAX package's
-mask-select semantics).  The JAX versions return new arrays instead.
+mask-select semantics).  Recurrent layers overwrite their O(1) state.  The
+JAX versions return new arrays instead.
 """
 
 from __future__ import annotations
@@ -24,16 +25,19 @@ from .attention import (attn_chunk_sizes, blockwise_attention,
                         decode_attention, gqa_init, gqa_project_kv,
                         gqa_project_qkv, gqa_self_attention, plain_attention)
 from .layers import Params, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .ssm import (mamba_forward, mamba_init, mamba_step, mlstm_forward,
+                  mlstm_init, mlstm_step, slstm_forward, slstm_init,
+                  slstm_step)
 
-# spec kinds the JAX package has and the port does not run yet → ROADMAP item
+# what the JAX package has and the port does not run yet → ROADMAP item
 NOT_PORTED = {
     "mla": "ROADMAP.md Queue 1 item 8 (MLA attention)",
-    "mamba": "ROADMAP.md Queue 1 item 10 (SSM families)",
-    "mlstm": "ROADMAP.md Queue 1 item 10 (SSM families)",
-    "slstm": "ROADMAP.md Queue 1 item 10 (SSM families)",
     "moe": "ROADMAP.md Queue 1 item 9 (MoE)",
     "cross": "ROADMAP.md Queue 1 item 8 (cross-attention)",
 }
+SSM_KINDS = ("mamba", "mlstm", "slstm")
+_MIXER_INIT = {"mamba": mamba_init, "mlstm": mlstm_init,
+               "slstm": slstm_init}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +77,7 @@ def stage_layout(cfg: ModelConfig
 
 def check_ported(cfg: ModelConfig, spec: LayerSpec) -> None:
     """Raise for what the port cannot run yet, naming the ROADMAP item."""
-    if spec.kind != "attn":
+    if spec.kind not in ("attn",) + SSM_KINDS:
         raise NotImplementedError(f"layer kind {spec.kind!r}: "
                                   f"{NOT_PORTED[spec.kind]}")
     if spec.is_moe:
@@ -93,8 +97,11 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, *,
     check_ported(cfg, spec)
     dev = gen.device
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, cfg.pdtype(), dev,
-                                     lead=lead),
-                 "mixer": gqa_init(gen, cfg, lead=lead)}
+                                     lead=lead)}
+    if spec.kind == "attn":
+        p["mixer"] = gqa_init(gen, cfg, lead=lead)
+    else:
+        p["mixer"] = _MIXER_INIT[spec.kind](gen, cfg, lead=lead)
     if spec.has_ffn:
         p["ln2"] = rmsnorm_init(cfg.d_model, cfg.pdtype(), dev, lead=lead)
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.dense_ffn_dim,
@@ -109,27 +116,57 @@ def _ffn(cfg: ModelConfig, spec: LayerSpec, lp: Params,
     return x + swiglu(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
 
 
+def _ssm_forward(cfg: ModelConfig, spec: LayerSpec, lp: Params,
+                 h: torch.Tensor, state, scan_impl: str):
+    """The recurrent mixer over a sequence, entering ``state`` (None: zero
+    state).  Returns (mix, new state)."""
+    if spec.kind == "mamba":
+        return mamba_forward(
+            lp["mixer"], cfg, h, scan_impl=scan_impl,
+            h0=None if state is None else state["ssm"],
+            conv_buf=None if state is None else state["conv"])
+    if spec.kind == "mlstm":
+        return mlstm_forward(lp["mixer"], cfg, h, state=state,
+                             scan_impl=scan_impl)
+    return slstm_forward(lp["mixer"], cfg, h, state=state)
+
+
 def layer_apply(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                 x: torch.Tensor, positions: torch.Tensor, *,
-                causal: bool = True, collect_cache: bool = False):
+                causal: bool = True, collect_cache: bool = False,
+                scan_impl: str = "lax"):
     """Full-sequence layer.  Returns (x, cache payload or None)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    x = x + gqa_self_attention(lp["mixer"], cfg, h, positions, causal=causal)
     payload = None
-    if collect_cache:
-        k, v = gqa_project_kv(lp["mixer"], cfg, h, positions)
-        payload = {"k": k, "v": v}
+    if spec.kind in SSM_KINDS:
+        mix, st = _ssm_forward(cfg, spec, lp, h, None, scan_impl)
+        x = x + mix
+        if collect_cache:
+            payload = st
+    else:
+        x = x + gqa_self_attention(lp["mixer"], cfg, h, positions,
+                                   causal=causal)
+        if collect_cache:
+            k, v = gqa_project_kv(lp["mixer"], cfg, h, positions)
+            payload = {"k": k, "v": v}
     return _ffn(cfg, spec, lp, x), payload
+
+
+_STEPS = {"mamba": mamba_step, "mlstm": mlstm_step, "slstm": slstm_step}
 
 
 def layer_decode(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                  x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  positions: torch.Tensor, lengths: torch.Tensor
                  ) -> torch.Tensor:
-    """x: (B,1,D); writes the token's K/V into ``cache`` in place (it
-    attends to itself), then attends over lengths + 1 positions."""
+    """x: (B,1,D).  Attention writes the token's K/V into ``cache`` in
+    place (it attends to itself), then attends over lengths + 1 positions;
+    a recurrent layer advances its state in ``cache`` in place."""
     B = x.shape[0]
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if spec.kind in SSM_KINDS:
+        y, _ = _STEPS[spec.kind](lp["mixer"], cfg, h, cache)
+        return _ffn(cfg, spec, lp, x + y)
     q, k_new, v_new = gqa_project_qkv(lp["mixer"], cfg, h,
                                       positions[:, None])
     kc, vc = cache["k"], cache["v"]
@@ -147,17 +184,24 @@ def layer_decode(cfg: ModelConfig, spec: LayerSpec, lp: Params,
 
 def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                         x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                        pos0: int) -> torch.Tensor:
+                        pos0: int, *, scan_impl: str = "lax"
+                        ) -> torch.Tensor:
     """Process chunk positions [pos0, pos0+c) against cached history.
-    Writes the chunk's K/V into ``cache`` in place; attention runs over
+    Attention writes the chunk's K/V into ``cache`` in place and runs over
     the full cache width with the causal mask doing the windowing (K1
-    prunes the kv loop at pos0 + c)."""
+    prunes the kv loop at pos0 + c); a recurrent layer continues from the
+    state in ``cache`` and overwrites it."""
     B, c, D = x.shape
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if spec.kind in SSM_KINDS:
+        y, st = _ssm_forward(cfg, spec, lp, h, cache, scan_impl)
+        for name, t in st.items():
+            cache[name].copy_(t)
+        return _ffn(cfg, spec, lp, x + y)
     S_max = cache["k"].shape[1]
     if pos0 < 0 or pos0 + c > S_max:
         raise ValueError(f"chunk [{pos0}, {pos0 + c}) outside the cache "
                          f"width {S_max}")
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     positions = pos0 + torch.arange(c, device=x.device).expand(B, c)
     q, k, v = gqa_project_qkv(lp["mixer"], cfg, h, positions)
     cache["k"][:, pos0:pos0 + c] = k      # in place into the cache slice
@@ -178,7 +222,24 @@ def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       ) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
     """Returns {name: (shape, dtype)} for one layer's decode state."""
     check_ported(cfg, spec)
-    hd, kv, dt = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.dtype()
+    dt, d = cfg.dtype(), cfg.d_model
+    di = cfg.ssm_expand * d
+    conv = (batch, cfg.ssm_conv_dim - 1)
+    if spec.kind == "mamba":
+        return {"ssm": ((batch, di, cfg.ssm_state_dim), torch.float32),
+                "conv": (conv + (di,), dt)}
+    if spec.kind == "mlstm":
+        H = cfg.num_heads
+        dh = di // H
+        return {"C": ((batch, H, dh, dh), torch.float32),
+                "n": ((batch, H, dh), torch.float32),
+                "m": ((batch, H), torch.float32),
+                "conv": (conv + (di,), dt)}
+    if spec.kind == "slstm":
+        return {**{k: ((batch, d), torch.float32)
+                   for k in ("c", "n", "h", "m")},
+                "conv": (conv + (d,), dt)}
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
     return {"k": ((batch, max_seq, kv, hd), dt),
             "v": ((batch, max_seq, kv, hd), dt)}
 

@@ -4,9 +4,8 @@ counterpart of ``repro.serve.early_exit``.
 ``make_decode_block`` runs n decode steps per call; finished sequences keep
 stepping until their block ends (the waste is counted and reported).
 ``make_decode_tick`` is the continuous-batching variant with per-slot
-budgets.  The steps stay on the device: the host reads results only at
-block ends.  The entropy-gated tick (``make_gated_decode_tick``) comes with
-the SSM port, ROADMAP.md Queue 1 item 10.
+budgets, and ``make_gated_decode_tick`` adds the entropy gate.  The steps
+stay on the device: the host reads results only at block ends.
 """
 
 from __future__ import annotations
@@ -91,6 +90,52 @@ def make_decode_tick(model: Model, eos_id: int):
     return tick
 
 
+def make_gated_decode_tick(model: Model, eos_id: int, *, tau: float,
+                           patience: int = 2):
+    """Uncertainty-gated decode tick: EOS retirement plus an entropy gate.
+
+    A lane whose predictive entropy stays below ``tau`` nats for
+    ``patience`` consecutive live steps retires early, so its lane (and its
+    state slot) backfills from the queue.  Gating only stops emission:
+    every token emitted before the gate fires is the greedy token the
+    ungated tick produces, so a gated stream is an exact prefix of the
+    ungated one.
+
+    Returns fn(params, tokens, cache, lengths, finished, remaining, streak,
+    n) → (tokens, cache, lengths, finished, remaining, streak, gated,
+    out (B, n), wasted (B,)).
+    """
+    V = model.cfg.vocab_size
+
+    def tick(params, tokens, cache, lengths, finished, remaining, streak,
+             n: int):
+        B = tokens.shape[0]
+        dev = tokens.device
+        out = torch.full((B, n), -1, dtype=torch.int32, device=dev)
+        wasted = torch.zeros((B,), dtype=torch.int32, device=dev)
+        gated = torch.zeros((B,), dtype=torch.bool, device=dev)
+        for i in range(n):
+            live = ~finished
+            logits, cache = model.decode_step(params, tokens, cache, lengths)
+            lg = logits[:, :V]
+            p = torch.softmax(lg, dim=-1)
+            ent = -torch.sum(p * torch.log(p + 1e-9), dim=-1)   # (B,) nats
+            nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+            wasted = wasted + finished.to(torch.int32)
+            out[:, i] = torch.where(finished, -1, nxt)
+            remaining = remaining - live.to(torch.int32)
+            streak = torch.where(live & (ent < tau), streak + 1, 0)
+            gate = live & (streak >= patience)
+            finished = finished | (nxt == eos_id) | (remaining <= 0) | gate
+            gated = gated | gate
+            lengths = lengths + live.to(torch.int32)
+            tokens = torch.where(live, nxt, tokens)
+        return (tokens, cache, lengths, finished, remaining, streak, gated,
+                out, wasted)
+
+    return tick
+
+
 def decode_until_eos(model: Model, params: Any, first_tokens: torch.Tensor,
                      cache: Any, lengths: torch.Tensor, *, eos_id: int,
                      max_new: int = 256, use_blocks: bool = True,
@@ -133,4 +178,4 @@ def decode_until_eos(model: Model, params: Any, first_tokens: torch.Tensor,
 
 
 __all__ = ["decode_until_eos", "make_decode_block", "make_decode_tick",
-           "DecodeStats"]
+           "make_gated_decode_tick", "DecodeStats"]

@@ -14,9 +14,13 @@ logit and decode runs with true per-row lengths.  Slot state and caches are
 tensors on the model's device, updated in place where the JAX engines
 rebuild arrays.
 
+Recurrent-only models (xLSTM, pure Mamba stacks) hold O(1) decode state
+per request, so :class:`ContinuousEngine` accounts one page per request (a
+*state slot*) instead of a sequence span.  ``EngineConfig.exit_entropy``
+turns on the entropy-gated decode tick.
+
 Not ported yet (raise ``NotImplementedError``): ``admission="simulate"``
-(needs the virtual-time Runtime), the entropy-gated tick
-(``exit_entropy``), and the chaos/drain hooks ``kill_slot``,
+(needs the virtual-time Runtime) and the chaos/drain hooks ``kill_slot``,
 ``install_signal_handlers`` and ``handoff``.
 """
 
@@ -33,14 +37,13 @@ import torch
 from ..core import Cap, WorkRange, cap
 from ..models.model import Model
 from .early_exit import (DecodeStats, decode_until_eos, make_decode_block,
-                         make_decode_tick)
+                         make_decode_tick, make_gated_decode_tick)
 from .kvcache import PageTable, cache_slot_insert
 from .prefill import ChunkedPrefill
 from .slo import SLO_CLASSES, FifoServePolicy, ServePolicy
 
 _SIMULATE = ("admission='simulate' needs the virtual-time Runtime: "
              "ROADMAP.md Queue 1 item 14")
-_GATED = "the entropy-gated decode tick: ROADMAP.md Queue 1 item 10"
 _CHAOS = "slot-death and drain hooks: ROADMAP.md Queue 1 item 15"
 
 
@@ -79,7 +82,11 @@ class EngineConfig:
     num_pages: Optional[int] = None
     max_queue: Optional[int] = None
     class_caps: Optional[Dict[str, int]] = None
-    exit_entropy: Optional[float] = None     # not ported
+    # uncertainty-gated early exit (continuous engine): a lane whose
+    # predictive entropy stays below ``exit_entropy`` nats for
+    # ``exit_patience`` consecutive steps retires early and its slot
+    # backfills.  None disables gating (the exact decode tick).
+    exit_entropy: Optional[float] = None
     exit_patience: int = 2
 
     def __post_init__(self) -> None:
@@ -138,6 +145,7 @@ class EngineTelemetry:
     shed_by_class: Dict[str, int] = dataclasses.field(default_factory=dict)
     class_preemptions: int = 0
     policy_swaps: int = 0
+    early_exits: int = 0          # lanes retired by the entropy gate
     ewma: float = 0.25
     # fields already seeded by a first observation (the first sample seeds
     # the EWMA directly instead of mixing with the zero init)
@@ -328,6 +336,7 @@ class _Slot:
     eos_hit: bool = False
     steps: int = 0
     wasted: int = 0
+    early_exit: bool = False      # retired by the entropy gate
 
 
 @dataclasses.dataclass
@@ -354,8 +363,6 @@ class ContinuousEngine:
                  policy: Optional[ServePolicy] = None):
         if cfg.admission != "cap":
             raise NotImplementedError(_SIMULATE)
-        if cfg.exit_entropy is not None:
-            raise NotImplementedError(_GATED)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -381,10 +388,19 @@ class ContinuousEngine:
         self.tokens = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.finished = torch.ones((B,), dtype=torch.bool, device=dev)
         self.remaining = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.streak = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.slots: List[Optional[_Slot]] = [None] * B
         self._job: Optional[_PrefillJob] = None
         self._parked: Optional[_PrefillJob] = None
-        self._tick = make_decode_tick(model, cfg.eos_id)
+        # recurrence-only models hold O(1) decode state per request: pages
+        # become fixed-size state slots instead of seq-length KV spans
+        self._state_slots = model.recurrent_only
+        if cfg.exit_entropy is not None:
+            self._tick = make_gated_decode_tick(
+                model, cfg.eos_id, tau=cfg.exit_entropy,
+                patience=cfg.exit_patience)
+        else:
+            self._tick = make_decode_tick(model, cfg.eos_id)
         self._policy: ServePolicy = policy or FifoServePolicy()
 
     # ---------------------------------------------------------------- policy
@@ -400,7 +416,11 @@ class ContinuousEngine:
     # ---------------------------------------------------------------- admit
     def _slot_span(self, req: Request) -> int:
         """Worst-case cache positions the request can touch: the padded
-        prefill width or true length + budget, whichever is larger."""
+        prefill width or true length + budget, whichever is larger.  A
+        recurrent-only model's request holds one page (its state slot)
+        whatever its prompt or budget."""
+        if self._state_slots:
+            return self.cfg.page_size
         pad = max(32, -(-len(req.prompt) // 32) * 32)
         return max(pad, len(req.prompt) + req.max_new)
 
@@ -574,6 +594,7 @@ class ContinuousEngine:
         self.tokens[slot] = first
         self.finished[slot] = done
         self.remaining[slot] = req.max_new - 1
+        self.streak[slot] = 0
         self.slots[slot] = _Slot(req=req, first=first, lease=job.lease,
                                  class_lease=job.class_lease,
                                  eos_hit=(first == self.cfg.eos_id))
@@ -589,10 +610,18 @@ class ContinuousEngine:
             return
         n = self.cfg.decode_tick
         t0 = time.perf_counter()
-        (self.tokens, self.cache, self.lengths, self.finished,
-         self.remaining, out, wasted) = self._tick(
-            self.params, self.tokens, self.cache, self.lengths,
-            self.finished, self.remaining, n)
+        gated_np = None
+        if self.cfg.exit_entropy is not None:
+            (self.tokens, self.cache, self.lengths, self.finished,
+             self.remaining, self.streak, gated, out, wasted) = self._tick(
+                self.params, self.tokens, self.cache, self.lengths,
+                self.finished, self.remaining, self.streak, n)
+            gated_np = gated.cpu().numpy()
+        else:
+            (self.tokens, self.cache, self.lengths, self.finished,
+             self.remaining, out, wasted) = self._tick(
+                self.params, self.tokens, self.cache, self.lengths,
+                self.finished, self.remaining, n)
         out_np = out.cpu().numpy()        # waits for the tick
         self.telemetry.observe_decode(int((out_np >= 0).sum()),
                                       time.perf_counter() - t0, n)
@@ -605,6 +634,8 @@ class ContinuousEngine:
             s.wasted += int(wasted_np[i])
             if (valid == self.cfg.eos_id).any():
                 s.eos_hit = True
+            if gated_np is not None and bool(gated_np[i]):
+                s.early_exit = True
 
     # --------------------------------------------------------------- retire
     def _retire(self) -> List[Request]:
@@ -622,7 +653,10 @@ class ContinuousEngine:
                 steps_run=s.steps,
                 useful_tokens=len(r.result),
                 wasted_tokens=s.steps - (len(r.result) - 1),
-                all_finished=s.eos_hit)
+                all_finished=s.eos_hit,
+                early_exit=s.early_exit)
+            if s.early_exit:
+                self.telemetry.early_exits += 1
             r.t_done = now
             self.pages.release(r.rid)
             s.lease.on_finish()

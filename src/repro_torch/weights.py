@@ -39,19 +39,29 @@ def _to_tensor(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
     return t.to(device)
 
 
-def from_numpy_params(tree: Any, cfg: ModelConfig, device="cuda") -> Any:
+# leaves the reference keeps in fp32 at every param_dtype: Mamba's A_log
+# and D (repro/models/ssm.py mamba_init), keyed by (parent, leaf) name
+FP32_LEAVES = {("mixer", "A_log"), ("mixer", "D")}
+
+
+def from_numpy_params(tree: Any, cfg: ModelConfig, device="cuda",
+                      _path: tuple = ()) -> Any:
     """numpy leaves → tensors on ``device``, checking the float leaves are
-    in ``cfg.param_dtype``."""
+    in ``cfg.param_dtype`` (``FP32_LEAVES`` in fp32)."""
     if isinstance(tree, dict):
-        return {k: from_numpy_params(v, cfg, device) for k, v in tree.items()}
+        return {k: from_numpy_params(v, cfg, device, _path + (k,))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [from_numpy_params(v, cfg, device) for v in tree]
+        return [from_numpy_params(v, cfg, device, _path + (i,))
+                for i, v in enumerate(tree)]
     a = np.asarray(tree)
     name = a.dtype.name
     if a.dtype.kind == "f" or name in _VIEWS:
-        if name != cfg.param_dtype:
-            raise TypeError(f"leaf dtype {name} != cfg.param_dtype "
-                            f"{cfg.param_dtype}")
+        want = "float32" if tuple(_path[-2:]) in FP32_LEAVES \
+            else cfg.param_dtype
+        if name != want:
+            raise TypeError(f"leaf {list(_path)} dtype {name} != {want} "
+                            f"(cfg.param_dtype {cfg.param_dtype})")
     return _to_tensor(a, name, device)
 
 

@@ -244,8 +244,9 @@ def test_unported_paths_raise_and_name_roadmap(pair):
     _, _, tm, tp = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(tm, tp, EngineConfig(admission="simulate"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousEngine(tm, tp, EngineConfig(exit_entropy=0.5))
+    # the gated tick is ported: only its configuration is checked
+    with pytest.raises(ValueError, match="exit_entropy"):
+        EngineConfig(exit_entropy=0.0)
     eng = ContinuousEngine(tm, tp, EngineConfig(max_batch=1, max_seq=64))
     for hook in (lambda: eng.kill_slot(0), eng.install_signal_handlers,
                  eng.handoff):
