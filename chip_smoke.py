@@ -11,30 +11,45 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    TF32 off for matmuls and convolutions;
 1. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once);
-2. hold each kernel against its plain PyTorch version at its path's shapes
+2. the stable sort's kernels against their plain twins at the sort path's
+   shapes, bit for bit (K5 ``tile_scan_add``, K6a ``radix_mt_local``, K6b
+   ``radix_mt_scatter``, K7a ``radix_tile_sort``, K7b
+   ``radix_tile_sort_packed``, K8 ``merge_level``), each timed beside its
+   twin and a per-row ``torch.sort`` / ``torch.cumsum``;
+3. the sort path: ``ops.stable_argsort`` / ``argsort`` / ``sort_u32`` on
+   the card at users' sizes (12-bit ids at 2^20, deepseek-v2-lite's
+   routing of 8 x 4096 tokens top-6 and its ragged twin, 8-bit keys at
+   2^24, the merge strategy at 2^20 and at 17 bits, random u32 words, one
+   tile, and adversarial 2^20 inputs): every order equals
+   ``torch.argsort(stable=True)`` and the CPU twins', every case launches
+   the expected kernels as often as the reference's ``SortSchedule``
+   says; then each case timed against ``torch.argsort(stable=True)``, and
+   the first five profiled (device time by kernel beside wall time);
+4. hold K1, K2 and K4 against their plain versions at their paths' shapes
    and time kernel, plain version and, where one PyTorch call computes the
    same function, that call (``F.scaled_dot_product_attention`` for K1/K2;
    none exists for the K4 scans): K1, K2 (with a zero-length row), K4
    ``logspace`` (mLSTM carry, with extreme gates) and K4 ``affine`` (Mamba);
-3. the dense path: llama3-8b at full width and full depth (32 layers,
+5. the dense path: llama3-8b at full width and full depth (32 layers,
    bf16, seeded random weights) serves 16 requests through
    ``ContinuousEngine`` and 4 through the sync ``Engine``; every attention
    call must have launched a kernel (launch counters = layers x chunks /
    decode steps);
-4. fp32 checks at full width, 2 layers: the card's logits against the CPU
+6. fp32 checks at full width, 2 layers: the card's logits against the CPU
    plain path on the same weights, and continuous-batching tokens against
    one-at-a-time tokens;
-5. the SSM path: xlstm-1.3b at full width and depth (48 blocks, bf16,
+7. the SSM path: xlstm-1.3b at full width and depth (48 blocks, bf16,
    ``scan_impl="pallas"``): ``Model.prefill`` of 4 x 2048 tokens (K4 once
    per mLSTM layer) and 32 decode steps, then 16 requests through
-   ``ContinuousEngine`` with O(1) state slots;
-6. fp32 checks at xlstm's full width, one period (8 blocks): card logits
+   ``ContinuousEngine`` with O(1) state slots; profiles of one decode step
+   and of a 1 x 512 prefill;
+8. fp32 checks at xlstm's full width, one period (8 blocks): card logits
    against the CPU plain path, pallas == lax tokens, batched ==
    one-at-a-time tokens, and the entropy-gated stream an exact prefix;
-7. the Mamba layer path: one Mamba mixer at jamba-1.5-large's width
+9. the Mamba layer path: one Mamba mixer at jamba-1.5-large's width
    (d_model 8192) over 512 tokens, ``scan_impl="pallas"`` (K4 affine once
    per chunk) against ``"lax"``;
-8. the kernels line, then the last line
+10. the kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  Details
@@ -129,7 +144,6 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 say(f"  {src}: {line.strip()}")
 
-    # ---------------------------------------------------------- 2. kernels
     report = {"card": card, "cases": [], "timings": {}}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -141,6 +155,57 @@ def main() -> None:
 
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
+
+    # timing: CUDA graphs of back-to-back calls, so host launch overhead is
+    # not in the number; K/V-reading kernels run after an L2 flush (the
+    # serving path reads the cache cold), combine warm (its partials were
+    # just written)
+    flush_buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def graph_ms(body, iters):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                body()
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            g.replay()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        del g
+        return sorted(times)[1]
+
+    def device_ms(fn, cold):
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        iters = int(min(200, max(5, 20.0 / max(s.elapsed_time(e), 1e-3))))
+        if not cold:
+            return graph_ms(fn, iters) / iters
+        flush = flush_buf.zero_
+        both = graph_ms(lambda: (flush(), fn()), iters)
+        alone = graph_ms(flush, iters)
+        return max(both - alone, 0.0) / iters
+
+    # ------------------------------------ 2. the sort's kernels vs their twins
+    sort_rows, sort_errs = sort_kernel_rows(np, torch, dev, args.seed,
+                                            device_ms, card, report)
+
+    # ------------------------------------------------------ 3. the sort path
+    sort_launches = sort_path(np, torch, dev, args.seed, card, report)
+
+    # ------------------------------------ 4. K1, K2, K4 vs their plain twins
 
     worst = {}               # kernel → {dtype: max abs err}
 
@@ -277,48 +342,6 @@ def main() -> None:
     for kname, w in worst.items():
         say(f"{kname}: max abs err " + ", ".join(
             f"{d} {e:.3g} (tol {TOL[d]})" for d, e in w.items()))
-
-    # timing: CUDA graphs of back-to-back calls, so host launch overhead is
-    # not in the number; K/V-reading kernels run after an L2 flush (the
-    # serving path reads the cache cold), combine warm (its partials were
-    # just written)
-    flush_buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-
-    def graph_ms(body, iters):
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="relaxed"):
-            for _ in range(iters):
-                body()
-        g.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            g.replay()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        del g
-        return sorted(times)[1]
-
-    def device_ms(fn, cold):
-        fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        iters = int(min(200, max(5, 20.0 / max(s.elapsed_time(e), 1e-3))))
-        if not cold:
-            return graph_ms(fn, iters) / iters
-        flush = flush_buf.zero_
-        both = graph_ms(lambda: (flush(), fn()), iters)
-        alone = graph_ms(flush, iters)
-        return max(both - alone, 0.0) / iters
 
     bf = torch.bfloat16
 
@@ -472,9 +495,8 @@ def main() -> None:
             f"{main_lens.mean():.0f}"],
         **k4_rows,
     }
-    del flush_buf
 
-    # ---------------------------------------------------------- 3. main path
+    # ---------------------------------------------------------- 5. main path
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import (ContinuousEngine, Engine,
@@ -647,7 +669,7 @@ def main() -> None:
     del dcache, pcache, params, model
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------- 4. fp32 at full width
+    # ------------------------------------------------- 6. fp32 at full width
     cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
                                 compute_dtype="float32")
     model = Model(cfg32, device="cuda")
@@ -720,7 +742,7 @@ def main() -> None:
     del ce, params, model
     torch.cuda.empty_cache()
 
-    # ------------------------------------------ 5. the SSM path: xlstm-1.3b
+    # ------------------------------------------ 7. the SSM path: xlstm-1.3b
     xcfg = get_config("xlstm-1.3b")
     t0 = time.perf_counter()
     xmodel = Model(xcfg, device="cuda", scan_impl="pallas")
@@ -842,10 +864,15 @@ def main() -> None:
 
     ssm_prefill()
     dtok = torch.argmax(logits, -1).to(torch.int32)
+    # the prefill profile runs one row of 512 tokens (2 chunks, K4 once per
+    # mLSTM layer): its cost is the profiler's per-event work, and the
+    # sLSTM loop's events grow with the sequence, not the batch
+    short = prompts[:1, :512].contiguous()
     for what, fn, reps in (
             ("xlstm decode step B=4 after 2048", lambda: xmodel.decode_step(
                 xparams, dtok, pcache, lengths), 5),
-            ("xlstm Model.prefill B=4 S=2048", ssm_prefill, 1)):
+            ("xlstm Model.prefill B=1 S=512", lambda: xmodel.prefill(
+                xparams, short), 1)):
         wall, groups = breakdown(fn, reps)
         dev_ms = sum(groups.values())
         report.setdefault("breakdown", {})[what] = dict(
@@ -853,10 +880,10 @@ def main() -> None:
         say(f"{what}, {xcfg.num_layers} blocks: wall {wall:.2f} ms, device "
             f"{dev_ms:.2f} ms (" + ", ".join(f"{g} {t:.2f}" for g, t in sorted(
                 groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
-    del pcache, xparams, xmodel, prompts, ptoks
+    del pcache, xparams, xmodel, prompts, ptoks, short
     torch.cuda.empty_cache()
 
-    # ----------------------------- 6. fp32 at xlstm's full width, one period
+    # ----------------------------- 8. fp32 at xlstm's full width, one period
     x32 = dataclasses.replace(xcfg, num_layers=8, param_dtype="float32",
                               compute_dtype="float32")
     m_pal = Model(x32, device="cuda", scan_impl="pallas")
@@ -965,7 +992,7 @@ def main() -> None:
     del m_pal, p32
     torch.cuda.empty_cache()
 
-    # --------------------- 7. the Mamba layer path at jamba-1.5-large width
+    # --------------------- 9. the Mamba layer path at jamba-1.5-large width
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models.ssm import mamba_forward, mamba_init
     mcfg = ModelConfig(
@@ -1002,7 +1029,7 @@ def main() -> None:
     del mparams, xm, ym, yl, stm, stl
     torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- 8. report
+    # --------------------------------------------------------- 10. report
     path_launches_by_kernel = {
         **launches, "tile_scan_logspace": ssm_launches["tile_scan_logspace"],
         "tile_scan_affine": mamba_launches["tile_scan_affine"]}
@@ -1042,6 +1069,7 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_computes": row.get("library_computes"),
             "shape": row["shape"]})
+    kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
     report["kernels"] = kernels
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(report, indent=1))
@@ -1057,6 +1085,485 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the stable sort: K5, K6a, K6b, K7a, K7b, K8
+# ---------------------------------------------------------------------------
+
+# kernel → (source, the TPU kernel it replaces)
+SORT_META = {
+    "tile_scan_add": ("src/repro_torch/csrc/tile_scan.cu",
+                      "src/repro/kernels/tile_scan.py:59"),
+    "radix_mt_local": ("src/repro_torch/csrc/radix_sort.cu",
+                       "src/repro/kernels/radix_sort.py:391"),
+    "radix_mt_scatter": ("src/repro_torch/csrc/radix_sort.cu",
+                         "src/repro/kernels/radix_sort.py:409"),
+    "radix_tile_sort": ("src/repro_torch/csrc/radix_sort.cu",
+                        "src/repro/kernels/radix_sort.py:224"),
+    "radix_tile_sort_packed": ("src/repro_torch/csrc/radix_sort.cu",
+                               "src/repro/kernels/radix_sort.py:253"),
+    "merge_level": ("src/repro_torch/csrc/merge_sort.cu",
+                    "src/repro/kernels/merge_sort.py:270"),
+}
+
+
+def _flip(torch, words):
+    """uint32 words as int32 with the top bit flipped: signed order of the
+    result is the unsigned order of the words (for the library sorts)."""
+    return words.view(torch.int32) ^ torch.iinfo(torch.int32).min
+
+
+def _mismatch(torch, got, want):
+    """Largest |got - want| over the values as int64; -1 if shape or dtype
+    differ."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return -1
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
+    """Phase 2, the sort's kernels: each against its plain twin at the sort
+    path's shapes (bit for bit: integer data, tolerance 0 mismatches), then
+    kernel, twin and library call timed after an L2 flush."""
+    from repro_torch.kernels import merge_sort as ms
+    from repro_torch.kernels import radix_sort as rs
+    from repro_torch.kernels import tile_scan as ts
+    rng = np.random.RandomState(seed + 13)
+    errs = dict.fromkeys(SORT_META, 0)
+
+    def same(kernel, got, want, **case):
+        torch.cuda.synchronize()
+        e = _mismatch(torch, got, want)
+        report["cases"].append(dict(kernel=kernel, max_abs_err=e, tol=0,
+                                    dtype=str(got.dtype).split(".")[-1],
+                                    **case))
+        errs[kernel] = max(errs[kernel], abs(e))
+        check(e == 0, f"{kernel} {case}: kernel and twin differ (max abs "
+              f"err {e}; -1 = shape or dtype)")
+
+    def ints(n, bits):
+        return torch.as_tensor(rng.randint(0, 1 << bits, n).astype(np.int32),
+                               device=dev)
+
+    def words(n):
+        w = rng.randint(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        w[1::2] = w[::2]                    # every word twice: ties
+        return torch.as_tensor(w, device=dev)
+
+    n, tile = 1 << 20, 1024
+    nt, ib = n // tile, 20
+    keys = ints(n, 12)                      # case (a) / (d): 12-bit keys
+    # K6a, K5, K6b: the first two passes of case (a), and its last
+    x, mask = keys, (1 << ib) - 1
+    for p, shift in enumerate((20, 24, 28)):
+        kw = dict(nt=nt, tile=tile, shift=shift, bits=4, pack=p == 0,
+                  idx_bits=ib)
+        local, hist = rs._mt_local(x, **kw)
+        plocal, phist = rs.mt_local_plain(x, **kw)
+        same("radix_mt_local", local, plocal, n=n, tile=tile, shift=shift,
+             pack=p == 0)
+        same("radix_mt_local", hist, phist, what="histogram", shift=shift)
+        base = ts.histogram_offsets(hist)
+        same("tile_scan_add", base, ts.histogram_offsets_plain(hist),
+             what="histogram_offsets", nt=nt, radix=16)
+        um = mask if p == 2 else None
+        x = rs._mt_scatter(local, hist, base, tile=tile, radix=16,
+                           unpack_mask=um)
+        same("radix_mt_scatter", x, rs.mt_scatter_plain(
+            local, hist, base, tile=tile, unpack_mask=um), n=n, shift=shift,
+             unpack=um is not None)
+        if p == 0:
+            local0, hist0, base0 = local, hist, base
+    check(torch.equal(x.to(torch.int64), torch.argsort(keys, stable=True)),
+          "three K6a/K5/K6b passes are not the stable argsort")
+    # K5 on the largest histogram of the path (case (c): 16384 tiles x 16)
+    # and as a plain 1-D scan, both ways
+    hist_c = ints(16384 * 16, 10).reshape(16384, 16)
+    same("tile_scan_add", ts.histogram_offsets(hist_c),
+         ts.histogram_offsets_plain(hist_c), what="histogram_offsets",
+         nt=16384, radix=16)
+    flat = ints(1_000_003, 8)
+    for inclusive in (False, True):
+        same("tile_scan_add", ts.tile_scan(flat, inclusive=inclusive),
+             ts.scan_plain(flat, inclusive=inclusive), what="tile_scan",
+             n=flat.numel(), inclusive=inclusive)
+    # K7b: case (d)'s tile phase, and case (g)'s single tile with unpack
+    kw = dict(n=n, tile=tile, num_key_bits=12, idx_bits=ib)
+    packed = rs.radix_tile_sort_packed(keys, **kw)
+    same("radix_tile_sort_packed", packed, rs.radix_tile_sort_packed_plain(
+        keys, n=n, tile=tile, idx_bits=ib, sort_bits=12), n=n, tile=tile)
+    keys_g = torch.cat([keys[:1000], torch.full((24,), 4095,
+                                                dtype=torch.int32,
+                                                device=dev)])
+    same("radix_tile_sort_packed", rs.radix_tile_sort_packed(
+        keys_g, n=1000, tile=tile, num_key_bits=12, idx_bits=10,
+        unpack=True), rs.radix_tile_sort_packed_plain(
+        keys_g, n=1000, tile=tile, idx_bits=10, sort_bits=12, unpack=True),
+        n=1000, tile=tile, unpack=True)
+    # K7a: case (f)'s tile phase, random u32 with ties (every word twice)
+    w = words(n)
+    tiles = rs.radix_tile_sort(w, tile=tile)
+    same("radix_tile_sort", tiles, rs.radix_tile_sort_plain(
+        w, tile=tile, total_bits=32, key_shift=0), n=n, tile=tile)
+    # K8: the first level after each tile phase, and a last level (two
+    # sorted halves of 2^19) with the fused unpack
+    for src, what in ((packed, "argsort words"), (tiles, "u32 with ties")):
+        same("merge_level", ms._merge_level(src, run=tile, tile=tile),
+             ms.merge_level_plain(src, run=tile), what=what, run=tile)
+    # the largest tile (8192 words: above 48 KB of shared memory) with
+    # 8-bit digits (radix 256), off the path's defaults but accepted
+    big_tile, nt8 = 1 << 13, n >> 13
+    kw8 = dict(nt=nt8, tile=big_tile, shift=ib, bits=8, pack=True,
+               idx_bits=ib)
+    local8, hist8 = rs._mt_local(keys, **kw8)
+    plocal8, phist8 = rs.mt_local_plain(keys, **kw8)
+    same("radix_mt_local", local8, plocal8, tile=big_tile, bits=8)
+    same("radix_mt_local", hist8, phist8, what="histogram", tile=big_tile)
+    base8 = ts.histogram_offsets(hist8)
+    same("tile_scan_add", base8, ts.histogram_offsets_plain(hist8),
+         what="histogram_offsets", nt=nt8, radix=256)
+    same("radix_mt_scatter", rs._mt_scatter(local8, hist8, base8,
+                                            tile=big_tile, radix=256),
+         rs.mt_scatter_plain(local8, hist8, base8, tile=big_tile),
+         tile=big_tile, radix=256)
+    tiles8 = rs.radix_tile_sort(w, tile=big_tile, digit_bits=8)
+    same("radix_tile_sort", tiles8, rs.radix_tile_sort_plain(
+        w, tile=big_tile, total_bits=32, key_shift=0), tile=big_tile,
+         digit_bits=8)
+    same("merge_level", ms._merge_level(tiles8, run=big_tile,
+                                        tile=big_tile),
+         ms.merge_level_plain(tiles8, run=big_tile), run=big_tile,
+         block=ms.MAX_BLOCK)
+    halves = torch.sort(_flip(torch, packed).reshape(2, n // 2),
+                        dim=1).values
+    halves = _flip(torch, halves).view(torch.uint32).reshape(n)
+    same("merge_level", ms._merge_level(halves, run=n // 2, tile=tile,
+                                        unpack_mask=mask),
+         ms.merge_level_plain(halves, run=n // 2, unpack_mask=mask),
+         what="last level", run=n // 2, unpack=True)
+
+    # timing (CUDA graphs, inputs read after an L2 flush) at the path's
+    # shapes; bound = each input read once, each output written once
+    def row(kernel_fn, plain_fn, library_fn, nbytes, shape, computes=None):
+        r = dict(ms=device_ms(kernel_fn, cold=True),
+                 plain_ms=device_ms(plain_fn, cold=True),
+                 library_ms=None if library_fn is None
+                 else device_ms(library_fn, cold=True),
+                 library_computes=computes,
+                 bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                 shape=shape)
+        return r
+
+    digits = (keys & 15).reshape(nt, tile)
+    hist_dm = hist0.t().contiguous().reshape(-1)
+    fw, fp = _flip(torch, w).reshape(nt, tile), _flip(torch, packed)
+    R = nt * 16
+    rows = {
+        "radix_mt_local": row(
+            lambda: rs._mt_local(keys, nt=nt, tile=tile, shift=ib, bits=4,
+                                 pack=True, idx_bits=ib),
+            lambda: rs.mt_local_plain(keys, nt=nt, tile=tile, shift=ib,
+                                      bits=4, pack=True, idx_bits=ib),
+            lambda: torch.sort(digits, dim=1, stable=True),
+            4.0 * (2 * n + R), dict(n=n, tile=tile, bits=4, pass_=0),
+            "per-tile stable sort of the pass digit (digits precomputed)"),
+        "tile_scan_add": row(
+            lambda: ts.histogram_offsets(hist0),
+            lambda: ts.histogram_offsets_plain(hist0),
+            lambda: torch.cumsum(hist_dm, 0),
+            4.0 * 2 * R, dict(nt=nt, radix=16, what="histogram_offsets"),
+            "cumsum of the histogram already laid out digit-major"),
+        "radix_mt_scatter": row(
+            lambda: rs._mt_scatter(local0, hist0, base0, tile=tile,
+                                   radix=16),
+            lambda: rs.mt_scatter_plain(local0, hist0, base0, tile=tile),
+            None, 4.0 * (2 * n + 2 * R), dict(n=n, tile=tile, radix=16)),
+        "radix_tile_sort_packed": row(
+            lambda: rs.radix_tile_sort_packed(keys, **kw),
+            lambda: rs.radix_tile_sort_packed_plain(
+                keys, n=n, tile=tile, idx_bits=ib, sort_bits=12),
+            lambda: torch.sort(keys.reshape(nt, tile), dim=1, stable=True),
+            4.0 * 2 * n, dict(n=n, tile=tile, num_key_bits=12, passes=3),
+            "per-tile stable sort of the keys, with indices"),
+        "radix_tile_sort": row(
+            lambda: rs.radix_tile_sort(w, tile=tile),
+            lambda: rs.radix_tile_sort_plain(w, tile=tile, total_bits=32,
+                                             key_shift=0),
+            lambda: torch.sort(fw, dim=1, stable=True),
+            4.0 * 2 * n, dict(n=n, tile=tile, total_bits=32, passes=8),
+            "per-tile stable sort of the words (top bit flipped, int32)"),
+        "merge_level": row(
+            lambda: ms._merge_level(packed, run=tile, tile=tile),
+            lambda: ms.merge_level_plain(packed, run=tile),
+            lambda: torch.sort(fp.reshape(n // (2 * tile), 2 * tile), dim=1),
+            4.0 * 2 * n, dict(n=n, run=tile, block=tile),
+            "sort of each 2-run row (top bit flipped, int32)"),
+    }
+    last = row(lambda: ms._merge_level(halves, run=n // 2, tile=tile,
+                                       unpack_mask=mask),
+               lambda: ms.merge_level_plain(halves, run=n // 2,
+                                            unpack_mask=mask),
+               None, 4.0 * 2 * n, dict(n=n, run=n // 2, unpack=True))
+    report["timings"]["merge_level last level run=2^19"] = last
+    hc = row(lambda: ts.histogram_offsets(hist_c),
+             lambda: ts.histogram_offsets_plain(hist_c), None,
+             4.0 * 2 * hist_c.numel(), dict(nt=16384, radix=16))
+    report["timings"]["tile_scan_add histogram 16384 x 16"] = hc
+    for name, r in rows.items():
+        report["timings"][f"{name} {r['shape']}"] = r
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        say(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms (bytes) [{card}]")
+    say(f"merge_level last level (run 2^19, unpack): kernel "
+        f"{last['ms']:.4f} ms, plain {last['plain_ms']:.4f} ms, bound "
+        f"{last['bound_ms']:.4f} ms; histogram_offsets at 16384 x 16: kernel "
+        f"{hc['ms']:.4f} ms, plain {hc['plain_ms']:.4f} ms, bound "
+        f"{hc['bound_ms']:.4f} ms [{card}]")
+    say("sort kernels equal their twins bit for bit: " + ", ".join(
+        f"{k} {v}" for k, v in errs.items()) + " (max abs err, tol 0)")
+    return rows, errs
+
+
+def sort_path(np, torch, dev, seed, card, report):
+    """The sort path: ``ops.stable_argsort`` / ``argsort`` / ``sort_u32``
+    on the card at sizes users run, each order against
+    ``torch.argsort(stable=True)`` and the CPU twins', each case's launches
+    against the expected counts.  Returns the launches of the whole run."""
+    from repro_torch.core import SortSchedule, digit_passes
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import merge_sort as ms
+    rng = np.random.RandomState(seed)
+
+    def mt(p):
+        return {"radix_mt_local": p, "tile_scan_add": p,
+                "radix_mt_scatter": p}
+
+    def routing():
+        # deepseek-v2-lite: 64 experts, top-6, over a 8 x 4096-token
+        # prefill; each token's experts are the top-6 of log p + Gumbel
+        # noise, p ∝ 1 / (e + 1)
+        T, E, K = 8 * 4096, 64, 6
+        logp = -np.log(np.arange(1, E + 1, dtype=np.float64))
+        score = logp + rng.gumbel(size=(T, E))
+        return np.argsort(-score, axis=1, kind="stable")[:, :K].reshape(
+            -1).astype(np.int32)
+
+    def keys_of(n, bits, kind="random"):
+        hi = 1 << bits
+        if kind == "random":
+            return rng.randint(0, hi, n).astype(np.int32)
+        if kind == "all-equal":
+            return np.full(n, 1234, np.int32)
+        if kind == "sorted":
+            return np.sort(rng.randint(0, hi, n)).astype(np.int32)
+        if kind == "reverse-sorted":
+            return np.sort(rng.randint(0, hi, n))[::-1].astype(np.int32).copy()
+        return rng.choice(rng.randint(0, hi, 7), n).astype(np.int32)
+
+    route = routing()
+    big = 1 << 20
+    # (label, keys, num_key_bits, strategy (None: ops.stable_argsort's
+    # choice), expected launches, the reference schedule's num_launches)
+    cases = [
+        ("(a) 12-bit ids, 2^20", keys_of(big, 12), 12, None, mt(3)),
+        ("(b) deepseek-v2-lite routing 8 x 4096 x top-6", route, 6, None,
+         mt(2)),
+        ("(b') the same, ragged", route[:-3], 6, None, mt(2)),
+        ("(c) 8-bit keys, 2^24", keys_of(1 << 24, 8), 8, None, mt(2)),
+        ("(d) 12-bit, merge", keys_of(big, 12), 12, "merge",
+         {"radix_tile_sort_packed": 1, "merge_level": 10}),
+        ("(e) 17-bit, auto -> merge", keys_of(1 << 15, 17), 17, None,
+         {"radix_tile_sort_packed": 1, "merge_level": 6}),
+        ("(g) one tile", keys_of(1000, 12), 12, None,
+         {"radix_tile_sort_packed": 1}),
+    ] + [(f"(a) 12-bit, 2^20, {kind}", keys_of(big, 12, kind), 12, None,
+          mt(3)) for kind in ("all-equal", "sorted", "reverse-sorted",
+                              "7 distinct keys")]
+
+    def schedule_launches(n, bits, strategy):
+        idx_bits = max(1, (n - 1).bit_length())
+        if strategy == "multi_tile":
+            t = min(1024, 1 << math.ceil(math.log2(max(2, n))))
+            nt = -(-n // t)
+            return SortSchedule(tile_passes=digit_passes(
+                bits, 4, key_shift=idx_bits), levels=(), mode="multi_tile",
+                num_tiles=nt).num_launches
+        plan, _, t = ms._tile_plan(1 << math.ceil(math.log2(max(2, n))),
+                                   1024)
+        return plan.sort_schedule(sort_bits=bits, key_shift=int(
+            math.log2(t))).num_launches
+
+    def snapshot():
+        return {k: v for k, v in _build.launches().items() if k in SORT_META}
+
+    results, inputs = [], []
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    for label, k_np, bits, strategy, expect in cases:
+        keys = torch.as_tensor(k_np, device=dev)
+        before = snapshot()
+        t0 = time.perf_counter()
+        if strategy is None:
+            order = ops.stable_argsort(keys, num_key_bits=bits)
+        else:
+            order = ms.argsort(keys, num_key_bits=bits, strategy=strategy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in snapshot().items()
+               if v != before[k]}
+        strat = strategy or ("multi_tile" if bits <= 16 else "merge")
+        ref_launches = schedule_launches(len(k_np), bits, strat)
+        check(got == expect, f"sort {label}: launches {got} != {expect}")
+        check(sum(got.values()) == ref_launches, f"sort {label}: "
+              f"{sum(got.values())} launches, the reference's SortSchedule "
+              f"says {ref_launches}")
+        check(order.dtype == torch.int32 and order.shape == keys.shape,
+              f"sort {label}: order {order.dtype} {tuple(order.shape)}")
+        lib = torch.argsort(keys, stable=True)
+        check(torch.equal(order.to(torch.int64), lib),
+              f"sort {label}: order != torch.argsort(stable=True)")
+        cpu = ms.argsort(torch.from_numpy(k_np), num_key_bits=bits,
+                         strategy=strat)
+        check(torch.equal(order.cpu(), cpu),
+              f"sort {label}: order != the CPU twins' order")
+        results.append(dict(case=label, n=len(k_np), num_key_bits=bits,
+                            strategy=strat, launches=got,
+                            reference_num_launches=ref_launches,
+                            first_call_wall_s=wall))
+        inputs.append((keys, bits, strategy))
+        say(f"sort {label}: n={len(k_np)}, {strat}, launches {got} "
+            f"(reference SortSchedule.num_launches {ref_launches}); order "
+            f"== torch.argsort(stable=True) == CPU twins")
+    # (f) sort_u32 on random u32
+    w_np = rng.randint(0, 1 << 32, big, dtype=np.uint64).astype(np.uint32)
+    w = torch.as_tensor(w_np, device=dev)
+    before = snapshot()
+    out = ms.sort_u32(w)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in snapshot().items() if v != before[k]}
+    expect = {"radix_tile_sort": 1, "merge_level": 10}
+    plan, _, _ = ms._tile_plan(big, 1024)
+    ref_launches = plan.sort_schedule(sort_bits=32).num_launches
+    check(got == expect and sum(got.values()) == ref_launches,
+          f"sort_u32: launches {got} != {expect} (reference {ref_launches})")
+    lib = _flip(torch, torch.sort(_flip(torch, w)).values).view(torch.uint32)
+    check(_mismatch(torch, out, lib) == 0, "sort_u32 != torch.sort")
+    check(_mismatch(torch, out.cpu(), ms.sort_u32(torch.from_numpy(w_np)))
+          == 0, "sort_u32 != the CPU twins")
+    say(f"sort (f) sort_u32 on random u32: n={big}, launches {got} "
+        f"(reference SortSchedule.num_launches {ref_launches}); words == "
+        f"torch.sort == CPU twins")
+    results.append(dict(case="(f) sort_u32, random u32", n=big,
+                        num_key_bits=32, strategy="merge", launches=got,
+                        reference_num_launches=ref_launches))
+    launches = snapshot()
+    t_path = time.perf_counter() - t_path
+    check(all(launches[k] > 0 for k in SORT_META),
+          f"a sort kernel never launched on the sort path: {launches}")
+    say(f"sort path: {len(results)} cases in {t_path:.1f} s (CPU twins "
+        f"included), launches {launches} [{card}]")
+
+    # time each case end to end (after the counts are read): the port's
+    # call against torch.argsort(stable=True), CUDA events around 5 calls
+    # after a warm-up; the port's time includes the key-range check's host
+    # sync, as a caller pays it
+    def events_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / reps
+
+    for res, (keys, bits, strategy) in zip(results, inputs):
+        if strategy is None:
+            res["ms"] = events_ms(lambda: ops.stable_argsort(
+                keys, num_key_bits=bits))
+        else:
+            res["ms"] = events_ms(lambda: ms.argsort(
+                keys, num_key_bits=bits, strategy=strategy))
+        res["library_ms"] = events_ms(lambda: torch.argsort(keys,
+                                                            stable=True))
+        say(f"sort {res['case']}: n={res['n']}, port {res['ms']:.4f} ms, "
+            f"torch.argsort(stable=True) {res['library_ms']:.4f} ms [{card}]")
+    fw = _flip(torch, w)
+    results[-1]["ms"] = events_ms(lambda: ms.sort_u32(w))
+    results[-1]["library_ms"] = events_ms(lambda: torch.sort(fw))
+    say(f"sort (f) sort_u32: n={big}, port {results[-1]['ms']:.4f} ms, "
+        f"torch.sort {results[-1]['library_ms']:.4f} ms [{card}]")
+
+    # where a call's time goes: device time by kernel (torch.profiler) over
+    # 5 calls, beside the wall time of 5 calls without the profiler
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    names = (("packed_tile_sort_kernel", "radix_tile_sort_packed"),
+             ("tile_sort_kernel", "radix_tile_sort"),
+             ("mt_local_kernel", "radix_mt_local"),
+             ("mt_scatter_kernel", "radix_mt_scatter"),
+             ("scan_kernel", "tile_scan_add"),
+             ("merge_level_kernel", "merge_level"))
+    breakdown = {}
+    for res, (keys, bits, strategy) in zip(results[:5], inputs[:5]):
+        def call():
+            if strategy is None:
+                return ops.stable_argsort(keys, num_key_bits=bits)
+            return ms.argsort(keys, num_key_bits=bits, strategy=strategy)
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        groups = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            g = next((k for sub, k in names if sub in ev.key), "other")
+            groups[g] = groups.get(g, 0.0) + \
+                ev.self_device_time_total / 1e3 / 5
+        dev_ms = sum(groups.values())
+        breakdown[res["case"]] = dict(wall_ms=wall, device_ms=dev_ms,
+                                      groups=groups)
+        say(f"sort {res['case']}: wall {wall:.4f} ms a call, device "
+            f"{dev_ms:.4f} ms ({100 * dev_ms / wall:.0f}% busy: " + ", ".join(
+                f"{g} {t:.4f}" for g, t in sorted(
+                    groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
+    report["sort_path"] = dict(cases=results, launches=launches,
+                               seconds=t_path, breakdown=breakdown)
+    return launches
+
+
+def sort_kernel_entries(rows, errs, launches):
+    """The sort's kernels for the kernels line."""
+    out = []
+    for name, (source, replaces) in SORT_META.items():
+        r = rows[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "max_err": errs[name], "tol": 0,
+            "tol_kind": "exact (integer)", "ms": r["ms"],
+            "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_computes": r["library_computes"], "shape": r["shape"]})
+    return out
 
 
 if __name__ == "__main__":

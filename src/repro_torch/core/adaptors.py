@@ -3,9 +3,10 @@
 
 Every adaptor *wraps* a Divisible and overrides the division decision while
 delegating everything else; adaptors nest.  Kept line-for-line equal to
-``repro.core.adaptors`` where the two overlap.  The other adaptors
-(``even_levels``, ``force_depth``, ``size_limit``, ``join_context``,
-``thief_splitting``, ``tagged``) come with the Runtime port.
+``repro.core.adaptors`` where the two overlap.  ``even_levels`` came with
+the stable sort, whose plan it shapes.  The other adaptors
+(``force_depth``, ``size_limit``, ``join_context``, ``thief_splitting``,
+``tagged``) come with the Runtime port.
 """
 
 from __future__ import annotations
@@ -108,6 +109,41 @@ def bound_depth(base: Divisible, limit: int) -> BoundDepth:
     return BoundDepth(base, limit)
 
 
+@dataclasses.dataclass
+class EvenLevels(Adaptor):
+    """All leaves end on an even depth level (flip a boolean per division)."""
+
+    base: Divisible
+    even: bool = True
+
+    def should_be_divided(self) -> bool:
+        # If we are on an odd level we *must* divide once more to get back to
+        # an even level, whatever the base says.
+        return (not self.even) or self.base.should_be_divided()
+
+    def should_divide(self, ctx: StealContext) -> bool:
+        if not self.even:
+            return True
+        if isinstance(self.base, Adaptor):
+            return self.base.should_divide(ctx)
+        return self.base.should_be_divided()
+
+    def _split(self, parts):
+        l, r = parts
+        return (_rewrap(self, l, even=not self.even),
+                _rewrap(self, r, even=not self.even))
+
+    def divide(self):
+        return self._split(self.base.divide())
+
+    def divide_at(self, index):
+        return self._split(self.base.divide_at(index))
+
+
+def even_levels(base: Divisible) -> EvenLevels:
+    return EvenLevels(base)
+
+
 class _SharedCounter:
     __slots__ = ("value",)
 
@@ -177,4 +213,4 @@ def cap(base: Divisible, threshold: int) -> Cap:
 
 
 __all__ = ["Adaptor", "StealContext", "BoundDepth",
-           "bound_depth", "Cap", "cap"]
+           "bound_depth", "EvenLevels", "even_levels", "Cap", "cap"]

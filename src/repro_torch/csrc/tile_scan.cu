@@ -1,6 +1,7 @@
 // K4: single-launch chunked monoid scans for Hopper (sm_90a) — the mLSTM
 // log-space carry (tree layout) and Mamba's affine recurrence (batched
-// layout).
+// layout).  K5 (tile_scan_add, the int32 sum the stable sort needs) is at
+// the end of the file.
 //
 // Replaces: repro/kernels/tile_scan.py::_tree_scan_call (body
 // _tree_scan_kernel) as reached from tree_scan with
@@ -41,6 +42,8 @@
 // gain leaf is written only if its output pointer is not null:
 // mamba_assoc_scan needs the states alone.
 #include "common.cuh"
+
+#include <cstdint>
 
 namespace {
 
@@ -177,7 +180,241 @@ affine_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// K5: the int32 sum scan with a carry, one CTA.
+//
+// Replaces: repro/kernels/tile_scan.py::tile_scan (body _scan_kernel) and
+// histogram_offsets, which scans the (nt, R) digit histogram digit-major
+// for the multi-tile radix sort.  The TPU kernel carries the sum of earlier
+// blocks in a (1, 1) VMEM cell across its sequential grid.  A Hopper grid
+// runs in no order, so one CTA loops over the array with the carry in
+// registers and shared memory: one launch, as in the reference.
+//
+// What bounds it: bytes (read once, written once: 2 MB at this slice's
+// largest histogram, 16384 x 16), but one CTA moves them, so in practice
+// the latency of its loop (a round of loads and four barriers a step) and
+// the rate at which one SM starts loads and stores.  So every access is
+// coalesced:
+//
+// scan_add_kernel (1-D): chunks of SCAN_CHUNK elements staged in shared
+// memory with neighbouring threads on neighbouring elements; each thread
+// scans SCAN_ITEMS consecutive ones, warps combine by shuffles.
+//
+// histogram_scan_kernel (r a power of two, 2..256, 16-byte aligned input):
+// the offsets in (nt, r) layout, no transposes, reading rows as they lie.
+// A first sweep sums each digit's column (a thread always meets the same
+// four digits); a digit's base is the exclusive scan of the columns before
+// it.  Then slabs of rows are staged in shared memory (the next slab's
+// loads in flight while one is scanned); thread (d, g) takes
+// HIST_ROWS_PER_THREAD consecutive rows of digit d, a block-wide scan of
+// the threads' sums in digit-major order gives each thread its prefix
+// within its digit, and a per-digit carry crosses slabs.  Index arithmetic
+// shifts by log2(r): an integer division per word cost more than the
+// loads.  Sums wrap as int32 does.
+constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_ITEMS = 4;
+constexpr int SCAN_CHUNK = SCAN_THREADS * SCAN_ITEMS;
+// odd: lanes g and g + 1 read rows 11 (r + 1) words apart, an odd stride,
+// so a warp's 32 reads fall in 32 banks
+constexpr int HIST_ROWS_PER_THREAD = 11;
+constexpr int HIST_SLAB = SCAN_THREADS * HIST_ROWS_PER_THREAD;  // words
+// the padded slab (row stride r + 1, r >= 2): dynamic shared memory
+constexpr size_t HIST_SMEM = sizeof(unsigned) * (HIST_SLAB + HIST_SLAB / 2);
+
+// exclusive scan of one value per thread over the CTA, in thread order;
+// wsum: shared scratch of SCAN_THREADS / 32.  Returns the thread's prefix
+// and leaves the CTA total in *total.
+__device__ __forceinline__ unsigned cta_exclusive_scan(unsigned v,
+                                                       unsigned* wsum,
+                                                       unsigned* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned s = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += y;
+  }
+  if (lane == 31) wsum[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned t = wsum[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, t, o);
+      if (lane >= o) t += y;
+    }
+    wsum[lane] = t;
+  }
+  __syncthreads();
+  const unsigned excl = s - v + (warp > 0 ? wsum[warp - 1] : 0u);
+  *total = wsum[SCAN_THREADS / 32 - 1];
+  __syncthreads();
+  return excl;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_add_kernel(const int* __restrict__ x, int* __restrict__ out, int n,
+                int inclusive) {
+  __shared__ unsigned buf[SCAN_CHUNK];
+  __shared__ unsigned wsum[SCAN_THREADS / 32];
+  unsigned carry = 0;
+  for (int base = 0; base < n; base += SCAN_CHUNK) {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      const int q = j * SCAN_THREADS + threadIdx.x;
+      const int k = base + q;
+      buf[q] = k < n ? (unsigned)x[k] : 0u;
+    }
+    __syncthreads();
+    unsigned v[SCAN_ITEMS], sum = 0;
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      v[j] = buf[threadIdx.x * SCAN_ITEMS + j];
+      sum += v[j];
+    }
+    unsigned total;
+    unsigned run = carry + cta_exclusive_scan(sum, wsum, &total);
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      if (inclusive) run += v[j];
+      buf[threadIdx.x * SCAN_ITEMS + j] = run;
+      if (!inclusive) run += v[j];
+    }
+    carry += total;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      const int q = j * SCAN_THREADS + threadIdx.x;
+      const int k = base + q;
+      if (k < n) out[k] = (int)buf[q];
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+histogram_scan_kernel(const int* __restrict__ x, int* __restrict__ out,
+                      int nt, int lr, int inclusive) {
+  // a slab of rows, row stride r + 1 against bank conflicts
+  extern __shared__ unsigned slab[];
+  __shared__ unsigned wsum[SCAN_THREADS / 32];
+  __shared__ unsigned dbase[256], carry[256], start[256];
+  const int tid = threadIdx.x;
+  const int r = 1 << lr;                 // shifts: no integer division
+  const unsigned rm = (unsigned)r - 1u;
+  const size_t total = (size_t)nt * r;
+  // 1. column sums, 16-byte loads, four in flight: word 4q + c of the
+  // matrix has digit (4 tid + c) % r for every q = tid + k * SCAN_THREADS
+  if (tid < r) carry[tid] = 0;
+  __syncthreads();
+  unsigned c[4] = {0u, 0u, 0u, 0u};
+  const size_t n4 = total / 4;
+  const int4* x4 = reinterpret_cast<const int4*>(x);
+#pragma unroll 4
+  for (size_t q = tid; q < n4; q += SCAN_THREADS) {
+    const int4 v = __ldg(x4 + q);
+    c[0] += (unsigned)v.x;
+    c[1] += (unsigned)v.y;
+    c[2] += (unsigned)v.z;
+    c[3] += (unsigned)v.w;
+  }
+  for (size_t i = 4 * n4 + tid; i < total; i += SCAN_THREADS)
+    atomicAdd(&carry[i & rm], (unsigned)x[i]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)            // a count: order-free
+    atomicAdd(&carry[(4 * tid + j) & rm], c[j]);
+  __syncthreads();
+  // 2. each digit's base: the columns of smaller digits
+  if (tid == 0) {
+    unsigned run = 0;
+    for (int d = 0; d < r; ++d) {
+      dbase[d] = run;
+      run += carry[d];
+      carry[d] = 0;
+    }
+  }
+  __syncthreads();
+  // 3. slabs of rows; thread (d, g) owns rows [g * PER, g * PER + PER)
+  const int rows = HIST_SLAB >> lr, groups = SCAN_THREADS >> lr;
+  const int d = tid / groups, g = tid % groups;
+  const int stride = r + 1;
+  // a slab is exactly HIST_ROWS_PER_THREAD words a thread: word
+  // tid + j * SCAN_THREADS of it, prefetched into registers
+  unsigned next[HIST_ROWS_PER_THREAD];
+  auto prefetch = [&](int row) {
+    const int words = min(rows, nt - row) * r;
+#pragma unroll
+    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
+      const int i = tid + j * SCAN_THREADS;
+      next[j] = i < words ? (unsigned)x[(size_t)row * r + i] : 0u;
+    }
+  };
+  prefetch(0);
+  for (int row0 = 0; row0 < nt; row0 += rows) {
+    const int nrow = min(rows, nt - row0);
+    const size_t off = (size_t)row0 * r;
+#pragma unroll
+    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
+      const int i = tid + j * SCAN_THREADS;
+      if (i < nrow * r) slab[(i >> lr) * stride + (i & rm)] = next[j];
+    }
+    __syncthreads();
+    if (row0 + rows < nt) prefetch(row0 + rows);
+    unsigned v[HIST_ROWS_PER_THREAD], sum = 0;
+#pragma unroll
+    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
+      const int row = g * HIST_ROWS_PER_THREAD + j;
+      v[j] = row < nrow ? slab[row * stride + d] : 0u;
+      sum += v[j];
+    }
+    unsigned slab_total;
+    const unsigned excl = cta_exclusive_scan(sum, wsum, &slab_total);
+    if (g == 0) start[d] = excl;
+    __syncthreads();
+    const unsigned within = excl - start[d];   // earlier groups, digit d
+    unsigned run = dbase[d] + carry[d] + within;
+#pragma unroll
+    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
+      const int row = g * HIST_ROWS_PER_THREAD + j;
+      if (row < nrow) {
+        if (inclusive) run += v[j];
+        slab[row * stride + d] = run;
+        if (!inclusive) run += v[j];
+      }
+    }
+    __syncthreads();
+    if (g == groups - 1) carry[d] += within + sum;
+    for (int i = tid; i < nrow * r; i += SCAN_THREADS)
+      out[off + i] = (int)slab[(i >> lr) * stride + (i & rm)];
+    __syncthreads();
+  }
+}
+
 }  // namespace
+
+// r = 1: a 1-D scan of n = nt elements; r > 1: the digit-major offsets of
+// an (nt, r) histogram, r a power of two up to 256, x 16-byte aligned
+extern "C" int tile_scan_add(const void* x, void* out, int n, int nt, int r,
+                             int inclusive, void* stream) {
+  if (n < 1 || nt < 1 || r < 1 || r > 256 || (r & (r - 1)) != 0 ||
+      (long long)nt * r != n ||
+      (r > 1 && reinterpret_cast<uintptr_t>(x) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r == 1) {
+    scan_add_kernel<<<1, SCAN_THREADS, 0, st>>>(
+        static_cast<const int*>(x), static_cast<int*>(out), n, inclusive);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      histogram_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)HIST_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int lr = 0;
+  while ((1 << lr) < r) ++lr;
+  histogram_scan_kernel<<<1, SCAN_THREADS, HIST_SMEM, st>>>(
+      static_cast<const int*>(x), static_cast<int*>(out), nt, lr, inclusive);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tile_scan_logspace(const void* la, const void* ms,
                                   const void* C, const void* n,

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
 
 # C signature of every entry point: (source stem, function) → argtypes
@@ -52,6 +53,24 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "tile_scan_logspace": [P] * 12 + [I, I, I, I, I, P],
         # a, b, a0, h0, gain_out (or null), h_out, B, L, F, inclusive, stream
         "tile_scan_affine": [P] * 6 + [I, I, I, I, P],
+        # x, out, n, nt, r, inclusive, stream
+        "tile_scan_add": [P, P, I, I, I, I, P],
+    },
+    "radix_sort": {
+        # x, out, nt, tile, key_shift, total_bits, digit_bits, stream
+        "radix_tile_sort": [P, P, I, I, I, I, I, P],
+        # keys, out, nt, tile, n, idx_bits, sort_bits, digit_bits, unpack,
+        # stream
+        "radix_tile_sort_packed": [P, P, I, I, I, I, I, I, I, P],
+        # x, local, hist, nt, tile, shift, bits, pack, idx_bits, stream
+        "radix_mt_local": [P, P, P, I, I, I, I, I, I, P],
+        # local, hist, base, out, nt, tile, radix, unpack_mask, unpack,
+        # stream
+        "radix_mt_scatter": [P, P, P, P, I, I, I, U, I, P],
+    },
+    "merge_sort": {
+        # x, out, n, run, block, unpack_mask, unpack, stream
+        "merge_level": [P, P, I, I, I, U, I, P],
     },
 }
 

@@ -1,0 +1,386 @@
+"""The paper's stable sort (§3.7) — the counterpart of
+``repro.kernels.merge_sort``: ``argsort`` under both global strategies,
+``sort_u32``, ``merge_pair``, with K8 (one merge level, ``_merge_level``)
+as a hand-written Hopper kernel (``csrc/merge_sort.cu``) beside its plain
+PyTorch twin.
+
+Structure, as in the reference:
+
+  1. a Kvik plan (``even_levels(bound_depth(...))``) divides the input into
+     tiles; its :meth:`~repro_torch.core.plan.Plan.sort_schedule` carries
+     the radix digit passes of the tile phase and the merge levels;
+  2. each tile is sorted by the in-kernel LSD radix sort
+     (``radix_sort.py``, K7);
+  3. sorted runs are merged pairwise, one launch per merge level (K8), the
+     co-rank search inside the kernel.
+
+``strategy="multi_tile"`` (the default for keys of at most 16 bits)
+replaces 2–3 by global digit passes (K6a, K5, K6b) whose launch count is
+independent of n.
+
+Stability: keys are packed as ``key << idx_bits | index`` into uint32, so
+equal keys order by original index; ``idx_bits = ceil(log2(n))`` is
+derived per call.  The pack and the final ``& idx_mask`` unpack live
+inside the first and last kernels.  The reference's comparison pipelines —
+``method="bitonic"`` (K9a ``tile_sort``) and ``fused=False`` (K9b/K9c
+``_pack``/``_unpack``) — run here on the CPU twins only; on a CUDA tensor
+they raise until ROADMAP Queue 2's K9 is ported.  Entry points run on the
+device of the keys: a CUDA tensor launches the kernels or raises, a CPU
+tensor runs the twins.  ``group`` is kept for the reference's signature
+and changes no result; the JAX-only ``interpret`` and ``jit`` are gone.
+
+Unlike the reference, ``argsort`` checks both ends of the key range (one
+``torch.aminmax``, one host sync): a negative key raises ``ValueError``
+where the reference returns a non-permutation.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..core import SeqWork, bound_depth, build_plan, even_levels
+from . import _build
+from .radix_sort import (SENTINEL, _u32, _u64, _i32,  # noqa: F401 — SENTINEL
+                         multi_tile_argsort_packed,   # re-export
+                         radix_tile_sort, radix_tile_sort_packed)
+
+IDX_BITS = 20                 # documented default cap: tiles up to 2^20
+IDX_MASK = (1 << IDX_BITS) - 1
+MAX_BLOCK = 4096              # K8's output block (shared memory: 2 x 16 KB)
+
+K8 = _build.KERNELS["merge_level"]
+
+_K9 = ("is the TPU-only comparison pipeline (K9: tile_sort, _pack, "
+       "_unpack), which the port runs only on CPU tensors until ROADMAP "
+       "Queue 2's K9 is ported, with Queue 1 item 9's slice")
+
+
+def _cpu_only(what: str, t: torch.Tensor) -> None:
+    if t.device.type != "cpu":
+        raise NotImplementedError(f"{what} {_K9}")
+
+
+# ---------------------------------------------------------------------------
+# K9: the comparison pipeline's building blocks, CPU twins only
+# ---------------------------------------------------------------------------
+
+def tile_sort(x: torch.Tensor, *, tile: int = 1024) -> torch.Tensor:
+    """Sort each tile of a (n,) uint32 tensor locally (the reference's
+    bitonic network, the radix baseline).  n % tile == 0."""
+    _cpu_only("method='bitonic'", x)
+    n = x.shape[0]
+    tile = min(tile, n)
+    if n % tile or tile & (tile - 1):
+        raise ValueError(f"tile_sort needs a power-of-two tile dividing n, "
+                         f"got n={n}, tile={tile}")
+    return _u32(torch.sort(_u64(x).reshape(n // tile, tile), dim=1).values
+                ).reshape(n)
+
+
+def _pack(keys: torch.Tensor, *, n: int, idx_bits: int) -> torch.Tensor:
+    """``key << idx_bits | index``, pad slots (index ≥ n) to the sentinel."""
+    _cpu_only("fused=False", keys)
+    idx = torch.arange(keys.shape[0], dtype=torch.int64)
+    packed = ((_u64(keys) << idx_bits) & 0xFFFFFFFF) | idx
+    return _u32(torch.where(idx < n, packed, SENTINEL))
+
+
+def _unpack(x: torch.Tensor, *, idx_mask: int) -> torch.Tensor:
+    _cpu_only("fused=False", x)
+    return _i32(_u64(x) & idx_mask)
+
+
+# ---------------------------------------------------------------------------
+# K8: one merge level
+# ---------------------------------------------------------------------------
+
+def _merge_path_starts(ab: torch.Tensor, run: int, tile: int):
+    """Co-rank split of every output diagonal of every run pair.
+
+    ab: (num_pairs, 2, run) sorted runs.  For each pair and each diagonal
+    ``d = b*tile`` (b = 0..2·run/tile), binary-search the smallest ``ia``
+    with ``A[ia] > B[d-1-ia]`` — the count of A elements among the first
+    ``d`` elements of the stable merge (ties go to A).  Returns
+    ``(a_start, b_start, la)``, each (num_pairs, blocks_per_pair) int32.
+    K8 runs the same search inside each CTA and nothing on the path calls
+    this host-side form; the tests hold it to the reference's.
+    """
+    num_pairs = ab.shape[0]
+    nb = (2 * run) // tile
+    w = _u64(ab)
+    a_run, b_run = w[:, 0, :], w[:, 1, :]
+    d = torch.arange(nb + 1, dtype=torch.int64, device=ab.device) * tile
+    lo = torch.clamp(d - run, min=0).expand(num_pairs, nb + 1).clone()
+    hi = torch.clamp(d, max=run).expand(num_pairs, nb + 1).clone()
+    for _ in range(max(1, run).bit_length() + 1):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        a_mid = torch.gather(a_run, 1, mid.clamp(0, run - 1))
+        b_val = torch.gather(b_run, 1, (d[None, :] - 1 - mid).clamp(
+            0, run - 1))
+        go_right = a_mid <= b_val          # A[mid] within the first d merged
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    a_start = lo[:, :-1]
+    la = lo[:, 1:] - lo[:, :-1]
+    b_start = d[None, :-1] - a_start
+    return (a_start.to(torch.int32), b_start.to(torch.int32),
+            la.to(torch.int32))
+
+
+def merge_level_plain(x: torch.Tensor, *, run: int,
+                      unpack_mask: Optional[int] = None) -> torch.Tensor:
+    """Twin of K8: each adjacent pair of sorted runs merged stably (ties to
+    A): A[i] lands at i + #(B < A[i]), B[j] at j + #(A <= B[j])."""
+    n = x.shape[0]
+    w = _u64(x).reshape(n // (2 * run), 2, run)
+    a, b = w[:, 0].contiguous(), w[:, 1].contiguous()
+    pos = torch.arange(run, dtype=torch.int64, device=x.device)
+    dest_a = pos + torch.searchsorted(b, a, right=False)
+    dest_b = pos + torch.searchsorted(a, b, right=True)
+    out = torch.empty_like(w.reshape(-1, 2 * run))
+    out.scatter_(1, dest_a, a)
+    out.scatter_(1, dest_b, b)
+    out = out.reshape(n)
+    if unpack_mask is not None:
+        return _i32(out & unpack_mask)
+    return _u32(out)
+
+
+def _merge_level(x: torch.Tensor, *, run: int, tile: int,
+                 unpack_mask: Optional[int] = None) -> torch.Tensor:
+    """Merge all adjacent (2·run)-pairs of sorted runs in one launch (K8);
+    ``unpack_mask`` fuses the final ``& idx_mask`` unpack of ``argsort``
+    (int32 output)."""
+    n = x.shape[0]
+    if n % (2 * run) or run % tile:
+        raise ValueError(f"_merge_level needs n % (2*run) == 0 and run % "
+                         f"tile == 0, got n={n}, run={run}, tile={tile}")
+    if x.device.type == "cpu":
+        return merge_level_plain(x, run=run, unpack_mask=unpack_mask)
+    if not x.is_cuda or x.dtype != torch.uint32 or not x.is_contiguous():
+        raise TypeError(f"_merge_level takes a contiguous CUDA uint32 "
+                        f"tensor, got {x.dtype} on {x.device}")
+    out = torch.empty(n, dtype=torch.uint32 if unpack_mask is None
+                      else torch.int32, device=x.device)
+    K8(x.data_ptr(), out.data_ptr(), n, run, min(tile, MAX_BLOCK),
+       0 if unpack_mask is None else unpack_mask & 0xFFFFFFFF,
+       int(unpack_mask is not None),
+       torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def merge_pair(a: torch.Tensor, b: torch.Tensor, *,
+               tile: int = 1024) -> torch.Tensor:
+    """Merge two sorted uint32 tensors of equal length: one num_pairs=1
+    level of the merge kernel."""
+    n = a.shape[0]
+    return _merge_level(torch.cat([a, b]), run=n, tile=min(tile, n))
+
+
+# ---------------------------------------------------------------------------
+# composed sort (tile plan + level-batched merge schedule)
+# ---------------------------------------------------------------------------
+
+def _tile_plan(n: int, tile: int):
+    """The Kvik plan driving the sort: ``even_levels(bound_depth(...))``
+    over the index range.  even_levels parity is realized on the tile count
+    (halve the tile once so the level count is even).  Returns
+    ``(plan, depth, tile)``; plan is None when depth == 0."""
+    tile = min(tile, n)
+    depth = int(math.log2(n // tile))
+    parity_ok = depth % 2 == 0
+    if not parity_ok and tile >= 2:
+        depth += 1          # even merge parity — the paper's even_levels
+        tile = n >> depth   # concern, realized on the tile count
+        parity_ok = True
+    if depth == 0:
+        return None, 0, tile
+    # tile == 1 with odd depth cannot be re-tiled; run the odd schedule
+    # rather than let even_levels force division below one element
+    work = bound_depth(SeqWork(0, n, align=tile, min_size=tile), depth)
+    plan = build_plan(even_levels(work) if parity_ok else work)
+    return plan, depth, tile
+
+
+@functools.lru_cache(maxsize=256)
+def _merge_schedule(n: int, tile: int, sort_bits: int, digit_bits: int
+                    ) -> Tuple[int, int, Optional[tuple], Tuple[int, ...]]:
+    """``(depth, tile, tile digit passes, merge run lengths)`` of the plan's
+    ``sort_schedule`` for ``n`` words in tiles of ``tile``.  Built once per
+    shape: a plan of 2^k tiles is 2^k Python leaves (tens of ms at 2^20
+    words), which the reference pays once when ``jit`` traces it."""
+    plan, depth, tile = _tile_plan(n, tile)
+    if plan is None:
+        return 0, tile, None, ()
+    sched = plan.sort_schedule(sort_bits=sort_bits, digit_bits=digit_bits,
+                               key_shift=int(math.log2(tile)))
+    assert len(sched.levels) == depth
+    for level in sched.levels:
+        assert level.uniform, "sort plan must divide into uniform runs"
+    return depth, tile, sched.tile_passes, tuple(
+        level.run_length for level in sched.levels)
+
+
+@functools.lru_cache(maxsize=256)
+def _multi_tile_passes(n_pad: int, tile: int, sort_bits: int,
+                       digit_bits: int, idx_bits: int) -> tuple:
+    """The plan's ``sort_schedule(mode="multi_tile")`` digit passes for a
+    power-of-two number of tiles, built once per shape."""
+    depth = int(math.log2(n_pad // tile))
+    work = bound_depth(SeqWork(0, n_pad, align=tile, min_size=tile), depth)
+    return build_plan(work).sort_schedule(
+        sort_bits=sort_bits, digit_bits=digit_bits, key_shift=idx_bits,
+        mode="multi_tile").tile_passes
+
+
+def sort_u32(x: torch.Tensor, *, tile: int = 1024, method: str = "radix",
+             total_bits: int = 32, digit_bits: int = 4,
+             group: int = 8) -> torch.Tensor:
+    """Sort of packed uint32 words: tile sort, then one launch per merge
+    level of the plan's schedule.  The tile phase is the in-kernel LSD
+    radix sort (``ceil(total_bits / digit_bits)`` digit passes);
+    ``method="bitonic"`` is the reference's baseline network (CPU only)."""
+    n = x.shape[0]
+    if n & (n - 1):
+        raise ValueError(f"sort_u32 needs a power-of-two input, got n={n} "
+                         "(pad first)")
+    if method not in ("radix", "bitonic"):
+        raise ValueError(f"unknown tile-sort method {method!r}")
+    _, tile, _, runs = _merge_schedule(n, tile, total_bits, digit_bits)
+    if method == "radix":
+        x = radix_tile_sort(x, tile=tile, total_bits=total_bits,
+                            digit_bits=digit_bits, group=group)
+    else:
+        x = tile_sort(x, tile=tile)
+    for run in runs:
+        x = _merge_level(x, run=run, tile=tile)
+    return x
+
+
+def _argsort_impl(keys: torch.Tensor, *, n: int, n_pad: int, tile: int,
+                  num_key_bits: int, idx_bits: int, method: str, fused: bool,
+                  digit_bits: int, group: int, strategy: str) -> torch.Tensor:
+    idx_mask = (1 << idx_bits) - 1
+    max_key = (1 << num_key_bits) - 1
+
+    def padded(fill: int) -> torch.Tensor:
+        if n_pad == n:
+            return keys
+        return torch.cat([keys, torch.full((n_pad - n,), fill,
+                                           dtype=keys.dtype,
+                                           device=keys.device)])
+
+    if strategy == "multi_tile":
+        # merge-tree-free path: 3 launches per digit pass, independent of n;
+        # n_pad is any multiple of the tile
+        tile_mt = min(tile, n_pad)
+        nt = n_pad // tile_mt
+        passes = None
+        if nt > 1 and (nt & (nt - 1)) == 0:
+            # power-of-two tile counts route through the plan so the
+            # schedule metadata (mode, num_tiles, num_launches) is exercised
+            passes = _multi_tile_passes(n_pad, tile_mt, num_key_bits,
+                                        digit_bits, idx_bits)
+        return multi_tile_argsort_packed(
+            padded(max_key), n=n, tile=tile_mt, num_key_bits=num_key_bits,
+            idx_bits=idx_bits, digit_bits=digit_bits, group=group,
+            passes=passes)[:n]
+    if fused:
+        # pack lives in the tile-sort kernel; pad keys carry the max key so
+        # they sort to the tile end (the kernel emits sentinels for them)
+        depth, tile, passes, runs = _merge_schedule(n_pad, tile, num_key_bits,
+                                                    digit_bits)
+        x = radix_tile_sort_packed(
+            padded(max_key), n=n, tile=tile, num_key_bits=num_key_bits,
+            idx_bits=idx_bits, digit_bits=digit_bits, group=group,
+            unpack=depth == 0, passes=passes)
+        for i, run in enumerate(runs):
+            x = _merge_level(
+                x, run=run, tile=tile,
+                unpack_mask=idx_mask if i == len(runs) - 1 else None)
+        return x[:n]
+    # unfused: standalone pack/unpack around the plain u32 sort (CPU only)
+    packed = _pack(padded(0), n=n, idx_bits=idx_bits)
+    out = sort_u32(packed, tile=tile, method=method,
+                   total_bits=num_key_bits + idx_bits, digit_bits=digit_bits,
+                   group=group)
+    return _unpack(out, idx_mask=idx_mask)[:n]
+
+
+def argsort(keys: torch.Tensor, *, num_key_bits: int = 12, tile: int = 1024,
+            method: str = "radix", fused: Optional[bool] = None,
+            digit_bits: int = 4, group: int = 8,
+            strategy: Optional[str] = None) -> torch.Tensor:
+    """Stable argsort of small non-negative integer keys — the MoE dispatch
+    entry.  keys: (n,) integers in [0, 2^num_key_bits); returns the (n,)
+    int32 order, on the keys' device.
+
+    ``idx_bits = ceil(log2(n))`` is derived per call, so the hard error
+    fires only when ``num_key_bits + idx_bits > 32``.  ``strategy``:
+    ``"multi_tile"`` (default for ``num_key_bits <= 16`` on the fused radix
+    pipeline) runs 3 launches per digit pass, independent of n, padding to
+    a multiple of the tile; ``"merge"`` runs the fused radix tile sort then
+    one launch per merge level, padding to a power of two (auto-selected
+    above 16 bits, and the only strategy of the ``fused=False`` /
+    ``method="bitonic"`` comparison pipelines, which run on CPU tensors
+    only).  Both strategies give the same order.
+    """
+    n = keys.shape[0]
+    if keys.dim() != 1 or keys.dtype.is_floating_point or \
+            keys.dtype.is_complex or keys.dtype == torch.bool:
+        raise TypeError(f"argsort takes a 1-D integer tensor, got "
+                        f"{keys.dtype} of shape {tuple(keys.shape)}")
+    if fused is None:
+        fused = method == "radix"
+    if fused and method != "radix":
+        raise ValueError("fused pack/unpack requires method='radix' "
+                         "(the bitonic network kernel is the unfused "
+                         "baseline)")
+    if strategy is None:
+        strategy = ("multi_tile" if fused and method == "radix"
+                    and num_key_bits <= 16 else "merge")
+    if strategy not in ("merge", "multi_tile"):
+        raise ValueError(f"unknown argsort strategy {strategy!r}")
+    if strategy == "multi_tile" and (not fused or method != "radix"):
+        raise ValueError("strategy='multi_tile' requires the fused radix "
+                         "pipeline (method='radix', fused=True)")
+    idx_bits = max(1, (n - 1).bit_length()) if n else 1
+    if num_key_bits + idx_bits > 32:
+        raise ValueError(
+            f"cannot pack: num_key_bits={num_key_bits} + idx_bits="
+            f"{idx_bits} (= ceil(log2(n)) for n={n}) exceeds 32 — packed "
+            "keys and indices would collide.  Shrink the batch or the key "
+            f"range (n={n} admits keys up to 2^{32 - idx_bits})")
+    if n:
+        # both ends in one host sync: the reference checks only the max,
+        # and a negative key then corrupts the order silently
+        kmin, kmax = torch.stack(torch.aminmax(keys)).tolist()
+        if kmin < 0:
+            raise ValueError(
+                f"keys must be >= 0, got min key {kmin}: a negative key "
+                "sets the high bits of its packed word and corrupts the "
+                "order")
+        if kmax >= 1 << num_key_bits:
+            raise ValueError(
+                f"keys must be < 2^num_key_bits = {1 << num_key_bits}, got "
+                f"max key {kmax}: packed keys would collide with the index "
+                "bits and silently corrupt the order (raise num_key_bits)")
+    if strategy == "multi_tile":
+        # any whole number of tiles works — no power-of-two padding
+        t_eff = min(tile, 1 << math.ceil(math.log2(max(2, n))))
+        n_pad = -(-max(2, n) // t_eff) * t_eff
+    else:
+        n_pad = 1 << math.ceil(math.log2(max(2, n)))
+    return _argsort_impl(
+        keys.to(torch.int32).contiguous(), n=n, n_pad=n_pad, tile=tile,
+        num_key_bits=num_key_bits, idx_bits=idx_bits, method=method,
+        fused=fused, digit_bits=digit_bits, group=group, strategy=strategy)
+
+
+__all__ = ["argsort", "sort_u32", "tile_sort", "merge_pair",
+           "merge_level_plain", "IDX_BITS", "IDX_MASK", "K8"]

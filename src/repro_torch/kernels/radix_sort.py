@@ -1,0 +1,363 @@
+"""The stable sort's radix kernels — the counterpart of
+``repro.kernels.radix_sort``, with the hand-written Hopper kernels
+(``csrc/radix_sort.cu``) and their plain PyTorch twins.
+
+* K7a ``radix_tile_sort``: every tile of a (n,) uint32 array sorted stably
+  by the bits ``[key_shift, key_shift + total_bits)``; all digit passes in
+  one launch.
+* K7b ``radix_tile_sort_packed``: raw int32 keys in, per-tile-sorted packed
+  words ``key << idx_bits | global_index`` out (pad slots the sentinel), or
+  with ``unpack`` the int32 order itself.  Only the key digits are ranked:
+  in-tile the index bits are the (ordered) positions, carried by stability.
+* K6a ``_mt_local`` and K6b ``_mt_scatter``: the two halves of one
+  multi-tile LSD digit pass (per-tile stable sort plus histogram; every
+  (tile, digit) segment to its global base), with K5
+  (``tile_scan.histogram_offsets``) between them;
+  ``multi_tile_argsort_packed`` runs ``3 · num_passes`` launches,
+  independent of n.
+
+Packed words are ``torch.uint32``, orders ``torch.int32``, as the
+reference's dtypes.  Each wrapper runs its plain twin for a CPU tensor (a
+per-row ``torch.sort(stable=True)`` by the digit or key field, in int64)
+and launches its kernel for a CUDA tensor, or raises; nothing falls back.
+``group`` (tiles per TPU grid cell) is kept for the reference's signature
+and changes nothing here.  ``moe_dispatch_sort`` (K3) is ported with MoE,
+ROADMAP Queue 1 item 9.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..core.plan import DigitPass, digit_passes
+from . import _build
+from .tile_scan import histogram_offsets
+
+# the single definition — merge_sort imports it: pad words must compare
+# above every real packed key in both the tile and the merge phases
+SENTINEL = 0xFFFFFFFF
+M32 = 0xFFFFFFFF
+
+# the reference's int16 rank arithmetic bound, kept: a CUDA tile lives in
+# shared memory (two buffers of 2^13 words)
+_MAX_RADIX_TILE = 1 << 13
+
+K7A = _build.KERNELS["radix_tile_sort"]
+K7B = _build.KERNELS["radix_tile_sort_packed"]
+K6A = _build.KERNELS["radix_mt_local"]
+K6B = _build.KERNELS["radix_mt_scatter"]
+
+
+def _check_tile(tile: int, digit_bits: int) -> None:
+    if tile & (tile - 1):
+        raise ValueError(f"radix tile must be a power of two, got {tile}")
+    if tile > _MAX_RADIX_TILE:
+        raise ValueError(f"radix tile sort supports tile ≤ {_MAX_RADIX_TILE} "
+                         f"(int16 rank arithmetic), got {tile}")
+    if not 1 <= digit_bits <= 8:
+        raise ValueError(f"digit_bits must be in [1, 8], got {digit_bits}")
+
+
+def _pick_group(num_tiles: int, group: int) -> int:
+    return math.gcd(num_tiles, max(1, group))
+
+
+# ---------------------------------------------------------------------------
+# u32 words as int64 in the twins (torch's uint32 has no shifts on the CPU)
+# ---------------------------------------------------------------------------
+
+def _u64(x: torch.Tensor) -> torch.Tensor:
+    """uint32 words, or int32 keys reinterpreted as their uint32 bits, as
+    int64 values in [0, 2^32)."""
+    return x.to(torch.int64) & M32
+
+
+def _u32(v: torch.Tensor) -> torch.Tensor:
+    return (v & M32).to(torch.uint32)
+
+
+def _i32(v: torch.Tensor) -> torch.Tensor:
+    return (v & M32).to(torch.int32)        # wraps as the reference's astype
+
+
+def _shr(v: torch.Tensor, s: int) -> torch.Tensor:
+    return v >> s if s < 32 else torch.zeros_like(v)
+
+
+def _shl(v: torch.Tensor, s: int) -> torch.Tensor:
+    return (v << s) & M32 if s < 32 else torch.zeros_like(v)
+
+
+def _sort_rows(words: torch.Tensor, field: torch.Tensor) -> torch.Tensor:
+    """Each row of ``words`` stably sorted by ``field`` (both (rows, m))."""
+    order = torch.sort(field, dim=1, stable=True).indices
+    return torch.gather(words, 1, order)
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+
+def radix_tile_sort_plain(x: torch.Tensor, *, tile: int, total_bits: int,
+                          key_shift: int) -> torch.Tensor:
+    """Twin of K7a: per tile, a stable sort by the ``total_bits`` bits at
+    ``key_shift`` (what the LSD passes compute together)."""
+    n = x.shape[0]
+    w = _u64(x).reshape(n // tile, tile)
+    field = _shr(w, key_shift) & ((1 << min(total_bits, 32)) - 1)
+    return _u32(_sort_rows(w, field)).reshape(n)
+
+
+def _composite(keys: torch.Tensor, nt: int, tile: int) -> torch.Tensor:
+    lb = tile.bit_length() - 1
+    pos = torch.arange(tile, dtype=torch.int64, device=keys.device)
+    return _shl(_u64(keys).reshape(nt, tile), lb) | pos
+
+
+def radix_tile_sort_packed_plain(keys: torch.Tensor, *, n: int, tile: int,
+                                 idx_bits: int, sort_bits: int,
+                                 unpack: bool = False) -> torch.Tensor:
+    """Twin of K7b: the composite ``key << log2(tile) | pos`` per tile,
+    stably sorted by its ``sort_bits`` key bits, then emitted as packed
+    words (sentinel past n) or the int32 order (idx_mask past n)."""
+    n_pad = keys.shape[0]
+    nt, lb = n_pad // tile, tile.bit_length() - 1
+    c = _composite(keys, nt, tile)
+    c = _sort_rows(c, _shr(c, lb) & ((1 << min(sort_bits, 32)) - 1))
+    gidx = torch.arange(nt, dtype=torch.int64, device=keys.device)[:, None] \
+        * tile + (c & (tile - 1))
+    real = gidx < n
+    if unpack:
+        out = _i32(torch.where(real, gidx, (1 << idx_bits) - 1))
+    else:
+        packed = _shl(_shr(c, lb), idx_bits) | gidx
+        out = _u32(torch.where(real, packed, SENTINEL))
+    return out.reshape(n_pad)
+
+
+def mt_local_plain(x: torch.Tensor, *, nt: int, tile: int, shift: int,
+                   bits: int, pack: bool, idx_bits: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Twin of K6a: each tile stably sorted by the ``bits``-wide digit at
+    ``shift``, plus the (nt, 2^bits) int32 digit histogram; with ``pack``
+    the input is raw keys, packed as ``key << idx_bits | global_index``."""
+    radix = 1 << bits
+    w = _u64(x).reshape(nt, tile)
+    if pack:
+        gidx = torch.arange(nt * tile, dtype=torch.int64,
+                            device=x.device).reshape(nt, tile)
+        w = _shl(w, idx_bits) | gidx
+    digit = _shr(w, shift) & (radix - 1)
+    hist = torch.zeros(nt, radix, dtype=torch.int64, device=x.device)
+    hist.scatter_add_(1, digit, torch.ones_like(digit))
+    return _u32(_sort_rows(w, digit)), hist.to(torch.int32)
+
+
+def mt_scatter_plain(local: torch.Tensor, hist: torch.Tensor,
+                     base: torch.Tensor, *, tile: int,
+                     unpack_mask: Optional[int] = None) -> torch.Tensor:
+    """Twin of K6b: element j of tile t, in segment d (the last digit whose
+    local start is <= j), goes to ``base[t, d] + j - lstart[t, d]``."""
+    nt = local.shape[0]
+    h = hist.to(torch.int64)
+    lstart = torch.cumsum(h, 1) - h
+    j = torch.arange(tile, dtype=torch.int64, device=local.device)
+    d = torch.searchsorted(lstart, j.expand(nt, tile).contiguous(),
+                           right=True) - 1
+    dest = torch.gather(base.to(torch.int64), 1, d) + j - \
+        torch.gather(lstart, 1, d)
+    out = torch.zeros(nt * tile, dtype=torch.int64, device=local.device)
+    out[dest.reshape(-1)] = _u64(local).reshape(-1)
+    if unpack_mask is not None:
+        return _i32(out & unpack_mask)
+    return _u32(out)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} takes {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the input must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def radix_tile_sort(x: torch.Tensor, *, tile: int = 1024,
+                    total_bits: int = 32, digit_bits: int = 4,
+                    key_shift: int = 0, group: int = 8) -> torch.Tensor:
+    """Sort each tile of a (n,) uint32 tensor by the ``total_bits`` bits at
+    ``key_shift`` — stable, so tie order (bits outside the range) is
+    preserved; ``ceil(total_bits / digit_bits)`` passes in one launch."""
+    n = x.shape[0]
+    tile = min(tile, n)
+    _check_tile(tile, digit_bits)
+    if n % tile:
+        raise ValueError(f"n={n} is not a multiple of the tile {tile}")
+    passes = digit_passes(total_bits, digit_bits, key_shift=key_shift)
+    if x.device.type == "cpu":
+        return radix_tile_sort_plain(x, tile=tile, total_bits=total_bits,
+                                     key_shift=key_shift)
+    _check_cuda("radix_tile_sort", x, torch.uint32)
+    out = torch.empty_like(x)
+    K7A(x.data_ptr(), out.data_ptr(), n // tile, tile, key_shift,
+        sum(p.bits for p in passes), digit_bits, _stream(x))
+    return out
+
+
+def radix_tile_sort_packed(keys: torch.Tensor, *, n: int, tile: int,
+                           num_key_bits: int, idx_bits: int,
+                           digit_bits: int = 4, group: int = 8,
+                           unpack: bool = False,
+                           passes: Optional[Sequence[DigitPass]] = None
+                           ) -> torch.Tensor:
+    """Fused pack + tile sort: raw int32 keys (padded to a multiple of
+    ``tile``; pad rows must carry the max key) → per-tile-sorted packed
+    uint32 words ``key << idx_bits | global_index``, pad slots as the
+    sentinel; with ``unpack=True`` the int32 order.  ``passes`` takes the
+    plan's ``sort_schedule`` digit passes and parameterizes the kernel
+    (derived locally when absent); malformed schedules raise."""
+    n_pad = keys.shape[0]
+    tile = min(tile, n_pad)
+    if n_pad % tile:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of the tile {tile}")
+    lb = tile.bit_length() - 1
+    if passes is None:
+        passes = digit_passes(num_key_bits, digit_bits, key_shift=lb)
+    passes = tuple(passes)
+    _check_tile(tile, passes[0].bits if passes else digit_bits)
+    if passes and passes[0].shift != lb:
+        # layout invariant, not arithmetic: the composite places the key
+        # at bit log2(tile), so the schedule's key_shift must agree
+        raise ValueError(f"schedule key_shift {passes[0].shift} != "
+                         f"log2(tile) = {lb}")
+    # the kernel strides uniformly by passes[0].bits (only the final pass
+    # may narrow) — reject any other shape instead of silently mis-sorting
+    for i, p in enumerate(passes):
+        if p.shift != passes[0].shift + i * passes[0].bits or \
+                (p.bits != passes[0].bits and i != len(passes) - 1) or \
+                p.bits > passes[0].bits:
+            raise ValueError(
+                f"passes must be contiguous with uniform stride (last may "
+                f"narrow), got {passes}")
+    stride = passes[0].bits if passes else digit_bits
+    sort_bits = sum(p.bits for p in passes)
+    if keys.device.type == "cpu":
+        return radix_tile_sort_packed_plain(
+            keys, n=n, tile=tile, idx_bits=idx_bits, sort_bits=sort_bits,
+            unpack=unpack)
+    _check_cuda("radix_tile_sort_packed", keys, torch.int32)
+    out = torch.empty(n_pad, dtype=torch.int32 if unpack else torch.uint32,
+                      device=keys.device)
+    K7B(keys.data_ptr(), out.data_ptr(), n_pad // tile, tile, n, idx_bits,
+        sort_bits, stride, int(unpack), _stream(keys))
+    return out
+
+
+def _mt_local(x: torch.Tensor, *, nt: int, tile: int, shift: int, bits: int,
+              pack: bool, idx_bits: int, group: int = 8
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a: one digit pass, tile-local half → ((nt, tile) uint32 words,
+    (nt, 2^bits) int32 histogram).  ``x`` is (nt·tile,) raw int32 keys with
+    ``pack`` (pass 0), else uint32 words."""
+    if x.numel() != nt * tile:
+        raise ValueError(f"_mt_local: {x.numel()} elements != {nt} x {tile}")
+    if x.device.type == "cpu":
+        return mt_local_plain(x, nt=nt, tile=tile, shift=shift, bits=bits,
+                              pack=pack, idx_bits=idx_bits)
+    _check_tile(tile, bits)
+    _check_cuda("_mt_local", x, torch.int32 if pack else torch.uint32)
+    local = torch.empty(nt, tile, dtype=torch.uint32, device=x.device)
+    hist = torch.empty(nt, 1 << bits, dtype=torch.int32, device=x.device)
+    K6A(x.data_ptr(), local.data_ptr(), hist.data_ptr(), nt, tile, shift,
+        bits, int(pack), idx_bits, _stream(x))
+    return local, hist
+
+
+def _mt_scatter(local: torch.Tensor, hist: torch.Tensor, base: torch.Tensor,
+                *, tile: int, radix: int, group: int = 8,
+                unpack_mask: Optional[int] = None) -> torch.Tensor:
+    """K6b: one digit pass, global half → the (nt·tile,) words in global
+    digit order (uint32), or with ``unpack_mask`` (last pass) ``word &
+    unpack_mask`` as int32."""
+    nt = local.shape[0]
+    if tuple(local.shape) != (nt, tile) or \
+            tuple(hist.shape) != (nt, radix) or base.shape != hist.shape:
+        raise ValueError(f"_mt_scatter: shapes {tuple(local.shape)}, "
+                         f"{tuple(hist.shape)}, {tuple(base.shape)} are not "
+                         f"({nt}, {tile}), ({nt}, {radix}) x2")
+    if local.device.type == "cpu":
+        return mt_scatter_plain(local, hist, base, tile=tile,
+                                unpack_mask=unpack_mask)
+    _check_cuda("_mt_scatter", local, torch.uint32)
+    _check_cuda("_mt_scatter", hist, torch.int32)
+    _check_cuda("_mt_scatter", base, torch.int32)
+    out = torch.empty(nt * tile, dtype=torch.uint32 if unpack_mask is None
+                      else torch.int32, device=local.device)
+    K6B(local.data_ptr(), hist.data_ptr(), base.data_ptr(), out.data_ptr(),
+        nt, tile, radix, 0 if unpack_mask is None else unpack_mask & M32,
+        int(unpack_mask is not None), _stream(local))
+    return out
+
+
+def multi_tile_argsort_packed(keys: torch.Tensor, *, n: int, tile: int,
+                              num_key_bits: int, idx_bits: int,
+                              digit_bits: int = 4, group: int = 8,
+                              scan_block: int = 256,
+                              passes: Optional[Sequence[DigitPass]] = None
+                              ) -> torch.Tensor:
+    """Global stable argsort via multi-tile LSD radix — no merge tree.
+
+    keys: raw int32, padded to a multiple of ``tile`` with the max key (pad
+    slots sort to the global tail).  Returns the full padded int32 order;
+    callers slice ``[:n]``.  Launches: ``3 · num_passes`` (local + carry
+    scan + scatter per digit pass), independent of ``n``; a single-tile
+    input degenerates to the fused one-launch tile sort.  ``passes`` takes
+    the plan's ``sort_schedule(mode="multi_tile")`` digit passes
+    (``key_shift`` must equal ``idx_bits``)."""
+    n_pad = keys.shape[0]
+    tile = min(tile, n_pad)
+    if n_pad % tile:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of the tile {tile}")
+    nt = n_pad // tile
+    if nt == 1:
+        return radix_tile_sort_packed(
+            keys, n=n, tile=tile, num_key_bits=num_key_bits,
+            idx_bits=idx_bits, digit_bits=digit_bits, group=group,
+            unpack=True)
+    if passes is None:
+        passes = digit_passes(num_key_bits, digit_bits, key_shift=idx_bits)
+    passes = tuple(passes)
+    if not passes:
+        raise ValueError("multi-tile argsort needs at least one digit pass")
+    if passes[0].shift != idx_bits:
+        raise ValueError(f"schedule key_shift {passes[0].shift} != "
+                         f"idx_bits = {idx_bits}")
+    _check_tile(tile, max(p.bits for p in passes))
+    idx_mask = (1 << idx_bits) - 1
+    x = keys
+    for i, p in enumerate(passes):
+        local, hist = _mt_local(
+            x, nt=nt, tile=tile, shift=p.shift, bits=p.bits, pack=(i == 0),
+            idx_bits=idx_bits, group=group)
+        base = histogram_offsets(hist, block=scan_block)
+        x = _mt_scatter(
+            local, hist, base, tile=tile, radix=1 << p.bits, group=group,
+            unpack_mask=idx_mask if i == len(passes) - 1 else None)
+    return x
+
+
+__all__ = ["radix_tile_sort", "radix_tile_sort_packed",
+           "multi_tile_argsort_packed", "radix_tile_sort_plain",
+           "radix_tile_sort_packed_plain", "mt_local_plain",
+           "mt_scatter_plain", "SENTINEL", "K6A", "K6B", "K7A", "K7B"]

@@ -1,5 +1,6 @@
-"""Plain PyTorch oracles for the attention kernels — exact softmax
-attention in fp32, the counterpart of ``repro.kernels.ref``."""
+"""Plain PyTorch oracles, the counterpart of ``repro.kernels.ref``: exact
+softmax attention in fp32, and the stable argsort.  The tests use them;
+nothing on the port's paths calls them."""
 
 from __future__ import annotations
 
@@ -50,4 +51,9 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
 
 
-__all__ = ["attention_reference", "decode_attention_reference", "NEG_INF"]
+def stable_argsort_reference(keys: torch.Tensor) -> torch.Tensor:
+    return torch.argsort(keys, stable=True).to(torch.int32)
+
+
+__all__ = ["attention_reference", "decode_attention_reference",
+           "stable_argsort_reference", "NEG_INF"]

@@ -1,7 +1,19 @@
-"""K4: single-launch monoid scans with a carry — ``tree_scan`` and
-``batched_scan``, the counterpart of the pytree scans of
+"""Single-launch scans with a carry, the counterpart of
 ``repro.kernels.tile_scan``, with the hand-written Hopper kernels
-(``csrc/tile_scan.cu``) and their plain PyTorch twin.
+(``csrc/tile_scan.cu``) and their plain PyTorch twins.
+
+K5 — ``tile_scan`` (a 1-D scan under a scalar monoid) and
+``histogram_offsets`` (the digit-major exclusive scan of a (nt, R) digit
+histogram: the multi-tile radix sort's global base offsets).  On the CPU
+the twin takes any monoid ``combine``/``unit``, as the reference does; on
+a CUDA tensor only the int32 sum (``combine`` None or ``torch.add``, unit
+0; for the histogram a power-of-two radix up to 256) launches
+``tile_scan_add``, and anything else raises.  The reference
+pads the last block with the unit and carries a sum across sequential
+grid steps; the kernel is one CTA looping over the array with a running
+carry, so ``block`` changes no value and is checked only.
+
+K4 — ``tree_scan`` and ``batched_scan``, the pytree scans.
 
 Semantics are the reference's.  Elements are tuples of tensors (the SSM
 monoids' pytrees); ``combine`` is associative with identity ``units`` (one
@@ -40,7 +52,100 @@ from . import _build
 Leaves = Tuple[torch.Tensor, ...]
 LOGSPACE = _build.KERNELS["tile_scan_logspace"]
 AFFINE = _build.KERNELS["tile_scan_affine"]
+SCAN_ADD = _build.KERNELS["tile_scan_add"]
 MAX_L = 2048          # logspace scan length the kernel stages in shared memory
+
+
+# ---------------------------------------------------------------------------
+# K5: the 1-D scan and the histogram offsets
+# ---------------------------------------------------------------------------
+
+def scan_plain(x: torch.Tensor, *, combine: Optional[Callable] = None,
+               unit=0, inclusive: bool = False) -> torch.Tensor:
+    """The plain twin of K5 on any device: the int sum is ``torch.cumsum``
+    in the input's dtype; any other monoid is a Hillis–Steele scan, log2(n)
+    elementwise ``combine`` steps (exact for integer monoids, equal to the
+    reference up to reassociation for floats).  Exclusive output is the
+    inclusive one shifted right behind the unit."""
+    if combine is None or combine is torch.add:
+        incl = torch.cumsum(x, 0, dtype=x.dtype)
+    else:
+        incl, step = x.clone(), 1
+        while step < x.shape[0]:
+            incl = torch.cat([incl[:step], combine(incl[:-step],
+                                                   incl[step:])])
+            step *= 2
+    if inclusive:
+        return incl
+    return torch.cat([torch.full((1,), unit, dtype=x.dtype,
+                                 device=x.device), incl[:-1]])
+
+
+def _scan_add(x: torch.Tensor, nt: int, r: int,
+              inclusive: bool) -> torch.Tensor:
+    """``tile_scan_add``: r = 1, a 1-D scan of nt elements; r = R (a power
+    of two up to 256), the digit-major offsets of an (nt, R) histogram,
+    written in (nt, R) layout."""
+    if not x.is_cuda:
+        raise ValueError("tile_scan: expected a CUDA tensor")
+    if x.dtype != torch.int32 or not x.is_contiguous():
+        raise NotImplementedError(
+            f"tile_scan on the card takes a contiguous int32 sum, got "
+            f"{x.dtype}; other monoids and dtypes run only on the CPU twin")
+    if r > 256 or r & (r - 1) or (r > 1 and x.data_ptr() % 16):
+        raise NotImplementedError(
+            f"histogram_offsets on the card takes a 16-byte aligned "
+            f"histogram of a power-of-two radix up to 256, got radix {r}")
+    out = torch.empty_like(x)
+    SCAN_ADD(x.data_ptr(), out.data_ptr(), nt * r, nt, r, int(inclusive),
+             _stream(x))
+    return out
+
+
+def tile_scan(x: torch.Tensor, *, block: int = 256,
+              combine: Optional[Callable] = None, unit=0,
+              inclusive: bool = False) -> torch.Tensor:
+    """Exclusive (default) or inclusive scan of a 1-D tensor in one launch.
+    ``combine``/``unit`` default to ``(+, 0)``; on a CUDA tensor only that
+    monoid on int32 runs (the kernel), on the CPU any monoid (the twin)."""
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    n = x.shape[0]
+    if n == 0:
+        return x
+    if x.device.type == "cpu":
+        return scan_plain(x, combine=combine, unit=unit, inclusive=inclusive)
+    if combine not in (None, torch.add) or unit != 0:
+        raise NotImplementedError(
+            "tile_scan on the card implements the sum (unit 0) only; CUDA "
+            "tensors are never scanned in Python")
+    return _scan_add(x, n, 1, inclusive)
+
+
+def histogram_offsets_plain(hist: torch.Tensor) -> torch.Tensor:
+    """The twin of :func:`histogram_offsets`: transpose, cumsum,
+    transpose back."""
+    nt, r = hist.shape
+    flat = hist.t().reshape(nt * r)
+    return scan_plain(flat).reshape(r, nt).t()
+
+
+def histogram_offsets(hist: torch.Tensor, *, block: int = 256
+                      ) -> torch.Tensor:
+    """Global base offsets from a ``(num_tiles, R)`` digit histogram:
+    ``offsets[t, d]`` = #(elements with digit < d anywhere) + #(elements
+    with digit d in tiles before ``t``), the exclusive scan of the
+    histogram flattened digit-major.  The kernel reads the (nt, R) matrix
+    as it lies (column sums, then slabs of rows) and writes the offsets in
+    (nt, R) layout: one launch, no transposes."""
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    nt, r = hist.shape
+    if hist.device.type == "cpu":
+        return histogram_offsets_plain(hist)
+    if nt * r == 0:
+        return hist.clone()
+    return _scan_add(hist, nt, r, False)
 
 
 # ---------------------------------------------------------------------------
@@ -245,5 +350,7 @@ def batched_scan(xs: Any, *, combine: Callable[[Any, Any], Any], units: Any,
                     batched=True)
 
 
-__all__ = ["tree_scan", "batched_scan", "fold", "logspace_scan",
-           "affine_scan", "LOGSPACE", "AFFINE", "MAX_L"]
+__all__ = ["tile_scan", "histogram_offsets", "scan_plain",
+           "histogram_offsets_plain", "tree_scan", "batched_scan", "fold",
+           "logspace_scan", "affine_scan", "LOGSPACE", "AFFINE", "SCAN_ADD",
+           "MAX_L"]

@@ -86,6 +86,64 @@ def test_cap_counter_and_hooks_match_reference():
     assert drive(tcore) == drive(jcore)
 
 
+@pytest.mark.parametrize("n,tile,depth", [(1 << 12, 256, 4), (1 << 13, 256, 5),
+                                          (96, 16, 3), (1 << 10, 1, 7)])
+def test_even_levels_plan_matches_reference(n, tile, depth):
+    def plan(core):
+        work = core.bound_depth(core.SeqWork(0, n, align=tile,
+                                             min_size=tile), depth)
+        return core.build_plan(core.even_levels(work))
+
+    t, j = plan(tcore), plan(jcore)
+    assert t.leaf_sizes() == j.leaf_sizes()
+    assert [n.depth for n in t.leaf_nodes()] == \
+        [n.depth for n in j.leaf_nodes()]
+    assert all(n.depth % 2 == 0 for n in t.leaf_nodes())
+    assert [[m.span() for m in lvl] for lvl in t.levels()] == \
+        [[m.span() for m in lvl] for lvl in j.levels()]
+    assert [(lv.pairs, lv.uniform, lv.num_pairs) for lv in
+            t.merge_schedule()] == [(lv.pairs, lv.uniform, lv.num_pairs)
+                                    for lv in j.merge_schedule()]
+
+
+@pytest.mark.parametrize("sort_bits,digit_bits,key_shift", [
+    (12, 4, 20), (17, 4, 9), (6, 4, 18), (32, 4, 0), (0, 4, 3), (13, 5, 2)])
+def test_digit_passes_match_reference(sort_bits, digit_bits, key_shift):
+    t = tcore.digit_passes(sort_bits, digit_bits, key_shift=key_shift)
+    j = jcore.digit_passes(sort_bits, digit_bits, key_shift=key_shift)
+    assert [(p.shift, p.bits, p.radix) for p in t] == \
+        [(p.shift, p.bits, p.radix) for p in j]
+    with pytest.raises(ValueError):
+        tcore.digit_passes(4, 0)
+
+
+@pytest.mark.parametrize("mode", ["merge", "multi_tile"])
+@pytest.mark.parametrize("n,tile,sort_bits", [(1 << 20, 1024, 12),
+                                              (1 << 15, 512, 17),
+                                              (4096, 4096, 8)])
+def test_sort_schedule_matches_reference(n, tile, sort_bits, mode):
+    def sched(core):
+        depth = (n // tile).bit_length() - 1
+        work = core.bound_depth(core.SeqWork(0, n, align=tile,
+                                             min_size=tile), depth)
+        return core.build_plan(core.even_levels(work) if mode == "merge"
+                               else work).sort_schedule(
+            sort_bits=sort_bits, digit_bits=4,
+            key_shift=tile.bit_length() - 1, mode=mode)
+
+    t, j = sched(tcore), sched(jcore)
+    assert (t.num_passes, t.num_launches, t.mode, t.num_tiles,
+            t.key_shift) == (j.num_passes, j.num_launches, j.mode,
+                             j.num_tiles, j.key_shift)
+    assert [(p.shift, p.bits) for p in t.tile_passes] == \
+        [(p.shift, p.bits) for p in j.tile_passes]
+    assert [lv.pairs for lv in t.levels] == [lv.pairs for lv in j.levels]
+    assert tcore.MULTI_TILE_LAUNCHES_PER_PASS == \
+        jcore.MULTI_TILE_LAUNCHES_PER_PASS
+    with pytest.raises(ValueError):
+        tcore.SortSchedule(tile_passes=(), levels=(), mode="bogus")
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -98,6 +156,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.name for f in files}
+    assert {"merge_sort.py", "radix_sort.py", "ops.py",
+            "tile_scan.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert bad == []
@@ -119,6 +180,9 @@ def test_port_runs_with_jax_unimportable():
         "out, _ = m.decode_step(p, torch.tensor([3], dtype=torch.int32), "
         "cache, torch.tensor([4], dtype=torch.int32))\n"
         "assert out.shape == (1, 512) and torch.isfinite(out).all()\n"
+        "from repro_torch.kernels.ops import stable_argsort\n"
+        "order = stable_argsort(torch.tensor([3, 1, 2, 1]), num_key_bits=2)\n"
+        "assert order.tolist() == [1, 3, 2, 0]\n"
         "assert not any(k.startswith('repro.') for k in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

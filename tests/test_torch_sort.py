@@ -1,0 +1,424 @@
+"""The port's stable sort against the JAX package on the same numpy inputs,
+bit for bit: K5 (``tile_scan``, ``histogram_offsets``), K6 (``_mt_local``,
+``_mt_scatter``), K7 (``radix_tile_sort``, ``radix_tile_sort_packed``), K8
+(``_merge_path_starts``, ``_merge_level``), ``sort_u32``, ``merge_pair``
+and ``argsort`` under both strategies.  On the CPU every wrapper runs its
+plain twin; the JAX side runs its Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` does, so sizes stay small (n <= 4096, tile <=
+256).  Integer data: the tolerance is 0 mismatches.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from hypothesis import given, settings, strategies as st
+
+from repro.core import DigitPass as JDigitPass
+from repro.kernels import merge_sort as jms
+from repro.kernels import radix_sort as jrs
+from repro.kernels import tile_scan as jts
+from repro.kernels.ops import stable_argsort as jax_stable_argsort
+from repro_torch.core import DigitPass, digit_passes
+from repro_torch.kernels import _build
+from repro_torch.kernels import merge_sort as ms
+from repro_torch.kernels import radix_sort as rs
+from repro_torch.kernels import tile_scan as ts
+from repro_torch.kernels.ops import stable_argsort
+from repro_torch.kernels.ref import stable_argsort_reference
+
+RNG_SEED = 20240613
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))          # a writable copy
+
+
+def _same(t, j):
+    """Bit-equal, dtype included (uint32 words, int32 orders)."""
+    got, want = t.numpy(), np.asarray(j)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+def _keys(n, bits, seed, kind="random"):
+    rng = np.random.default_rng(seed)
+    hi = 1 << bits
+    if kind == "random":
+        return rng.integers(0, hi, n).astype(np.int32)
+    if kind == "equal":
+        return np.full(n, hi // 2, np.int32)
+    if kind == "sorted":
+        return np.sort(rng.integers(0, hi, n)).astype(np.int32)
+    if kind == "reversed":
+        return np.sort(rng.integers(0, hi, n))[::-1].astype(np.int32)
+    if kind == "few":
+        return rng.choice(rng.integers(0, hi, 7), n).astype(np.int32)
+    raise ValueError(kind)
+
+
+def _words(n, seed, bits=32):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 1 << bits, n, dtype=np.uint64).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,block,inclusive", [
+    (1, 256, False), (777, 64, False), (777, 64, True), (4096, 256, False),
+    (1000, 7, True)])
+def test_tile_scan_add_matches_reference(n, block, inclusive):
+    vals = np.random.default_rng(n).integers(0, 1000, n).astype(np.int32)
+    _same(ts.tile_scan(_t(vals), block=block, inclusive=inclusive),
+          jts.tile_scan(jnp.asarray(vals), block=block, inclusive=inclusive))
+
+
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_tile_scan_max_monoid_matches_reference(inclusive):
+    vals = np.random.default_rng(0).integers(-1000, 1000, 777).astype(
+        np.int32)
+    unit = -(2 ** 31)
+    _same(ts.tile_scan(_t(vals), block=64, combine=torch.maximum, unit=unit,
+                       inclusive=inclusive),
+          jts.tile_scan(jnp.asarray(vals), block=64, combine=jnp.maximum,
+                        unit=unit, inclusive=inclusive))
+
+
+@pytest.mark.parametrize("nt,r", [(1, 16), (6, 8), (48, 16), (5, 256),
+                                  (16, 2)])
+def test_histogram_offsets_matches_reference(nt, r):
+    hist = np.random.default_rng(nt * r).integers(0, 50, (nt, r)).astype(
+        np.int32)
+    hist[nt // 2] = 0                                   # an empty tile row
+    _same(ts.histogram_offsets(_t(hist), block=64),
+          jts.histogram_offsets(jnp.asarray(hist), block=64))
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,tile,total_bits,digit_bits,key_shift", [
+    (1024, 256, 32, 4, 0), (512, 64, 32, 3, 0), (256, 256, 12, 8, 4),
+    (128, 16, 7, 2, 20), (64, 64, 0, 4, 0), (4, 4, 4, 3, 4)])
+def test_radix_tile_sort_matches_reference(n, tile, total_bits, digit_bits,
+                                           key_shift):
+    x = _words(n, n + tile)
+    x[1::2] = x[::2]                                 # ties of whole words
+    kw = dict(tile=tile, total_bits=total_bits, digit_bits=digit_bits,
+              key_shift=key_shift)
+    _same(rs.radix_tile_sort(_t(x), **kw),
+          jrs.radix_tile_sort(jnp.asarray(x), interpret=True, **kw))
+
+
+@pytest.mark.parametrize("unpack", [False, True])
+@pytest.mark.parametrize("n,n_pad,tile,num_key_bits,digit_bits", [
+    (1024, 1024, 256, 12, 4), (1000, 1024, 256, 12, 4),
+    (200, 256, 256, 5, 3), (4000, 4096, 256, 17, 4), (16, 16, 16, 6, 4)])
+def test_radix_tile_sort_packed_matches_reference(n, n_pad, tile,
+                                                  num_key_bits, digit_bits,
+                                                  unpack):
+    keys = _keys(n_pad, num_key_bits, n)
+    keys[n:] = (1 << num_key_bits) - 1                # pad rows: the max key
+    idx_bits = max(1, (n - 1).bit_length())
+    kw = dict(n=n, tile=tile, num_key_bits=num_key_bits, idx_bits=idx_bits,
+              digit_bits=digit_bits, unpack=unpack)
+    _same(rs.radix_tile_sort_packed(_t(keys), **kw),
+          jrs.radix_tile_sort_packed(jnp.asarray(keys), interpret=True,
+                                     **kw))
+
+
+def test_radix_tile_sort_packed_takes_the_plans_passes():
+    keys = _keys(512, 12, 1)
+    passes = digit_passes(12, 5, key_shift=7)        # 5 + 5 + 2 bits
+    jpasses = tuple(JDigitPass(p.shift, p.bits) for p in passes)
+    kw = dict(n=512, tile=128, num_key_bits=12, idx_bits=9)
+    _same(rs.radix_tile_sort_packed(_t(keys), passes=passes, **kw),
+          jrs.radix_tile_sort_packed(jnp.asarray(keys), passes=jpasses,
+                                     interpret=True, **kw))
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("nt,tile,bits,shift", [(8, 64, 4, 12), (4, 256, 3, 14),
+                                                (3, 128, 8, 10)])
+def test_mt_local_matches_reference(nt, tile, bits, shift, pack):
+    idx_bits = 10
+    if pack:
+        x = _keys(nt * tile, 8, nt + tile)
+    else:
+        x = _words(nt * tile, nt + tile)
+    kw = dict(nt=nt, tile=tile, shift=shift, bits=bits, pack=pack,
+              idx_bits=idx_bits)
+    local, hist = rs._mt_local(_t(x), **kw)
+    jlocal, jhist = jrs._mt_local(jnp.asarray(x), group=8, interpret=True,
+                                  **kw)
+    _same(local, jlocal)
+    _same(hist, jhist)
+
+
+@pytest.mark.parametrize("unpack_mask", [None, (1 << 10) - 1])
+@pytest.mark.parametrize("nt,tile,bits", [(8, 64, 4), (5, 128, 2),
+                                          (3, 256, 8)])
+def test_mt_scatter_matches_reference(nt, tile, bits, unpack_mask):
+    x = _keys(nt * tile, 8, nt)
+    x[: tile // 2] = 3                                  # a one-digit segment
+    kw = dict(nt=nt, tile=tile, shift=10, bits=bits, pack=True, idx_bits=10)
+    local, hist = jrs._mt_local(jnp.asarray(x), group=8, interpret=True, **kw)
+    base = jts.histogram_offsets(hist, interpret=True)
+    local, hist, base = (np.asarray(a) for a in (local, hist, base))
+    got = rs._mt_scatter(_t(local), _t(hist), _t(base), tile=tile,
+                         radix=1 << bits, unpack_mask=unpack_mask)
+    want = jrs._mt_scatter(jnp.asarray(local), jnp.asarray(hist),
+                           jnp.asarray(base), tile=tile, radix=1 << bits,
+                           group=8, interpret=True, unpack_mask=unpack_mask)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("n,tile,num_key_bits", [(2048, 256, 12),
+                                                 (1000, 256, 8),
+                                                 (3000, 128, 16)])
+def test_multi_tile_argsort_packed_matches_reference(n, tile, num_key_bits):
+    n_pad = -(-n // tile) * tile
+    keys = _keys(n_pad, num_key_bits, n)
+    keys[n:] = (1 << num_key_bits) - 1
+    idx_bits = max(1, (n - 1).bit_length())
+    kw = dict(n=n, tile=tile, num_key_bits=num_key_bits, idx_bits=idx_bits)
+    _same(rs.multi_tile_argsort_packed(_t(keys), **kw),
+          jrs.multi_tile_argsort_packed(jnp.asarray(keys), interpret=True,
+                                        **kw))
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("run,tile,pairs,hi", [(128, 32, 1, 16),
+                                               (256, 64, 4, 1 << 30),
+                                               (64, 64, 2, 4)])
+def test_merge_path_starts_matches_reference(run, tile, pairs, hi):
+    rng = np.random.default_rng(run + hi)
+    ab = np.sort(rng.integers(0, hi, (pairs, 2, run)), axis=-1).astype(
+        np.uint32)
+    for got, want in zip(ms._merge_path_starts(_t(ab), run, tile),
+                         jms._merge_path_starts(jnp.asarray(ab), run, tile)):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("unpack_mask", [None, (1 << 12) - 1])
+@pytest.mark.parametrize("run,tile,pairs,hi", [(256, 64, 4, 1 << 30),
+                                               (128, 128, 2, 16),
+                                               (64, 16, 8, 1 << 32)])
+def test_merge_level_matches_reference(run, tile, pairs, hi, unpack_mask):
+    rng = np.random.default_rng(run * pairs)
+    runs = np.sort(rng.integers(0, hi, (pairs, 2, run), dtype=np.uint64),
+                   axis=-1).astype(np.uint32)
+    runs[0, 1, -3:] = rs.SENTINEL                    # pad sentinels
+    runs[0, 0, -2:] = rs.SENTINEL
+    x = runs.reshape(-1)
+    _same(ms._merge_level(_t(x), run=run, tile=tile, unpack_mask=unpack_mask),
+          jms._merge_level(jnp.asarray(x), run=run, tile=tile,
+                           interpret=True, unpack_mask=unpack_mask))
+
+
+@pytest.mark.parametrize("n,tile", [(256, 64), (512, 512), (128, 16)])
+def test_merge_pair_matches_reference(n, tile):
+    rng = np.random.default_rng(n)
+    a = np.sort(rng.integers(0, 64, n)).astype(np.uint32)
+    b = np.sort(rng.integers(0, 64, n)).astype(np.uint32)
+    _same(ms.merge_pair(_t(a), _t(b), tile=tile),
+          jms.merge_pair(jnp.asarray(a), jnp.asarray(b), tile=tile,
+                         interpret=True))
+
+
+@pytest.mark.parametrize("n,tile,total_bits", [(2048, 256, 32),
+                                               (1024, 128, 20), (16, 2, 32),
+                                               (8, 1, 32), (256, 512, 32)])
+def test_sort_u32_matches_reference(n, tile, total_bits):
+    x = _words(n, n * 3 + tile, bits=total_bits)
+    _same(ms.sort_u32(_t(x), tile=tile, total_bits=total_bits),
+          jms.sort_u32(jnp.asarray(x), tile=tile, total_bits=total_bits,
+                       interpret=True))
+
+
+def test_sort_u32_bitonic_matches_reference():
+    x = _words(1024, 5)
+    _same(ms.sort_u32(_t(x), tile=128, method="bitonic"),
+          jms.sort_u32(jnp.asarray(x), tile=128, method="bitonic",
+                       interpret=True))
+
+
+# ---------------------------------------------------------------------------
+# argsort, end to end
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("strategy", ["multi_tile", "merge"])
+@pytest.mark.parametrize("n,num_key_bits,kind", [
+    (4096, 12, "random"), (4000, 12, "few"), (3000, 6, "equal"),
+    (1000, 12, "random"),           # n <= tile: one fused launch
+    (2048, 8, "sorted"),            # 8 tiles of 256: odd merge depth 3
+    (1537, 4, "reversed"), (5, 3, "random"), (1, 12, "random")])
+def test_argsort_matches_reference(n, num_key_bits, kind, strategy):
+    keys = _keys(n, num_key_bits, n, kind)
+    got = ms.argsort(_t(keys), num_key_bits=num_key_bits, tile=256,
+                     strategy=strategy)
+    _same(got, jms.argsort(jnp.asarray(keys), num_key_bits=num_key_bits,
+                           tile=256, strategy=strategy, interpret=True))
+    _same(got, np.argsort(keys, kind="stable").astype(np.int32))
+
+
+def test_argsort_17_bit_keys_pick_merge_and_match_reference():
+    keys = _keys(4096, 17, 17)
+    got = ms.argsort(_t(keys), num_key_bits=17, tile=256)
+    _same(got, jms.argsort(jnp.asarray(keys), num_key_bits=17, tile=256,
+                           interpret=True))
+    _same(got, ms.argsort(_t(keys), num_key_bits=17, tile=256,
+                          strategy="merge"))
+    with pytest.raises(ValueError, match="multi_tile"):
+        ms.argsort(_t(keys), num_key_bits=17, method="bitonic",
+                   strategy="multi_tile")
+
+
+@pytest.mark.parametrize("kw", [dict(fused=False),
+                                dict(method="bitonic", fused=False)])
+def test_argsort_comparison_pipelines_on_the_cpu(kw):
+    """``test_argsort_methods_agree``'s counterpart: the unfused and the
+    bitonic pipelines run on the CPU twins and give the reference's order."""
+    keys = _keys(3000, 8, 9)
+    got = ms.argsort(_t(keys), tile=256, **kw)
+    _same(got, jms.argsort(jnp.asarray(keys), tile=256, interpret=True, **kw))
+    _same(got, ms.argsort(_t(keys), tile=256))
+
+
+def test_stable_argsort_entry_point_matches_reference():
+    keys = _keys(3000, 10, 3)
+    got = stable_argsort(_t(keys), num_key_bits=10, tile=256)
+    _same(got, jax_stable_argsort(jnp.asarray(keys), num_key_bits=10,
+                                  tile=256))
+    _same(got, stable_argsort_reference(_t(keys)).numpy())
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(st.integers(1, 5000), st.integers(1, 16), st.sampled_from(
+    [16, 64, 256, 1024]), st.sampled_from(["multi_tile", "merge"]),
+    st.integers(0, 2 ** 31 - 1))
+def test_argsort_sweep_vs_torch_stable_argsort(n, bits, tile, strategy,
+                                               seed):
+    keys = torch.from_numpy(_keys(n, bits, seed))
+    got = ms.argsort(keys, num_key_bits=bits, tile=tile, strategy=strategy)
+    assert torch.equal(got, torch.argsort(keys, stable=True).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# loud errors
+# ---------------------------------------------------------------------------
+
+def test_argsort_negative_keys_raise_where_the_reference_corrupts():
+    """The reference checks only the largest key: a negative key passes and
+    its output is not a permutation.  The port checks both ends."""
+    keys = np.asarray([3, -1, 2, 0], np.int32)
+    ref = np.asarray(jms.argsort(jnp.asarray(keys), num_key_bits=4, tile=256,
+                                 interpret=True))
+    np.testing.assert_array_equal(ref, [3, 2, 0, 3])     # not a permutation
+    assert sorted(ref.tolist()) != list(range(4))
+    with pytest.raises(ValueError, match=">= 0"):
+        ms.argsort(_t(keys), num_key_bits=4, tile=256)
+    with pytest.raises(ValueError, match=">= 0"):
+        stable_argsort(_t(keys), num_key_bits=4)
+
+
+def test_argsort_key_overflow_raises_like_the_reference():
+    keys = np.asarray([1, 1 << 4, 3], np.int32)
+    with pytest.raises(ValueError, match="num_key_bits"):
+        jms.argsort(jnp.asarray(keys), num_key_bits=4)
+    with pytest.raises(ValueError, match="num_key_bits"):
+        ms.argsort(_t(keys), num_key_bits=4)
+
+
+@pytest.mark.parametrize("n,bits", [(1025, 22), (3, 31), (1 << 20, 13)])
+def test_argsort_packing_overflow_raises_like_the_reference(n, bits):
+    for argsort, z in ((jms.argsort, jnp.zeros(n, jnp.int32)),
+                       (ms.argsort, torch.zeros(n, dtype=torch.int32))):
+        with pytest.raises(ValueError, match="cannot pack"):
+            argsort(z, num_key_bits=bits)
+
+
+def test_argsort_wide_keys_at_small_n_match_the_reference():
+    keys = np.random.default_rng(1).integers(0, 1 << 22, 1000).astype(
+        np.int32)
+    _same(ms.argsort(_t(keys), num_key_bits=22, tile=256),
+          jms.argsort(jnp.asarray(keys), num_key_bits=22, tile=256,
+                      interpret=True))
+
+
+@pytest.mark.parametrize("passes,match", [
+    ((DigitPass(0, 4),), "key_shift"),
+    ((DigitPass(4, 2), DigitPass(6, 4)), "uniform stride"),
+    ((DigitPass(4, 4), DigitPass(12, 2)), "uniform stride")])
+def test_radix_tile_sort_packed_rejects_malformed_schedules(passes, match):
+    kw = dict(n=16, tile=16, num_key_bits=6, idx_bits=4)
+    jpasses = tuple(JDigitPass(p.shift, p.bits) for p in passes)
+    with pytest.raises(ValueError, match=match):
+        jrs.radix_tile_sort_packed(jnp.zeros(16, jnp.int32), passes=jpasses,
+                                   interpret=True, **kw)
+    with pytest.raises(ValueError, match=match):
+        rs.radix_tile_sort_packed(torch.zeros(16, dtype=torch.int32),
+                                  passes=passes, **kw)
+    out = rs.radix_tile_sort_packed(torch.zeros(16, dtype=torch.int32),
+                                    passes=(DigitPass(4, 4),
+                                            DigitPass(8, 2)), **kw)
+    assert out.shape == (16,) and out.dtype == torch.uint32
+
+
+@pytest.mark.parametrize("tile,digit_bits,match", [
+    (1 << 14, 4, "tile ≤"), (96, 4, "power of two"), (256, 9, "digit_bits")])
+def test_tile_checks_raise_like_the_reference(tile, digit_bits, match):
+    x = np.zeros(1 << 14, np.uint32)
+    with pytest.raises(ValueError, match=match):
+        jrs.radix_tile_sort(jnp.asarray(x), tile=tile, digit_bits=digit_bits)
+    with pytest.raises(ValueError, match=match):
+        rs.radix_tile_sort(_t(x), tile=tile, digit_bits=digit_bits)
+
+
+def test_multi_tile_schedule_key_shift_must_be_idx_bits():
+    keys = torch.zeros(512, dtype=torch.int32)
+    with pytest.raises(ValueError, match="idx_bits"):
+        rs.multi_tile_argsort_packed(keys, n=512, tile=128, num_key_bits=8,
+                                     idx_bits=9, passes=digit_passes(8, 4))
+
+
+# ---------------------------------------------------------------------------
+# no fallback: a tensor off the CPU never reaches a twin
+# ---------------------------------------------------------------------------
+
+def test_wrappers_on_a_non_cpu_tensor_launch_or_raise():
+    """A meta tensor stands in for a CUDA one here: every wrapper refuses it
+    instead of running its twin, the K9 pipelines name their ROADMAP item,
+    and no launch counter moves."""
+    _build.reset_launches()
+    u = torch.empty(1024, dtype=torch.uint32, device="meta")
+    k = torch.empty(1024, dtype=torch.int32, device="meta")
+    for call in (
+            lambda: rs.radix_tile_sort(u, tile=256),
+            lambda: rs.radix_tile_sort_packed(k, n=1024, tile=256,
+                                              num_key_bits=8, idx_bits=10),
+            lambda: rs._mt_local(k, nt=4, tile=256, shift=10, bits=4,
+                                 pack=True, idx_bits=10),
+            lambda: ms._merge_level(u, run=256, tile=256),
+            lambda: ts.tile_scan(k)):
+        with pytest.raises((ValueError, TypeError)):
+            call()
+    with pytest.raises(NotImplementedError, match="tile_scan on the card"):
+        ts.tile_scan(k, combine=torch.maximum)
+    for call in (lambda: ms.tile_sort(u, tile=256),
+                 lambda: ms._pack(k, n=1024, idx_bits=10),
+                 lambda: ms._unpack(u, idx_mask=1023)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    assert all(v == 0 for v in _build.launches().values())
