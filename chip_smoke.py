@@ -15,16 +15,24 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    shapes, bit for bit (K5 ``tile_scan_add``, K6a ``radix_mt_local``, K6b
    ``radix_mt_scatter``, K7a ``radix_tile_sort``, K7b
    ``radix_tile_sort_packed``, K8 ``merge_level``), each timed beside its
-   twin and a per-row ``torch.sort`` / ``torch.cumsum``;
+   twin and a per-row ``torch.sort`` / ``torch.cumsum``; 2b. the same for
+   the MoE dispatch K3 ``moe_dispatch`` (a decode step's 8 rows, a
+   256-token chunk, ``Model.prefill``'s 8192 rows at d_model 5120; ragged,
+   top-k 2, 256 experts; 300 experts raise) and the comparison sort's K9a
+   ``bitonic_tile_sort``, K9b ``pack_keys`` and K9c ``unpack_order`` at
+   2^20 keys, timed beside ``torch.argsort`` + ``index_select`` and the
+   per-row ``torch.sort``;
 3. the sort path: ``ops.stable_argsort`` / ``argsort`` / ``sort_u32`` on
    the card at users' sizes (12-bit ids at 2^20, deepseek-v2-lite's
    routing of 8 x 4096 tokens top-6 and its ragged twin, 8-bit keys at
    2^24, the merge strategy at 2^20 and at 17 bits, random u32 words, one
-   tile, and adversarial 2^20 inputs): every order equals
-   ``torch.argsort(stable=True)`` and the CPU twins', every case launches
-   the expected kernels as often as the reference's ``SortSchedule``
-   says; then each case timed against ``torch.argsort(stable=True)``, and
-   the first five profiled (device time by kernel beside wall time);
+   tile, and adversarial 2^20 inputs; case (d) again with ``fused=False``
+   and with ``method="bitonic"``, case (f) with ``method="bitonic"``):
+   every order equals ``torch.argsort(stable=True)`` and the CPU twins',
+   every case launches the expected kernels as often as the reference's
+   ``SortSchedule`` says (plus K9b and K9c unfused); then each case timed
+   against ``torch.argsort(stable=True)``, and the first five profiled
+   (device time by kernel beside wall time);
 4. hold K1, K2 and K4 against their plain versions at their paths' shapes
    and time kernel, plain version and, where one PyTorch call computes the
    same function, that call (``F.scaled_dot_product_attention`` for K1/K2;
@@ -49,7 +57,20 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 9. the Mamba layer path: one Mamba mixer at jamba-1.5-large's width
    (d_model 8192) over 512 tokens, ``scan_impl="pallas"`` (K4 affine once
    per chunk) against ``"lax"``;
-10. the kernels line, then the last line
+10. the MoE path: llama4-scout-17b-a16e at full width and 12 of its 48
+   layers (bf16, seeded random weights, ``moe_strategy="sort"``,
+   ``moe_sort_fn="pallas"``): 16 requests through ``ContinuousEngine``
+   and 4 through ``Engine``, K3 launched by every MoE layer of every
+   prefill chunk and decode step; the sync Engine's requests routed by
+   ``torch.argsort`` give identical tokens, and a second continuous run
+   holds every K3 call bit for bit against argsort + gathers on the same
+   inputs (the continuous schedule follows wall-clock telemetry, so two
+   runs need not batch alike); ``Model.prefill`` of 4 x 2048
+   routed by the bitonic unfused ``argsort`` (K9b, K9a, K8, K9c) gives
+   K3's logits bit for bit; profiles of a decode step and a prefill chunk;
+11. fp32 checks at the MoE path's full width, 1 layer: card logits
+   against the CPU plain path, batched == one-at-a-time tokens;
+12. the kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  Details
@@ -202,6 +223,10 @@ def main() -> None:
     sort_rows, sort_errs = sort_kernel_rows(np, torch, dev, args.seed,
                                             device_ms, card, report)
 
+    # ------------------------------- 2b. K3 and K9a/b/c vs their plain twins
+    moe_rows, moe_errs = moe_kernel_rows(np, torch, dev, args.seed,
+                                         device_ms, card, report)
+
     # ------------------------------------------------------ 3. the sort path
     sort_launches = sort_path(np, torch, dev, args.seed, card, report)
 
@@ -270,6 +295,30 @@ def main() -> None:
         mean_v = vc[0].float().mean(0).repeat_interleave(H // KV, 0)
         check(err(ref[0], mean_v) <= 1e-4, "K2's twin: a zero-length row "
               "is not the mean of V")
+
+    # K1 and K2 at llama4-scout's head layout, the MoE path's: 40 q heads
+    # on 8 kv heads (G = 5)
+    for dtype in (torch.bfloat16, torch.float32):
+        k = randn(1, 2048, KV, hd, dtype=dtype)
+        v = randn(1, 2048, KV, hd, dtype=dtype)
+        q = randn(1, 256, 40, hd, dtype=dtype)
+        out = fa.flash_attention(q, k, v, causal=True, q_offset=736)
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                       causal=True, q_offset=736)
+        torch.cuda.synchronize()
+        record("flash_attention_fwd", dtype, err(out, ref), c=256,
+               q_offset=736, Sk=2048, H=40)
+        q = randn(8, 40, hd, dtype=dtype)
+        kc = randn(8, 2048, KV, hd, dtype=dtype)
+        vc = randn(8, 2048, KV, hd, dtype=dtype)
+        lens = torch.randint(1, 2049, (8,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        out = fd.flash_decode(q, kc, vc, lens)
+        ref = fd.flash_decode_plain(q.float(), kc.float(), vc.float(), lens)
+        torch.cuda.synchronize()
+        record("flash_decode (partials+combine)", dtype, err(out, ref), B=8,
+               S=2048, H=40)
+        del k, v, q, kc, vc
 
     # K4: both scans against their plain fold, fp32 (normwise relative)
     k4_worst = {}
@@ -638,6 +687,8 @@ def main() -> None:
                  else "flash_decode_combine" if "decode_combine_kernel" in name
                  else "tile_scan_logspace" if "logspace_scan_kernel" in name
                  else "tile_scan_affine" if "affine_scan_kernel" in name
+                 else "moe_dispatch" if "moe_hist_kernel" in name
+                 or "moe_scatter_kernel" in name
                  else "matmul" if any(s in name.lower() for s in (
                      "gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk"))
                  else "other")
@@ -1029,7 +1080,14 @@ def main() -> None:
     del mparams, xm, ym, yl, stm, stl
     torch.cuda.empty_cache()
 
-    # --------------------------------------------------------- 10. report
+    # -------------------- 10. the MoE path: llama4-scout, 12 layers, bf16
+    moe_launches = moe_path(np, torch, dev, args.seed, card, report,
+                            breakdown, drain)
+
+    # ----------------------------- 11. fp32 at the MoE path's width, 1 layer
+    moe_fp32(np, torch, args.seed, report, drain)
+
+    # --------------------------------------------------------- 12. report
     path_launches_by_kernel = {
         **launches, "tile_scan_logspace": ssm_launches["tile_scan_logspace"],
         "tile_scan_affine": mamba_launches["tile_scan_affine"]}
@@ -1070,6 +1128,7 @@ def main() -> None:
             "library_computes": row.get("library_computes"),
             "shape": row["shape"]})
     kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
+    kernels += moe_kernel_entries(moe_rows, moe_errs, moe_launches)
     report["kernels"] = kernels
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(report, indent=1))
@@ -1384,6 +1443,18 @@ def sort_path(np, torch, dev, seed, card, report):
     ] + [(f"(a) 12-bit, 2^20, {kind}", keys_of(big, 12, kind), 12, None,
           mt(3)) for kind in ("all-equal", "sorted", "reverse-sorted",
                               "7 distinct keys")]
+    # (d) under the comparison pipelines: fused=False (K9b, K7a, K8 levels,
+    # K9c) and method="bitonic" (K9b, K9a, K8 levels, K9c); the reference's
+    # schedule counts the tile phase and the levels, not K9b and K9c
+    keys_d = keys_of(big, 12)
+    unfused = {"pack_keys": 1, "merge_level": 10, "unpack_order": 1}
+    cases += [
+        ("(d) 12-bit, merge, fused=False", keys_d, 12, "merge",
+         {**unfused, "radix_tile_sort": 1}, dict(fused=False)),
+        ("(d) 12-bit, merge, bitonic", keys_d, 12, "merge",
+         {**unfused, "bitonic_tile_sort": 1},
+         dict(method="bitonic", fused=False))]
+    cases = [c if len(c) == 6 else c + ({},) for c in cases]
 
     def schedule_launches(n, bits, strategy):
         idx_bits = max(1, (n - 1).bit_length())
@@ -1399,30 +1470,33 @@ def sort_path(np, torch, dev, seed, card, report):
             math.log2(t))).num_launches
 
     def snapshot():
-        return {k: v for k, v in _build.launches().items() if k in SORT_META}
+        return {k: v for k, v in _build.launches().items()
+                if k in SORT_META or k in MOE_META}
 
     results, inputs = [], []
     _build.reset_launches()
     torch.cuda.synchronize()
     t_path = time.perf_counter()
-    for label, k_np, bits, strategy, expect in cases:
+    for label, k_np, bits, strategy, expect, kw in cases:
         keys = torch.as_tensor(k_np, device=dev)
         before = snapshot()
         t0 = time.perf_counter()
         if strategy is None:
             order = ops.stable_argsort(keys, num_key_bits=bits)
         else:
-            order = ms.argsort(keys, num_key_bits=bits, strategy=strategy)
+            order = ms.argsort(keys, num_key_bits=bits, strategy=strategy,
+                               **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {k: v - before[k] for k, v in snapshot().items()
                if v != before[k]}
         strat = strategy or ("multi_tile" if bits <= 16 else "merge")
         ref_launches = schedule_launches(len(k_np), bits, strat)
+        standalone = got.get("pack_keys", 0) + got.get("unpack_order", 0)
         check(got == expect, f"sort {label}: launches {got} != {expect}")
-        check(sum(got.values()) == ref_launches, f"sort {label}: "
-              f"{sum(got.values())} launches, the reference's SortSchedule "
-              f"says {ref_launches}")
+        check(sum(got.values()) - standalone == ref_launches, f"sort "
+              f"{label}: {sum(got.values())} launches ({standalone} pack / "
+              f"unpack), the reference's SortSchedule says {ref_launches}")
         check(order.dtype == torch.int32 and order.shape == keys.shape,
               f"sort {label}: order {order.dtype} {tuple(order.shape)}")
         lib = torch.argsort(keys, stable=True)
@@ -1435,8 +1509,8 @@ def sort_path(np, torch, dev, seed, card, report):
         results.append(dict(case=label, n=len(k_np), num_key_bits=bits,
                             strategy=strat, launches=got,
                             reference_num_launches=ref_launches,
-                            first_call_wall_s=wall))
-        inputs.append((keys, bits, strategy))
+                            first_call_wall_s=wall, **kw))
+        inputs.append((keys, bits, strategy, kw))
         say(f"sort {label}: n={len(k_np)}, {strat}, launches {got} "
             f"(reference SortSchedule.num_launches {ref_launches}); order "
             f"== torch.argsort(stable=True) == CPU twins")
@@ -1462,9 +1536,26 @@ def sort_path(np, torch, dev, seed, card, report):
     results.append(dict(case="(f) sort_u32, random u32", n=big,
                         num_key_bits=32, strategy="merge", launches=got,
                         reference_num_launches=ref_launches))
+    # (f) under method="bitonic": K9a tiles, then the same merge levels
+    before = snapshot()
+    out_b = ms.sort_u32(w, method="bitonic")
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in snapshot().items() if v != before[k]}
+    expect = {"bitonic_tile_sort": 1, "merge_level": 10}
+    check(got == expect and sum(got.values()) == ref_launches,
+          f"sort_u32 bitonic: launches {got} != {expect} (reference "
+          f"{ref_launches})")
+    check(_mismatch(torch, out_b, lib) == 0, "sort_u32 bitonic != torch.sort")
+    say(f"sort (f) sort_u32, method='bitonic': n={big}, launches {got}; "
+        f"words == torch.sort")
+    results.append(dict(case="(f) sort_u32, random u32, bitonic", n=big,
+                        num_key_bits=32, strategy="merge", launches=got,
+                        reference_num_launches=ref_launches,
+                        method="bitonic"))
     launches = snapshot()
     t_path = time.perf_counter() - t_path
-    check(all(launches[k] > 0 for k in SORT_META),
+    check(all(launches[k] > 0 for k in SORT_META)
+          and all(launches[k] > 0 for k in MOE_META if k != "moe_dispatch"),
           f"a sort kernel never launched on the sort path: {launches}")
     say(f"sort path: {len(results)} cases in {t_path:.1f} s (CPU twins "
         f"included), launches {launches} [{card}]")
@@ -1485,22 +1576,23 @@ def sort_path(np, torch, dev, seed, card, report):
         e.synchronize()
         return s.elapsed_time(e) / reps
 
-    for res, (keys, bits, strategy) in zip(results, inputs):
+    for res, (keys, bits, strategy, kw) in zip(results, inputs):
         if strategy is None:
             res["ms"] = events_ms(lambda: ops.stable_argsort(
                 keys, num_key_bits=bits))
         else:
             res["ms"] = events_ms(lambda: ms.argsort(
-                keys, num_key_bits=bits, strategy=strategy))
+                keys, num_key_bits=bits, strategy=strategy, **kw))
         res["library_ms"] = events_ms(lambda: torch.argsort(keys,
                                                             stable=True))
         say(f"sort {res['case']}: n={res['n']}, port {res['ms']:.4f} ms, "
             f"torch.argsort(stable=True) {res['library_ms']:.4f} ms [{card}]")
     fw = _flip(torch, w)
-    results[-1]["ms"] = events_ms(lambda: ms.sort_u32(w))
-    results[-1]["library_ms"] = events_ms(lambda: torch.sort(fw))
-    say(f"sort (f) sort_u32: n={big}, port {results[-1]['ms']:.4f} ms, "
-        f"torch.sort {results[-1]['library_ms']:.4f} ms [{card}]")
+    for res, method in ((results[-2], "radix"), (results[-1], "bitonic")):
+        res["ms"] = events_ms(lambda: ms.sort_u32(w, method=method))
+        res["library_ms"] = events_ms(lambda: torch.sort(fw))
+        say(f"sort {res['case']}: n={big}, port {res['ms']:.4f} ms, "
+            f"torch.sort {res['library_ms']:.4f} ms [{card}]")
 
     # where a call's time goes: device time by kernel (torch.profiler) over
     # 5 calls, beside the wall time of 5 calls without the profiler
@@ -1513,7 +1605,7 @@ def sort_path(np, torch, dev, seed, card, report):
              ("scan_kernel", "tile_scan_add"),
              ("merge_level_kernel", "merge_level"))
     breakdown = {}
-    for res, (keys, bits, strategy) in zip(results[:5], inputs[:5]):
+    for res, (keys, bits, strategy, _) in zip(results[:5], inputs[:5]):
         def call():
             if strategy is None:
                 return ops.stable_argsort(keys, num_key_bits=bits)
@@ -1562,6 +1654,530 @@ def sort_kernel_entries(rows, errs, launches):
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "library_computes": r["library_computes"], "shape": r["shape"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE: K3 (the dispatch) and K9a/b/c (the comparison sort's kernels)
+# ---------------------------------------------------------------------------
+
+# kernel → (source, the TPU kernel it replaces)
+MOE_META = {
+    "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu",
+                     "src/repro/kernels/radix_sort.py:544"),
+    "bitonic_tile_sort": ("src/repro_torch/csrc/merge_sort.cu",
+                          "src/repro/kernels/merge_sort.py:187"),
+    "pack_keys": ("src/repro_torch/csrc/merge_sort.cu",
+                  "src/repro/kernels/merge_sort.py:138"),
+    "unpack_order": ("src/repro_torch/csrc/merge_sort.cu",
+                     "src/repro/kernels/merge_sort.py:150"),
+}
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 12           # of 48: the bf16 weights of 12 layers are 57 GB
+
+
+def _bit_mismatch(torch, got, want):
+    """0.0 when the two tensors are equal bit for bit (floats compared as
+    their bit patterns), else the largest |got - want| (inf for a NaN);
+    -1.0 if shape or dtype differ."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return -1.0
+    if got.numel() == 0:
+        return 0.0
+    if got.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        bits = ints[got.element_size()]
+        if torch.equal(got.view(bits), want.view(bits)):
+            return 0.0
+        d = float((got.double() - want.double()).abs().max())
+        return d if d > 0 else float("inf")
+    return float(_mismatch(torch, got, want))
+
+
+def moe_kernel_rows(np, torch, dev, seed, device_ms, card, report):
+    """K3 and K9a/b/c against their plain twins, bit for bit, at the MoE
+    path's shapes (K3: a decode step of 8 rows, a 256-token prefill chunk,
+    ``Model.prefill`` of 4 x 2048; ragged, top-k 2 and 256 experts too;
+    K9 at 2^20 keys), then kernel, twin and library call timed after an L2
+    flush (CUDA graphs)."""
+    from repro_torch.kernels import merge_sort as ms
+    from repro_torch.kernels import radix_sort as rs
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    errs = dict.fromkeys(MOE_META, 0.0)
+    bf = torch.bfloat16
+
+    def same(kernel, got, want, **case):
+        torch.cuda.synchronize()
+        e = max(_bit_mismatch(torch, g, w) for g, w in zip(got, want))
+        report["cases"].append(dict(kernel=kernel, max_abs_err=e, tol=0,
+                                    tol_kind="bit for bit", **case))
+        errs[kernel] = max(errs[kernel], abs(e))
+        check(e == 0, f"{kernel} {case}: kernel and twin differ (max abs "
+              f"err {e}; -1 = shape or dtype)")
+
+    def routed(T, K, E, D, dtype=bf):
+        x = torch.randn(T, D, generator=gen, device=dev).to(dtype)
+        e = torch.randint(0, E, (T, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        if K > 1:     # distinct experts per token, as top-k gives them
+            e = torch.argsort(torch.rand(T, E, generator=gen, device=dev),
+                              dim=1)[:, :K].to(torch.int32)
+        p = torch.rand(T, K, generator=gen, device=dev).to(dtype)
+        return x, e, p
+
+    D = 5120
+    k3_cases = [(8, 1, 16, "decode step"), (256, 1, 16, "prefill chunk"),
+                (8192, 1, 16, "Model.prefill 4 x 2048"),
+                (1001, 1, 16, "ragged"), (1001, 2, 16, "top-k 2"),
+                (4096, 1, 256, "256 experts, 9-bit digit")]
+    inputs = {}
+    for T, K, E, what in k3_cases:
+        x, e, p = routed(T, K, E, D)
+        got = rs.moe_dispatch_sort(x, e, p, num_experts=E)
+        want = rs.moe_dispatch_sort_plain(x, e, p, num_experts=E)
+        same("moe_dispatch", got, want, T=T, K=K, E=E, D=D, what=what)
+        inputs[(T, K, E)] = (x, e, p)
+    x, e, p = inputs[(8, 1, 16)]
+    try:
+        rs.moe_dispatch_sort(x, e, p, num_experts=300)
+        fail("moe_dispatch_sort took 300 experts")
+    except ValueError:
+        pass
+    n, tile = 1 << 20, 1024
+    w = torch.randint(0, 1 << 32, (n,), generator=gen, device=dev,
+                      dtype=torch.int64)
+    w[1::2] = w[::2]                              # every word twice: ties
+    w = w.to(torch.uint32)
+    for t in (tile, 1 << 13):
+        same("bitonic_tile_sort", (ms.tile_sort(w, tile=t),),
+             (ms.tile_sort_plain(w, tile=t),), n=n, tile=t)
+    keys = torch.randint(0, 1 << 12, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for nn in (n, n - 3):
+        same("pack_keys", (ms._pack(keys, n=nn, idx_bits=20),),
+             (ms.pack_plain(keys, n=nn, idx_bits=20),), m=n, n=nn,
+             idx_bits=20)
+    same("pack_keys", (ms._pack(keys[1:], n=n - 1, idx_bits=20),),
+         (ms.pack_plain(keys[1:], n=n - 1, idx_bits=20),), m=n - 1,
+         what="unaligned")
+    packed = ms._pack(keys, n=n, idx_bits=20)
+    sorted_words = ms.sort_u32(packed, method="bitonic")
+    mask = (1 << 20) - 1
+    for src, what in ((sorted_words, "sorted words"), (packed[1:], "odd")):
+        same("unpack_order", (ms._unpack(src, idx_mask=mask),),
+             (ms.unpack_plain(src, idx_mask=mask),), m=src.numel(),
+             what=what)
+    check(torch.equal(ms._unpack(sorted_words, idx_mask=mask).long(),
+                      torch.argsort(keys, stable=True)),
+          "K9b, K9a, K8, K9c are not the stable argsort")
+
+    def bound(nbytes):
+        return nbytes / PEAK_BYTES * 1e3
+
+    rows, k3_times = {}, {}
+    for T, K, E, what in k3_cases[:3]:
+        x, e, p = inputs[(T, K, E)]
+        flat = e.reshape(-1)
+        es = x.element_size()
+        r = dict(
+            ms=device_ms(lambda: rs.moe_dispatch_sort(
+                x, e, p, num_experts=E), cold=True),
+            plain_ms=device_ms(lambda: rs.moe_dispatch_sort_plain(
+                x, e, p, num_experts=E), cold=True),
+            library_ms=device_ms(lambda: x.index_select(
+                0, torch.argsort(flat, stable=True)), cold=True),
+            library_computes="two calls: torch.argsort(stable=True) of the "
+            "ids, then index_select of the rows (no counts, ids or probs)",
+            bound_ms=bound((T + T * K) * D * es + T * K * (12 + 2 * es)
+                           + 4 * E),
+            bound_by="bytes",
+            shape=dict(T=T, K=K, E=E, D=D, dtype="bfloat16", what=what))
+        k3_times[what] = r
+        report["timings"][f"moe_dispatch T={T} K={K} E={E} D={D}"] = r
+        say(f"K3 moe_dispatch {what} (T={T}, K={K}, E={E}, D={D}, bf16): "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"argsort + index_select {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (bytes) [{card}]")
+    rows["moe_dispatch"] = k3_times["Model.prefill 4 x 2048"]
+    fw = _flip(torch, w).reshape(n // tile, tile)
+    rows["bitonic_tile_sort"] = dict(
+        ms=device_ms(lambda: ms.tile_sort(w, tile=tile), cold=True),
+        plain_ms=device_ms(lambda: ms.tile_sort_plain(w, tile=tile),
+                           cold=True),
+        library_ms=device_ms(lambda: torch.sort(fw, dim=1), cold=True),
+        library_computes="per-tile torch.sort of the words (top bit "
+        "flipped, int32)",
+        bound_ms=bound(4.0 * 2 * n), bound_by="bytes",
+        shape=dict(n=n, tile=tile))
+    rows["pack_keys"] = dict(
+        ms=device_ms(lambda: ms._pack(keys, n=n, idx_bits=20), cold=True),
+        plain_ms=device_ms(lambda: ms.pack_plain(keys, n=n, idx_bits=20),
+                           cold=True),
+        library_ms=None, library_computes=None,
+        bound_ms=bound(4.0 * 2 * n), bound_by="bytes",
+        shape=dict(n=n, idx_bits=20))
+    rows["unpack_order"] = dict(
+        ms=device_ms(lambda: ms._unpack(sorted_words, idx_mask=mask),
+                     cold=True),
+        plain_ms=device_ms(lambda: ms.unpack_plain(sorted_words,
+                                                   idx_mask=mask), cold=True),
+        library_ms=None, library_computes=None,
+        bound_ms=bound(4.0 * 2 * n), bound_by="bytes",
+        shape=dict(n=n, idx_bits=20))
+    for name in ("bitonic_tile_sort", "pack_keys", "unpack_order"):
+        r = rows[name]
+        report["timings"][f"{name} {r['shape']}"] = r
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        say(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms (bytes) [{card}]")
+    say("K3 and K9 equal their twins bit for bit: " + ", ".join(
+        f"{k} {v}" for k, v in errs.items()) + " (max abs err, tol 0); "
+        "num_experts=300 raises ValueError")
+    return rows, errs
+
+
+def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
+    """The MoE path: llama4-scout at full width and 12 of 48 layers, bf16,
+    seeded random weights, ``moe_strategy="sort"``, K3 routing.  Returns
+    the launches of the main path's run: K3 from the engines, K9 from the
+    bitonic unfused ``Model.prefill``."""
+    import functools
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import merge_sort as ms
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import (ContinuousEngine, Engine,
+                                          EngineConfig, Request)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", moe_strategy="sort",
+                  moe_sort_fn="pallas")
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    n_moe = model.repeats * sum(s.is_moe for s in model.period_specs)
+    say(f"{cfg.name}: {L} of 48 layers ({n_moe} MoE: {cfg.num_experts} "
+        f"experts top-{cfg.top_k} + {cfg.num_shared_experts} shared), "
+        f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.2f}B params in "
+        f"{cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 5)
+
+    def requests(n):
+        out = []
+        for _ in range(n):
+            plen = int(rng.randint(64, 1025))
+            out.append((rng.randint(3, V, size=plen).astype(np.int32),
+                        int(rng.randint(16, 65))))
+        return out
+
+    cont_reqs, sync_reqs = requests(16), requests(4)
+    path = ("moe_dispatch", "flash_attention_fwd", "flash_decode_partials",
+            "flash_decode_combine")
+    others = tuple(MOE_META) + tuple(SORT_META)
+
+    def sync_serve(m):
+        se = Engine(m, params, EngineConfig(max_batch=4, max_seq=2048,
+                                            eos_id=7))
+        for i, (pr, mn) in enumerate(sync_reqs):
+            se.submit(Request(rid=100 + i, prompt=pr, max_new=mn))
+        done = {r.rid: np.asarray(r.result) for r in se.step()}
+        torch.cuda.synchronize()
+        return done
+
+    def continuous_serve(m):
+        ce = ContinuousEngine(m, params, EngineConfig(
+            max_batch=8, max_seq=2048, decode_tick=8, page_size=32,
+            eos_id=7))
+        for i, (pr, mn) in enumerate(cont_reqs):
+            ce.submit(Request(rid=i, prompt=pr, max_new=mn))
+        done = {rid: np.asarray(r.result) for rid, r in drain(ce).items()}
+        torch.cuda.synchronize()
+        check(len(ce.pages.free) == ce.pages.num_pages
+              and ce._admission.counter.value == 1
+              and ce.telemetry.retired == 16
+              and all(s is None for s in ce.slots),
+              "MoE engine: pages, cap counter or slots not all freed")
+        return done, ce.telemetry.snapshot()
+
+    def serve(m):
+        _build.reset_launches()
+        m.calls = dict.fromkeys(m.calls, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done, telemetry = continuous_serve(m)
+        t_cont = time.perf_counter() - t0
+        calls_cont = dict(m.calls)
+        launches_cont = _build.launches()
+        t0 = time.perf_counter()
+        sync_done = sync_serve(m)
+        t_sync = time.perf_counter() - t0
+        toks = {**done, **sync_done}
+        check(len(done) == 16 and len(sync_done) == 4,
+              f"MoE path served {len(done)}/16 continuous, "
+              f"{len(sync_done)}/4 sync")
+        for rid, res in toks.items():
+            mn = (cont_reqs[rid] if rid < 100 else sync_reqs[rid - 100])[1]
+            check(1 <= len(res) <= mn and bool(((res >= 0) & (res < V))
+                                              .all()),
+                  f"MoE request {rid}: {len(res)} tokens for max_new {mn}, "
+                  f"or out of range")
+        return dict(tokens=toks, calls=dict(m.calls), calls_cont=calls_cont,
+                    launches=_build.launches(), launches_cont=launches_cont,
+                    continuous_s=t_cont, sync_s=t_sync, telemetry=telemetry)
+
+    k3 = serve(model)
+    calls, launches = k3["calls"], k3["launches"]
+    expect = {"moe_dispatch": n_moe * (calls["prefill_chunk"]
+                                       + calls["decode_step"]),
+              "flash_attention_fwd": L * calls["prefill_chunk"],
+              "flash_decode_partials": L * calls["decode_step"],
+              "flash_decode_combine": L * calls["decode_step"]}
+    got = {k: launches[k] for k in path}
+    check(calls["prefill"] == 0, "the engines ran a non-chunked prefill")
+    check(got == expect, f"MoE path launches {got} != MoE layers x "
+          f"(prefill chunks + decode steps) {expect}")
+    check(all(v > 0 for v in got.values()), f"a kernel of the MoE path "
+          f"never launched: {got}")
+    check(k3["launches_cont"]["moe_dispatch"] == n_moe * (
+        k3["calls_cont"]["prefill_chunk"] + k3["calls_cont"]["decode_step"]),
+        "continuous-engine K3 launches")
+    check(all(launches[k] == 0 for k in others if k != "moe_dispatch")
+          and launches["tile_scan_logspace"] == 0,
+          f"the K3 route launched another sort or scan kernel: {launches}")
+    gen_cont = sum(len(v) for k, v in k3["tokens"].items() if k < 100)
+    gen_sync = sum(len(v) for k, v in k3["tokens"].items() if k >= 100)
+    say(f"MoE path: launches {got} = {n_moe} MoE layers x "
+        f"({calls['prefill_chunk']} prefill chunks + {calls['decode_step']} "
+        f"decode steps)")
+    say(f"MoE ContinuousEngine: 16 requests, {gen_cont} tokens in "
+        f"{k3['continuous_s']:.2f} s = {gen_cont / k3['continuous_s']:.1f} "
+        f"tok/s; Engine: 4 requests, {gen_sync} tokens in "
+        f"{k3['sync_s']:.2f} s = {gen_sync / k3['sync_s']:.1f} tok/s [{card}]")
+
+    # the same requests routed by torch.argsort(stable=True) plus a gather.
+    # The sync Engine's schedule is fixed, so its tokens must be identical.
+    # ContinuousEngine sizes prefill from wall-clock telemetry: two runs
+    # need not batch alike, and in bf16 the batching (not the route)
+    # changes the numerics; so a second continuous run holds every K3 call
+    # bit for bit against argsort + gathers on the same inputs instead
+    ref_model = Model(cfg, device="cuda", moe_strategy="sort",
+                      moe_sort_fn=None)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ref_sync = sync_serve(ref_model)
+    t_ref = time.perf_counter() - t0
+    check(_build.launches()["moe_dispatch"] == 0,
+          "the argsort route launched K3")
+    diff = [rid for rid in ref_sync
+            if not np.array_equal(k3["tokens"][rid], ref_sync[rid])]
+    check(not diff, f"K3 and torch.argsort routes gave different tokens "
+          f"for requests {diff}")
+    del ref_model
+    from repro_torch.kernels import radix_sort as rs
+    from repro_torch.models import moe as moe_module
+    real = moe_module.moe_dispatch_sort
+    shadow = {"calls": 0, "differ": 0}
+
+    def held(x, experts, probs, **kw):
+        out = real(x, experts, probs, **kw)
+        want = rs.moe_dispatch_sort_plain(x, experts, probs,
+                                          num_experts=kw["num_experts"])
+        shadow["calls"] += 1
+        shadow["differ"] += any(_bit_mismatch(torch, a, b) != 0
+                                for a, b in zip(out, want))
+        return out
+
+    moe_module.moe_dispatch_sort = held
+    try:
+        _build.reset_launches()
+        continuous_serve(model)
+    finally:
+        moe_module.moe_dispatch_sort = real
+    check(shadow["calls"] == _build.launches()["moe_dispatch"] > 0
+          and shadow["differ"] == 0, f"continuous run: {shadow['differ']} "
+          f"of {shadow['calls']} K3 calls differ from argsort + gathers")
+    say(f"MoE path: sync Engine tokens identical under the K3 and the "
+        f"torch.argsort routes (4 requests; argsort route {t_ref:.2f} s); "
+        f"a second ContinuousEngine run: all {shadow['calls']} K3 calls "
+        f"equal argsort + gathers bit for bit [{card}]")
+
+    # Model.prefill of 4 x 2048: K3 route against the bitonic, unfused
+    # argsort route (K9b, K9a, K8 levels, K9c), logits bit for bit
+    prompts = torch.as_tensor(rng.randint(3, V, size=(4, 2048)),
+                              dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lk, cache = model.prefill(params, prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    check(_build.launches()["moe_dispatch"] == n_moe,
+          f"Model.prefill: K3 launches {_build.launches()['moe_dispatch']} "
+          f"!= {n_moe} MoE layers")
+    del cache
+    bitonic = functools.partial(ms.argsort, method="bitonic", fused=False)
+    bmodel = Model(cfg, device="cuda", moe_strategy="sort",
+                   moe_sort_fn=bitonic)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lb, cache = bmodel.prefill(params, prompts)
+    torch.cuda.synchronize()
+    t_bitonic = time.perf_counter() - t0
+    k9_launches = _build.launches()
+    del cache, bmodel
+    n_keys = 4 * 2048 * cfg.top_k
+    idx_bits = (n_keys - 1).bit_length()
+    _, _, _, runs = ms._merge_schedule(n_keys, 1024, 12 + idx_bits, 4)
+    k9_expect = {"pack_keys": n_moe, "bitonic_tile_sort": n_moe,
+                 "merge_level": n_moe * len(runs), "unpack_order": n_moe,
+                 "moe_dispatch": 0}
+    k9_got = {k: k9_launches[k] for k in k9_expect}
+    check(k9_got == k9_expect, f"bitonic unfused prefill launches {k9_got}"
+          f" != {k9_expect}")
+    check(tuple(lk.shape) == (4, V) and bool(torch.isfinite(lk).all()),
+          f"MoE prefill logits {tuple(lk.shape)} not finite (4, {V})")
+    e = _bit_mismatch(torch, lb, lk)
+    check(e == 0, f"bitonic unfused route logits != K3 route logits (max "
+          f"abs err {e})")
+    say(f"MoE Model.prefill 4 x 2048: K3 route {t_prefill:.2f} s, bitonic "
+        f"unfused route {t_bitonic:.2f} s with launches {k9_got}; logits "
+        f"equal bit for bit [{card}]")
+
+    # where one decode step and one prefill chunk spend device time
+    lens8 = torch.as_tensor(np.random.RandomState(seed).randint(
+        64, 1089, size=8), dtype=torch.int32, device=dev)
+    toks8 = torch.randint(3, V, (8,), device=dev, dtype=torch.int32)
+    dcache = model.init_cache(8, 2048)
+    pcache = model.init_cache(1, 2048)
+    model.prefill_chunk(params, prompts[:1, :736], pcache, 0)
+    breakdowns = {}
+    for what, fn, reps in (
+            ("decode step B=8 S=2048", lambda: model.decode_step(
+                params, toks8, dcache, lens8), 5),
+            ("prefill chunk c=256 at 736, B=1 S=2048", lambda:
+             model.prefill_chunk(params, prompts[:1, 736:992], pcache, 736,
+                                 all_logits=True), 3)):
+        wall, groups = breakdown(fn, reps)
+        dev_ms = sum(groups.values())
+        breakdowns[what] = dict(wall_ms=wall, device_ms=dev_ms,
+                                busy=dev_ms / wall, groups=groups)
+        say(f"MoE {what}, {L} layers: wall {wall:.2f} ms, device "
+            f"{dev_ms:.2f} ms ({100 * dev_ms / wall:.0f}% busy: " + ", ".join(
+                f"{g} {t:.2f}" for g, t in sorted(
+                    groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"MoE path: peak memory {peak / 2**30:.2f} GiB [{card}]")
+    report["moe_path"] = dict(
+        layers=L, launches=got, calls=calls, continuous_s=k3["continuous_s"],
+        continuous_tokens=gen_cont, sync_s=k3["sync_s"], sync_tokens=gen_sync,
+        argsort_route_sync_s=t_ref, shadow_k3_calls=shadow["calls"],
+        prefill_s=t_prefill, bitonic_prefill_s=t_bitonic,
+        bitonic_launches=k9_got, peak_bytes=peak, breakdown=breakdowns,
+        telemetry=k3["telemetry"])
+    del dcache, pcache, params, model, prompts, lk, lb
+    torch.cuda.empty_cache()
+    return {"moe_dispatch": got["moe_dispatch"],
+            **{k: k9_got[k] for k in ("bitonic_tile_sort", "pack_keys",
+                                      "unpack_order")}}
+
+
+def moe_fp32(np, torch, seed, report, drain):
+    """fp32 at the MoE path's full width, one layer: card logits against
+    the CPU plain path on the same weights, and continuous-batching tokens
+    against one-at-a-time tokens (a divergence must be a near-tie)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import (ContinuousEngine, Engine,
+                                          EngineConfig, Request)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=1,
+                              param_dtype="float32", compute_dtype="float32")
+    V = cfg.vocab_size
+    kw = dict(moe_strategy="sort", moe_sort_fn="pallas")
+    model = Model(cfg, device="cuda", **kw)
+    params = model.init(seed + 1)
+    cpu_model = Model(cfg, device="cpu", **kw)
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.RandomState(seed + 6)
+    toks = torch.as_tensor(rng.randint(3, V, size=(2, 300)),
+                           dtype=torch.int32)
+    gl, gcache = model.prefill(params, toks.cuda(), max_seq=320)
+    cl, ccache = cpu_model.prefill(cpu_params, toks, max_seq=320)
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    worst = err(gl.cpu(), cl)
+    lengths = torch.full((2,), 300, dtype=torch.int32)
+    nxt = torch.argmax(cl, -1).to(torch.int32)
+    for _ in range(4):
+        gl, gcache = model.decode_step(params, nxt.cuda(), gcache,
+                                       lengths.cuda())
+        cl, ccache = cpu_model.decode_step(cpu_params, nxt, ccache, lengths)
+        worst = max(worst, err(gl.cpu(), cl))
+        nxt, lengths = torch.argmax(cl, -1).to(torch.int32), lengths + 1
+    say(f"fp32 MoE logits, card (K3) vs CPU plain path (1 layer at full "
+        f"width, prefill 2 x 300 + 4 decode steps): max abs err {worst:.3g} "
+        f"(tol {LOGIT_TOL})")
+    check(worst <= LOGIT_TOL, "card MoE logits disagree with the CPU")
+    del cpu_model, cpu_params, ccache, gcache
+
+    lens6, news6 = (40, 300, 77, 520, 129, 260), (10, 6, 14, 8, 12, 5)
+    reqs6 = [(rng.randint(3, V, size=n).astype(np.int32), mn)
+             for n, mn in zip(lens6, news6)]
+    alone = {}
+    for i, (pr, mn) in enumerate(reqs6):
+        eng = Engine(model, params, EngineConfig(max_batch=1, eos_id=7,
+                                                 max_seq=2048))
+        eng.submit(Request(rid=i, prompt=pr, max_new=mn))
+        (d,) = eng.step()
+        alone[i] = np.asarray(d.result)
+    ce = ContinuousEngine(model, params, EngineConfig(
+        max_batch=3, eos_id=7, max_seq=1024, decode_tick=4))
+    for i, (pr, mn) in enumerate(reqs6):
+        ce.submit(Request(rid=i, prompt=pr, max_new=mn))
+    got = {rid: np.asarray(r.result) for rid, r in drain(ce).items()}
+    ties = 0
+    for i, (pr, _) in enumerate(reqs6):
+        a, b = got[i], alone[i]
+        if np.array_equal(a, b):
+            continue
+        t = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                 min(len(a), len(b)))
+        ctx = np.concatenate([pr, b[:t]]).astype(np.int32)
+        logits, _ = model.prefill(params, torch.as_tensor(
+            ctx[None], device="cuda"))
+        top2 = torch.topk(logits[0, :V], 2).values
+        gap = float(top2[0] - top2[1])
+        say(f"MoE request {i}: batched and one-at-a-time tokens differ at "
+            f"step {t}; top-2 logit gap there {gap:.3g}")
+        check(gap < NEAR_TIE, f"MoE request {i}: divergence is not a "
+              f"near-tie (gap {gap:.3g} >= {NEAR_TIE})")
+        ties += 1
+    say(f"fp32 MoE ContinuousEngine == one-at-a-time Engine tokens for "
+        f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties)")
+    report["fp32_moe"] = dict(max_logit_err=worst, near_ties=ties)
+    del ce, params, model
+    torch.cuda.empty_cache()
+
+
+def moe_kernel_entries(rows, errs, launches):
+    """K3 and K9a/b/c for the kernels line."""
+    out = []
+    for name, (source, replaces) in MOE_META.items():
+        r = rows[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "max_err": errs[name], "tol": 0,
+            "tol_kind": "bit for bit", "ms": r["ms"], "kernel_ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_computes": r["library_computes"], "shape": r["shape"]})
     return out
 

@@ -118,6 +118,10 @@ class ModelConfig:
         return (i % self.moe_layer_period) == self.moe_layer_offset
 
     @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
     def dense_ffn_dim(self) -> int:
         return self.dense_d_ff or self.d_ff
 
@@ -127,15 +131,16 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
 
-    def param_count(self) -> int:
+    def param_count(self, *, active_only: bool = False) -> int:
         """Analytic parameter count, the reference's formula for the layer
-        kinds the port runs (GQA attention, Mamba, mLSTM, sLSTM, dense
-        FFN)."""
-        if self.attn_type == "mla" or self.is_moe or self.cross_attn_period \
+        kinds the port runs (GQA attention, Mamba, mLSTM, sLSTM, dense FFN,
+        MoE); ``active_only`` counts the top-k experts only (MoE activated
+        parameters)."""
+        if self.attn_type == "mla" or self.cross_attn_period \
                 or self.is_encdec:
             raise NotImplementedError(
-                "param_count of MLA / MoE / cross-attention / encoder "
-                "configs: ROADMAP.md Queue 1 items 8-9")
+                "param_count of MLA / cross-attention / encoder configs: "
+                "ROADMAP.md Queue 1 item 8")
         d, hd = self.d_model, self.resolved_head_dim
         di = self.ssm_expand * d
         mats = 3 if self.ffn_type == "swiglu" else 2
@@ -154,8 +159,13 @@ class ModelConfig:
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for i in range(self.num_layers):
             n += per_kind[self.layer_kind(i)]
-            if self.d_ff > 0 and self.dense_ffn_dim > 0:
-                n += mats * d * self.dense_ffn_dim
+            if self.d_ff > 0 or self.is_moe:
+                if self.layer_is_moe(i):
+                    k = self.top_k if active_only else self.num_experts
+                    n += (k + self.num_shared_experts) * mats * d \
+                        * self.expert_d_ff
+                elif self.dense_ffn_dim > 0:
+                    n += mats * d * self.dense_ffn_dim
         return n + d
 
 

@@ -9,11 +9,12 @@ from __future__ import annotations
 
 from typing import List
 
-from . import llama3_8b, xlstm_1_3b
+from . import llama3_8b, llama4_scout_17b, xlstm_1_3b
 from .base import ModelConfig
 
 _MODULES = {
     "llama3-8b": llama3_8b,
+    "llama4-scout-17b-a16e": llama4_scout_17b,
     "xlstm-1.3b": xlstm_1_3b,
 }
 
@@ -22,12 +23,13 @@ NOT_PORTED = {
     "minitron-4b": "Queue 1 item 7 (dense configs: relu2 FFN)",
     "chatglm3-6b": "Queue 1 item 7 (dense configs: half-rotary GQA)",
     "yi-9b": "Queue 1 item 7 (dense configs)",
-    "deepseek-v2-lite-16b": "Queue 1 item 8 (MLA) and item 9 (MoE)",
+    "deepseek-v2-lite-16b": "Queue 1 item 8 (MLA and the unrolled dense "
+                            "prefix layer; its MoE layers are ported)",
     "whisper-medium": "Queue 1 item 8 (encoder-decoder attention)",
     "llama-3.2-vision-11b": "Queue 1 item 8 (cross-attention)",
-    "llama4-scout-17b-a16e": "Queue 1 item 9 (MoE)",
-    "jamba-1.5-large-398b": "Queue 1 item 9 (MoE; its Mamba layers are "
-                            "ported)",
+    "jamba-1.5-large-398b": "Queue 1 item 15 (its full-width MoE layers, "
+                            "19.3 GB each in bf16, need more than one "
+                            "card; its Mamba and MoE layers are ported)",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -244,6 +244,7 @@ cudaError_t launch_partials(const void* q, const void* k, const void* v,
     case 1: return launch_partials<T, 1>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 2: return launch_partials<T, 2>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 4: return launch_partials<T, 4>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
+    case 5: return launch_partials<T, 5>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 8: return launch_partials<T, 8>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 16: return launch_partials<T, 16>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     default: return cudaErrorInvalidValue;

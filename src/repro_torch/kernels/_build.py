@@ -4,8 +4,9 @@ Each ``src/repro_torch/csrc/<name>.cu`` is compiled on first use by ``nvcc``
 for ``sm_90a`` into its own shared library under ``<repo>/build/kernels/``,
 named by a hash of the source and the shared ``*.cuh`` headers so an edit
 rebuilds it, and bound with ``ctypes``: every pointer and the stream go as
-``c_void_p``, ints as ``c_int``.  Each source exposes plain C entry points
-that launch on the stream they are given and return ``cudaGetLastError()``.
+``c_void_p``, ints as ``c_int`` (``c_longlong`` for a byte count).  Each
+source exposes plain C entry points that launch on the stream they are
+given and return ``cudaGetLastError()``.
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a card may have no ``nvcc``.  :func:`build_all` starts one
@@ -31,6 +32,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint
 F = ctypes.c_float
+LL = ctypes.c_longlong
 
 # C signature of every entry point: (source stem, function) → argtypes
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
@@ -71,6 +73,17 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "merge_sort": {
         # x, out, n, run, block, unpack_mask, unpack, stream
         "merge_level": [P, P, I, I, I, U, I, P],
+        # x, out, nt, tile, stream
+        "bitonic_tile_sort": [P, P, I, I, P],
+        # keys, out, m, n, idx_bits, stream
+        "pack_keys": [P, P, I, I, I, P],
+        # x, out, m, idx_mask, stream
+        "unpack_order": [P, P, I, U, P],
+    },
+    "moe_dispatch": {
+        # x, experts, probs, hist, xd, sorted_e, sorted_tok, sorted_p,
+        # counts, T, K, E, tile, bits, row_bytes, vec, p_size, stream
+        "moe_dispatch": [P] * 9 + [I, I, I, I, I, LL, I, I, P],
     },
 }
 

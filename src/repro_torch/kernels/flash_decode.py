@@ -30,7 +30,8 @@ BLOCK_K = 128
 PARTIALS = _build.KERNELS["flash_decode_partials"]
 COMBINE = _build.KERNELS["flash_decode_combine"]
 MAX_HEAD_DIM = 128
-GROUPS = (1, 2, 4, 8, 16)        # H / KV values the kernel is built for
+GROUPS = (1, 2, 4, 5, 8, 16)     # H / KV values the kernel is built for
+                                 # (5: llama4-scout's 40 / 8)
 MAX_BLOCK_K = 256
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]

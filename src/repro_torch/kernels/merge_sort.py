@@ -22,12 +22,13 @@ Stability: keys are packed as ``key << idx_bits | index`` into uint32, so
 equal keys order by original index; ``idx_bits = ceil(log2(n))`` is
 derived per call.  The pack and the final ``& idx_mask`` unpack live
 inside the first and last kernels.  The reference's comparison pipelines —
-``method="bitonic"`` (K9a ``tile_sort``) and ``fused=False`` (K9b/K9c
-``_pack``/``_unpack``) — run here on the CPU twins only; on a CUDA tensor
-they raise until ROADMAP Queue 2's K9 is ported.  Entry points run on the
-device of the keys: a CUDA tensor launches the kernels or raises, a CPU
-tensor runs the twins.  ``group`` is kept for the reference's signature
-and changes no result; the JAX-only ``interpret`` and ``jit`` are gone.
+``method="bitonic"`` (K9a ``tile_sort``, a bitonic network) and
+``fused=False`` (K9b/K9c ``_pack``/``_unpack``, standalone launches) —
+are hand-written kernels too (``csrc/merge_sort.cu``), kept as the
+baseline beside radix.  Entry points run on the device of the keys: a CUDA
+tensor launches the kernels or raises, a CPU tensor runs the twins.
+``group`` is kept for the reference's signature and changes no result; the
+JAX-only ``interpret`` and ``jit`` are gone.
 
 Unlike the reference, ``argsort`` checks both ends of the key range (one
 ``torch.aminmax``, one host sync): a negative key raises ``ValueError``
@@ -45,6 +46,7 @@ import torch
 from ..core import SeqWork, bound_depth, build_plan, even_levels
 from . import _build
 from .radix_sort import (SENTINEL, _u32, _u64, _i32,  # noqa: F401 — SENTINEL
+                         _check_cuda, _stream,
                          multi_tile_argsort_packed,   # re-export
                          radix_tile_sort, radix_tile_sort_packed)
 
@@ -52,46 +54,80 @@ IDX_BITS = 20                 # documented default cap: tiles up to 2^20
 IDX_MASK = (1 << IDX_BITS) - 1
 MAX_BLOCK = 4096              # K8's output block (shared memory: 2 x 16 KB)
 
+MAX_BITONIC_TILE = 1 << 13   # K9a's tile in shared memory (32 KB)
+
 K8 = _build.KERNELS["merge_level"]
-
-_K9 = ("is the TPU-only comparison pipeline (K9: tile_sort, _pack, "
-       "_unpack), which the port runs only on CPU tensors until ROADMAP "
-       "Queue 2's K9 is ported, with Queue 1 item 9's slice")
-
-
-def _cpu_only(what: str, t: torch.Tensor) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(f"{what} {_K9}")
+K9A = _build.KERNELS["bitonic_tile_sort"]
+K9B = _build.KERNELS["pack_keys"]
+K9C = _build.KERNELS["unpack_order"]
 
 
 # ---------------------------------------------------------------------------
-# K9: the comparison pipeline's building blocks, CPU twins only
+# K9: the comparison pipeline's building blocks
 # ---------------------------------------------------------------------------
+
+def tile_sort_plain(x: torch.Tensor, *, tile: int) -> torch.Tensor:
+    """Twin of K9a: each tile sorted ascending."""
+    n = x.shape[0]
+    return _u32(torch.sort(_u64(x).reshape(n // tile, tile), dim=1).values
+                ).reshape(n)
+
 
 def tile_sort(x: torch.Tensor, *, tile: int = 1024) -> torch.Tensor:
-    """Sort each tile of a (n,) uint32 tensor locally (the reference's
-    bitonic network, the radix baseline).  n % tile == 0."""
-    _cpu_only("method='bitonic'", x)
+    """Sort each tile of a (n,) uint32 tensor locally with the bitonic
+    network (K9a, the radix baseline).  n % tile == 0."""
     n = x.shape[0]
     tile = min(tile, n)
     if n % tile or tile & (tile - 1):
         raise ValueError(f"tile_sort needs a power-of-two tile dividing n, "
                          f"got n={n}, tile={tile}")
-    return _u32(torch.sort(_u64(x).reshape(n // tile, tile), dim=1).values
-                ).reshape(n)
+    if x.device.type == "cpu":
+        return tile_sort_plain(x, tile=tile)
+    _check_cuda("tile_sort", x, torch.uint32)
+    if tile > MAX_BITONIC_TILE:
+        raise ValueError(f"tile_sort on the card holds a tile in shared "
+                         f"memory: tile <= {MAX_BITONIC_TILE}, got {tile}")
+    out = torch.empty_like(x)
+    K9A(x.data_ptr(), out.data_ptr(), n // tile, tile, _stream(x))
+    return out
 
 
-def _pack(keys: torch.Tensor, *, n: int, idx_bits: int) -> torch.Tensor:
-    """``key << idx_bits | index``, pad slots (index ≥ n) to the sentinel."""
-    _cpu_only("fused=False", keys)
-    idx = torch.arange(keys.shape[0], dtype=torch.int64)
+def pack_plain(keys: torch.Tensor, *, n: int, idx_bits: int) -> torch.Tensor:
+    """Twin of K9b: ``key << idx_bits | index``, pad slots (index ≥ n) to
+    the sentinel."""
+    idx = torch.arange(keys.shape[0], dtype=torch.int64, device=keys.device)
     packed = ((_u64(keys) << idx_bits) & 0xFFFFFFFF) | idx
     return _u32(torch.where(idx < n, packed, SENTINEL))
 
 
-def _unpack(x: torch.Tensor, *, idx_mask: int) -> torch.Tensor:
-    _cpu_only("fused=False", x)
+def _pack(keys: torch.Tensor, *, n: int, idx_bits: int) -> torch.Tensor:
+    """K9b: the standalone pack launch of the ``fused=False`` pipeline;
+    int32 keys in, uint32 words out."""
+    if keys.device.type == "cpu":
+        return pack_plain(keys, n=n, idx_bits=idx_bits)
+    _check_cuda("_pack", keys, torch.int32)
+    out = torch.empty(keys.shape[0], dtype=torch.uint32, device=keys.device)
+    if keys.numel():
+        K9B(keys.data_ptr(), out.data_ptr(), keys.numel(), n, idx_bits,
+            _stream(keys))
+    return out
+
+
+def unpack_plain(x: torch.Tensor, *, idx_mask: int) -> torch.Tensor:
+    """Twin of K9c: ``x & idx_mask`` as int32."""
     return _i32(_u64(x) & idx_mask)
+
+
+def _unpack(x: torch.Tensor, *, idx_mask: int) -> torch.Tensor:
+    """K9c: the standalone unpack launch of the ``fused=False`` pipeline."""
+    if x.device.type == "cpu":
+        return unpack_plain(x, idx_mask=idx_mask)
+    _check_cuda("_unpack", x, torch.uint32)
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    if x.numel():
+        K9C(x.data_ptr(), out.data_ptr(), x.numel(), idx_mask & 0xFFFFFFFF,
+            _stream(x))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +280,7 @@ def sort_u32(x: torch.Tensor, *, tile: int = 1024, method: str = "radix",
     """Sort of packed uint32 words: tile sort, then one launch per merge
     level of the plan's schedule.  The tile phase is the in-kernel LSD
     radix sort (``ceil(total_bits / digit_bits)`` digit passes);
-    ``method="bitonic"`` is the reference's baseline network (CPU only)."""
+    ``method="bitonic"`` is the reference's baseline network (K9a)."""
     n = x.shape[0]
     if n & (n - 1):
         raise ValueError(f"sort_u32 needs a power-of-two input, got n={n} "
@@ -304,7 +340,7 @@ def _argsort_impl(keys: torch.Tensor, *, n: int, n_pad: int, tile: int,
                 x, run=run, tile=tile,
                 unpack_mask=idx_mask if i == len(runs) - 1 else None)
         return x[:n]
-    # unfused: standalone pack/unpack around the plain u32 sort (CPU only)
+    # unfused: standalone pack (K9b) and unpack (K9c) around the u32 sort
     packed = _pack(padded(0), n=n, idx_bits=idx_bits)
     out = sort_u32(packed, tile=tile, method=method,
                    total_bits=num_key_bits + idx_bits, digit_bits=digit_bits,
@@ -327,8 +363,8 @@ def argsort(keys: torch.Tensor, *, num_key_bits: int = 12, tile: int = 1024,
     a multiple of the tile; ``"merge"`` runs the fused radix tile sort then
     one launch per merge level, padding to a power of two (auto-selected
     above 16 bits, and the only strategy of the ``fused=False`` /
-    ``method="bitonic"`` comparison pipelines, which run on CPU tensors
-    only).  Both strategies give the same order.
+    ``method="bitonic"`` comparison pipelines).  Both strategies give the
+    same order.
     """
     n = keys.shape[0]
     if keys.dim() != 1 or keys.dtype.is_floating_point or \
@@ -383,4 +419,6 @@ def argsort(keys: torch.Tensor, *, num_key_bits: int = 12, tile: int = 1024,
 
 
 __all__ = ["argsort", "sort_u32", "tile_sort", "merge_pair",
-           "merge_level_plain", "IDX_BITS", "IDX_MASK", "K8"]
+           "merge_level_plain", "tile_sort_plain", "pack_plain",
+           "unpack_plain", "IDX_BITS", "IDX_MASK", "MAX_BITONIC_TILE", "K8",
+           "K9A", "K9B", "K9C"]

@@ -21,8 +21,12 @@ reference's dtypes.  Each wrapper runs its plain twin for a CPU tensor (a
 per-row ``torch.sort(stable=True)`` by the digit or key field, in int64)
 and launches its kernel for a CUDA tensor, or raises; nothing falls back.
 ``group`` (tiles per TPU grid cell) is kept for the reference's signature
-and changes nothing here.  ``moe_dispatch_sort`` (K3) is ported with MoE,
-ROADMAP Queue 1 item 9.
+and changes nothing here.
+
+* K3 ``moe_dispatch_sort``: the MoE dispatch — the stable sort of the
+  (T·K,) expert ids with the activation rows moved into that order, plus
+  the per-expert counts (``csrc/moe_dispatch.cu``); its twin is
+  ``moe_dispatch_sort_plain`` (a stable argsort and gathers).
 """
 
 from __future__ import annotations
@@ -49,6 +53,11 @@ K7A = _build.KERNELS["radix_tile_sort"]
 K7B = _build.KERNELS["radix_tile_sort_packed"]
 K6A = _build.KERNELS["radix_mt_local"]
 K6B = _build.KERNELS["radix_mt_scatter"]
+K3 = _build.KERNELS["moe_dispatch"]
+
+_MAX_DISPATCH_EXPERTS = 256     # one digit of at most 9 bits (sentinel E)
+_MAX_DISPATCH_TILE = 2048       # K3's tile of composites in shared memory
+_ROW_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def _check_tile(tile: int, digit_bits: int) -> None:
@@ -357,7 +366,95 @@ def multi_tile_argsort_packed(keys: torch.Tensor, *, n: int, tile: int,
     return x
 
 
+# ---------------------------------------------------------------------------
+# K3: the MoE dispatch
+# ---------------------------------------------------------------------------
+
+def moe_dispatch_sort_plain(x: torch.Tensor, experts: torch.Tensor,
+                            probs: torch.Tensor, *, num_experts: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Twin of K3: ``torch.argsort(stable=True)`` of the flat expert ids,
+    then gathers.  Returns ``(xd, sorted_e, sorted_tok, sorted_p, counts)``
+    as :func:`moe_dispatch_sort`."""
+    T, D = x.shape
+    K = experts.shape[-1]
+    flat_e = experts.reshape(T * K)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_tok = torch.div(order, K, rounding_mode="floor")
+    # integer adds are exact in any order; no host sync (bincount has one)
+    counts = torch.zeros(num_experts, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, flat_e.long(), torch.ones_like(flat_e,
+                                                          dtype=torch.int32))
+    return (x[sorted_tok], flat_e[order].to(torch.int32),
+            sorted_tok.to(torch.int32), probs.reshape(T * K)[order], counts)
+
+
+def moe_dispatch_sort(x: torch.Tensor, experts: torch.Tensor,
+                      probs: torch.Tensor, *, num_experts: int,
+                      tile: int = 512) -> Tuple[torch.Tensor, ...]:
+    """MoE routing in one kernel entry (K3): the stable sort of the (T·K,)
+    expert assignments, with the activation rows carried along.
+
+    x: (T, D) activations; experts/probs: (T, K) from ``route_topk``
+    (expert ids in [0, num_experts)).  Returns ``(xd (T·K, D), sorted_e,
+    sorted_tok, sorted_p, counts)``: the reference's four outputs,
+    bit-identical to the argsort + gather path (rows are copied in their
+    own dtype), and the (E,) int32 count of every expert, which bounds the
+    grouped expert matmuls.  Requires ``num_experts <= 256`` (one digit of
+    ``ceil(log2(E + 1))`` bits, as the reference's).  On the card one tile
+    (T·K <= tile) is one launch, more tiles a histogram launch then the
+    scatter (``csrc/moe_dispatch.cu``)."""
+    T, D = x.shape
+    K = experts.shape[-1]
+    E = num_experts
+    if E > _MAX_DISPATCH_EXPERTS:
+        raise ValueError(f"one-launch dispatch needs num_experts ≤ 256, "
+                         f"got {E} (fall back to argsort + gather)")
+    n = T * K
+    bits = max(1, math.ceil(math.log2(E + 1)))
+    tile = min(tile, 1 << max(1, math.ceil(math.log2(max(2, n)))))
+    if x.device.type == "cpu":
+        return moe_dispatch_sort_plain(x, experts, probs, num_experts=E)
+    if not x.is_cuda or x.dim() != 2 or x.dtype not in _ROW_DTYPES or \
+            not x.is_contiguous():
+        raise TypeError(f"moe_dispatch_sort takes contiguous (T, D) CUDA "
+                        f"rows of {_ROW_DTYPES}, got {x.dtype} "
+                        f"{tuple(x.shape)} on {x.device}")
+    _check_cuda("moe_dispatch_sort experts", experts, torch.int32)
+    if probs.dtype not in _ROW_DTYPES or not probs.is_cuda or \
+            not probs.is_contiguous():
+        raise TypeError(f"moe_dispatch_sort: probs must be contiguous CUDA "
+                        f"floats, got {probs.dtype} on {probs.device}")
+    if tuple(experts.shape) != (T, K) or tuple(probs.shape) != (T, K):
+        raise ValueError(f"moe_dispatch_sort: experts {tuple(experts.shape)}"
+                         f" and probs {tuple(probs.shape)} are not ({T}, K)")
+    if tile & (tile - 1) or tile > _MAX_DISPATCH_TILE:
+        raise ValueError(f"moe_dispatch_sort tile must be a power of two "
+                         f"<= {_MAX_DISPATCH_TILE}, got {tile}")
+    dev = x.device
+    xd = torch.empty(n, D, dtype=x.dtype, device=dev)
+    sorted_e = torch.empty(n, dtype=torch.int32, device=dev)
+    sorted_tok = torch.empty(n, dtype=torch.int32, device=dev)
+    sorted_p = torch.empty(n, dtype=probs.dtype, device=dev)
+    counts = torch.zeros(E, dtype=torch.int32, device=dev)
+    if n == 0 or D == 0:
+        return xd, sorted_e, sorted_tok, sorted_p, counts
+    nt = -(-n // tile)
+    hist = torch.empty(nt << bits if nt > 1 else 0, dtype=torch.int32,
+                       device=dev)
+    row_bytes = D * x.element_size()
+    vec = next(v for v in (16, 4, 2)
+               if row_bytes % v == 0 and x.data_ptr() % v == 0)
+    K3(x.data_ptr(), experts.data_ptr(), probs.data_ptr(),
+       hist.data_ptr() if nt > 1 else None, xd.data_ptr(),
+       sorted_e.data_ptr(), sorted_tok.data_ptr(), sorted_p.data_ptr(),
+       counts.data_ptr(), T, K, E, tile, bits, row_bytes, vec,
+       probs.element_size(), _stream(x))
+    return xd, sorted_e, sorted_tok, sorted_p, counts
+
+
 __all__ = ["radix_tile_sort", "radix_tile_sort_packed",
            "multi_tile_argsort_packed", "radix_tile_sort_plain",
            "radix_tile_sort_packed_plain", "mt_local_plain",
-           "mt_scatter_plain", "SENTINEL", "K6A", "K6B", "K7A", "K7B"]
+           "mt_scatter_plain", "moe_dispatch_sort", "moe_dispatch_sort_plain",
+           "SENTINEL", "K3", "K6A", "K6B", "K7A", "K7B"]

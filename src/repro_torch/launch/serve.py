@@ -6,8 +6,11 @@ card by default.
         [--smoke] [--device cuda|cpu]
 
 Chunked (by_blocks) prefill + find_first early-exit decode; per-request
-wasted-work stats are printed.  ``--layers`` cuts the depth for a quick run;
-the width is always the config's.  Weights are random, drawn from ``--seed``.
+wasted-work stats are printed.  ``--layers`` cuts the depth for a quick run
+(``--arch llama4-scout-17b-a16e --layers 12`` fits one 80 GB card); the
+width is always the config's.  MoE configs serve with the dropless sort
+dispatch routed by K3 (``moe_strategy="sort"``, ``moe_sort_fn="pallas"``).
+Weights are random, drawn from ``--seed``.
 """
 
 import argparse
@@ -44,10 +47,13 @@ def main(argv=None) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    model = Model(cfg, device=args.device)
+    moe = dict(moe_strategy="sort", moe_sort_fn="pallas") if cfg.is_moe \
+        else {}
+    model = Model(cfg, device=args.device, **moe)
     params = model.init(args.seed)
     print(f"[launch.serve] {cfg.name}: {cfg.param_count() / 1e6:.1f}M "
-          f"params, {cfg.num_layers} layers on {model.device}")
+          f"params, {cfg.num_layers} layers on {model.device}"
+          + (" (MoE: sort dispatch, K3 routing)" if cfg.is_moe else ""))
 
     ecfg = EngineConfig(max_batch=args.max_batch, eos_id=args.eos_id)
     engine = (ContinuousEngine if args.engine == "continuous" else Engine)(

@@ -1,6 +1,6 @@
-"""The Model facade for a decoder-only LM (dense GQA, recurrent xLSTM /
-Mamba stacks): init / prefill / chunked prefill / decode — the decoder-only
-subset of ``repro.models.model``.
+"""The Model facade for a decoder-only LM (dense GQA, MoE, recurrent xLSTM /
+Mamba stacks): init / prefill / chunked prefill / decode — the
+decoder-only subset of ``repro.models.model``.
 
 Parameter and cache trees have the JAX package's layout: ``"stage"`` is a
 list with one dict per period position whose leaves are stacked over the
@@ -13,7 +13,13 @@ calls, so a run can check each layer call launched exactly one kernel.
 ``scan_impl`` picks the SSM recurrence backend for full-sequence paths, as
 in the reference: ``"lax"`` (the sequential chunk loop) or ``"pallas"``
 (the chunk-parallel form around one K4 launch; the name is the
-reference's).
+reference's).  ``moe_strategy`` picks the MoE dispatch, as the reference's
+(``"einsum"``, GShard with capacity drops, or ``"sort"``, dropless), and
+``moe_sort_fn`` is the ``sort_fn`` of the sort dispatch: ``None`` (the
+reference's behaviour: ``torch.argsort(stable=True)`` plus a gather),
+``"pallas"`` (K3, the sort and row gather in one kernel entry) or a stable
+argsort callable.  The reference's ``Model`` has no such argument and
+always routes with ``jnp.argsort``; K3 gives the same routing bit for bit.
 """
 
 from __future__ import annotations
@@ -48,12 +54,16 @@ def _index(tree: Any, r: int) -> Any:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device="cuda", *,
-                 scan_impl: str = "lax"):
+                 scan_impl: str = "lax", moe_strategy: str = "einsum",
+                 moe_sort_fn=None):
         if scan_impl not in ("lax", "pallas"):
             raise ValueError(
                 f"scan_impl must be 'lax' or 'pallas', got {scan_impl!r}")
+        if moe_strategy not in ("einsum", "sort"):
+            raise ValueError(f"unknown MoE strategy {moe_strategy!r}")
         self.cfg = cfg
         self.scan_impl = scan_impl
+        self.moe = {"strategy": moe_strategy, "sort_fn": moe_sort_fn}
         self.device = resolve_device(device)
         self.prefix_specs, self.period_specs, self.repeats = stage_layout(cfg)
         if self.prefix_specs:
@@ -137,7 +147,7 @@ class Model:
         for spec, lp, lc in self._layers(params, cache):
             x, payload = layer_apply(self.cfg, spec, lp, x, positions,
                                      collect_cache=True,
-                                     scan_impl=self.scan_impl)
+                                     scan_impl=self.scan_impl, moe=self.moe)
             for name, arr in payload.items():
                 if name in ("k", "v"):
                     lc[name][:, :S] = arr
@@ -158,7 +168,7 @@ class Model:
         x = self._embed_in(params, tokens)
         for spec, lp, lc in self._layers(params, cache):
             x = layer_prefill_chunk(self.cfg, spec, lp, x, lc, pos0,
-                                    scan_impl=self.scan_impl)
+                                    scan_impl=self.scan_impl, moe=self.moe)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         if all_logits:
             return self._logits_head(params, x), cache
@@ -172,7 +182,8 @@ class Model:
         self.calls["decode_step"] += 1
         x = self._embed_in(params, tokens[:, None])
         for spec, lp, lc in self._layers(params, cache):
-            x = layer_decode(self.cfg, spec, lp, x, lc, lengths, lengths)
+            x = layer_decode(self.cfg, spec, lp, x, lc, lengths, lengths,
+                             moe=self.moe)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return self._logits_head(params, x)[:, 0], cache
 

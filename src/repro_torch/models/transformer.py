@@ -1,5 +1,6 @@
 """Layer specs, periods and the decoder layers — GQA attention, Mamba,
-mLSTM and sLSTM — the counterpart of ``repro.models.transformer``.
+mLSTM and sLSTM, with a dense or MoE FFN — the counterpart of
+``repro.models.transformer``.
 
 Layers are grouped into *periods* (the smallest repeating unit of specs) and
 parameters are stacked over period repeats, as in the JAX package, so a
@@ -11,12 +12,17 @@ cache slice, and the decode step writes the new token's K/V at each row's
 length (rows already at the cache width write nothing, the JAX package's
 mask-select semantics).  Recurrent layers overwrite their O(1) state.  The
 JAX versions return new arrays instead.
+
+An MoE layer runs ``moe_apply`` with the caller's ``moe`` options
+(``strategy``, ``sort_fn``) and the reference's ``group_size``: 256 in a
+full-sequence pass, ``min(256, B)`` in a decode step and ``min(256, c)``
+in a prefill chunk.  The auxiliary loss is dropped: nothing here trains.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -25,6 +31,7 @@ from .attention import (attn_chunk_sizes, blockwise_attention,
                         decode_attention, gqa_init, gqa_project_kv,
                         gqa_project_qkv, gqa_self_attention, plain_attention)
 from .layers import Params, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .moe import moe_apply, moe_init
 from .ssm import (mamba_forward, mamba_init, mamba_step, mlstm_forward,
                   mlstm_init, mlstm_step, slstm_forward, slstm_init,
                   slstm_step)
@@ -32,7 +39,6 @@ from .ssm import (mamba_forward, mamba_init, mamba_step, mlstm_forward,
 # what the JAX package has and the port does not run yet → ROADMAP item
 NOT_PORTED = {
     "mla": "ROADMAP.md Queue 1 item 8 (MLA attention)",
-    "moe": "ROADMAP.md Queue 1 item 9 (MoE)",
     "cross": "ROADMAP.md Queue 1 item 8 (cross-attention)",
 }
 SSM_KINDS = ("mamba", "mlstm", "slstm")
@@ -80,8 +86,6 @@ def check_ported(cfg: ModelConfig, spec: LayerSpec) -> None:
     if spec.kind not in ("attn",) + SSM_KINDS:
         raise NotImplementedError(f"layer kind {spec.kind!r}: "
                                   f"{NOT_PORTED[spec.kind]}")
-    if spec.is_moe:
-        raise NotImplementedError(f"MoE layers: {NOT_PORTED['moe']}")
     if spec.has_cross or cfg.is_encdec:
         raise NotImplementedError(
             f"cross-attention / encoder-decoder: {NOT_PORTED['cross']}")
@@ -104,16 +108,26 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, *,
         p["mixer"] = _MIXER_INIT[spec.kind](gen, cfg, lead=lead)
     if spec.has_ffn:
         p["ln2"] = rmsnorm_init(cfg.d_model, cfg.pdtype(), dev, lead=lead)
-        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.dense_ffn_dim,
-                               cfg.pdtype(), lead=lead)
+        if spec.is_moe:
+            p["moe"] = moe_init(gen, cfg, lead=lead)
+        else:
+            p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.dense_ffn_dim,
+                                   cfg.pdtype(), lead=lead)
     return p
 
 
-def _ffn(cfg: ModelConfig, spec: LayerSpec, lp: Params,
-         x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, spec: LayerSpec, lp: Params, x: torch.Tensor,
+         moe: Optional[Dict[str, Any]], group_size: int) -> torch.Tensor:
+    """x + the layer's FFN (dense SwiGLU, or MoE with the ``moe`` options
+    ``strategy`` and ``sort_fn``)."""
     if not spec.has_ffn:
         return x
-    return x + swiglu(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if spec.is_moe:
+        y, _ = moe_apply(lp["moe"], cfg, h, group_size=group_size,
+                         **(moe or {}))
+        return x + y
+    return x + swiglu(lp["ffn"], h)
 
 
 def _ssm_forward(cfg: ModelConfig, spec: LayerSpec, lp: Params,
@@ -134,7 +148,8 @@ def _ssm_forward(cfg: ModelConfig, spec: LayerSpec, lp: Params,
 def layer_apply(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                 x: torch.Tensor, positions: torch.Tensor, *,
                 causal: bool = True, collect_cache: bool = False,
-                scan_impl: str = "lax"):
+                scan_impl: str = "lax",
+                moe: Optional[Dict[str, Any]] = None):
     """Full-sequence layer.  Returns (x, cache payload or None)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     payload = None
@@ -149,7 +164,7 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, lp: Params,
         if collect_cache:
             k, v = gqa_project_kv(lp["mixer"], cfg, h, positions)
             payload = {"k": k, "v": v}
-    return _ffn(cfg, spec, lp, x), payload
+    return _ffn(cfg, spec, lp, x, moe, 256), payload
 
 
 _STEPS = {"mamba": mamba_step, "mlstm": mlstm_step, "slstm": slstm_step}
@@ -157,8 +172,8 @@ _STEPS = {"mamba": mamba_step, "mlstm": mlstm_step, "slstm": slstm_step}
 
 def layer_decode(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                  x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 positions: torch.Tensor, lengths: torch.Tensor
-                 ) -> torch.Tensor:
+                 positions: torch.Tensor, lengths: torch.Tensor, *,
+                 moe: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """x: (B,1,D).  Attention writes the token's K/V into ``cache`` in
     place (it attends to itself), then attends over lengths + 1 positions;
     a recurrent layer advances its state in ``cache`` in place."""
@@ -166,7 +181,7 @@ def layer_decode(cfg: ModelConfig, spec: LayerSpec, lp: Params,
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if spec.kind in SSM_KINDS:
         y, _ = _STEPS[spec.kind](lp["mixer"], cfg, h, cache)
-        return _ffn(cfg, spec, lp, x + y)
+        return _ffn(cfg, spec, lp, x + y, moe, min(256, B))
     q, k_new, v_new = gqa_project_qkv(lp["mixer"], cfg, h,
                                       positions[:, None])
     kc, vc = cache["k"], cache["v"]
@@ -179,12 +194,13 @@ def layer_decode(cfg: ModelConfig, spec: LayerSpec, lp: Params,
     vc[rows, at] = torch.where(keep, v_new[:, 0], vc[rows, at])
     o = decode_attention(q[:, 0], kc, vc, lengths + 1)
     x = x + (o.reshape(B, -1) @ lp["mixer"]["wo"])[:, None]
-    return _ffn(cfg, spec, lp, x)
+    return _ffn(cfg, spec, lp, x, moe, min(256, B))
 
 
 def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                         x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                        pos0: int, *, scan_impl: str = "lax"
+                        pos0: int, *, scan_impl: str = "lax",
+                        moe: Optional[Dict[str, Any]] = None
                         ) -> torch.Tensor:
     """Process chunk positions [pos0, pos0+c) against cached history.
     Attention writes the chunk's K/V into ``cache`` in place and runs over
@@ -197,7 +213,7 @@ def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
         y, st = _ssm_forward(cfg, spec, lp, h, cache, scan_impl)
         for name, t in st.items():
             cache[name].copy_(t)
-        return _ffn(cfg, spec, lp, x + y)
+        return _ffn(cfg, spec, lp, x + y, moe, min(256, c))
     S_max = cache["k"].shape[1]
     if pos0 < 0 or pos0 + c > S_max:
         raise ValueError(f"chunk [{pos0}, {pos0 + c}) outside the cache "
@@ -214,7 +230,7 @@ def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
         o = blockwise_attention(q, kc, vc, causal=True, q_chunk=qc,
                                 kv_chunk=kvc, q_offset=pos0)
     x = x + o.reshape(B, c, -1) @ lp["mixer"]["wo"]
-    return _ffn(cfg, spec, lp, x)
+    return _ffn(cfg, spec, lp, x, moe, min(256, c))
 
 
 def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,

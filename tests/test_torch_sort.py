@@ -285,6 +285,44 @@ def test_argsort_17_bit_keys_pick_merge_and_match_reference():
                    strategy="multi_tile")
 
 
+# ---------------------------------------------------------------------------
+# K9: the comparison pipeline's kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,tile", [(1024, 128), (2048, 2048), (256, 16),
+                                    (64, 1)])
+def test_tile_sort_matches_reference(n, tile):
+    x = _words(n, n + tile)
+    x[1::3] = x[::3][:len(x[1::3])]              # repeated words
+    _same(ms.tile_sort(_t(x), tile=tile),
+          jms.tile_sort(jnp.asarray(x), tile=tile, interpret=True))
+
+
+@pytest.mark.parametrize("m,n,idx_bits,key_bits", [
+    (4096, 4096, 12, 12), (2048, 1537, 11, 8), (8, 5, 3, 29), (1024, 0, 10, 4)])
+def test_pack_and_unpack_match_reference(m, n, idx_bits, key_bits):
+    keys = _keys(m, key_bits, m + n)
+    packed = ms._pack(_t(keys), n=n, idx_bits=idx_bits)
+    _same(packed, jms._pack(jnp.asarray(keys), n=n, idx_bits=idx_bits,
+                            interpret=True))
+    mask = (1 << idx_bits) - 1
+    _same(ms._unpack(packed, idx_mask=mask),
+          jms._unpack(jnp.asarray(packed.numpy()), idx_mask=mask,
+                      interpret=True))
+
+
+@pytest.mark.parametrize("n,num_key_bits", [(4096, 4), (1000, 9), (3, 2)])
+def test_argsort_bitonic_unfused_matches_reference(n, num_key_bits):
+    """The MoE layer's comparison route: ``method="bitonic", fused=False``
+    (K9b, K9a, K8 levels, K9c), ragged n padded to a power of two."""
+    keys = _keys(n, num_key_bits, 7 * n)
+    kw = dict(num_key_bits=num_key_bits, tile=256, method="bitonic",
+              fused=False)
+    got = ms.argsort(_t(keys), **kw)
+    _same(got, jms.argsort(jnp.asarray(keys), interpret=True, **kw))
+    _same(got, np.argsort(keys, kind="stable").astype(np.int32))
+
+
 @pytest.mark.parametrize("kw", [dict(fused=False),
                                 dict(method="bitonic", fused=False)])
 def test_argsort_comparison_pipelines_on_the_cpu(kw):
@@ -398,9 +436,9 @@ def test_multi_tile_schedule_key_shift_must_be_idx_bits():
 # ---------------------------------------------------------------------------
 
 def test_wrappers_on_a_non_cpu_tensor_launch_or_raise():
-    """A meta tensor stands in for a CUDA one here: every wrapper refuses it
-    instead of running its twin, the K9 pipelines name their ROADMAP item,
-    and no launch counter moves."""
+    """A meta tensor stands in for a CUDA one here: every wrapper, the K9
+    comparison pipeline's included, refuses it instead of running its
+    twin, and no launch counter moves."""
     _build.reset_launches()
     u = torch.empty(1024, dtype=torch.uint32, device="meta")
     k = torch.empty(1024, dtype=torch.int32, device="meta")
@@ -411,14 +449,12 @@ def test_wrappers_on_a_non_cpu_tensor_launch_or_raise():
             lambda: rs._mt_local(k, nt=4, tile=256, shift=10, bits=4,
                                  pack=True, idx_bits=10),
             lambda: ms._merge_level(u, run=256, tile=256),
-            lambda: ts.tile_scan(k)):
+            lambda: ts.tile_scan(k),
+            lambda: ms.tile_sort(u, tile=256),
+            lambda: ms._pack(k, n=1024, idx_bits=10),
+            lambda: ms._unpack(u, idx_mask=1023)):
         with pytest.raises((ValueError, TypeError)):
             call()
     with pytest.raises(NotImplementedError, match="tile_scan on the card"):
         ts.tile_scan(k, combine=torch.maximum)
-    for call in (lambda: ms.tile_sort(u, tile=256),
-                 lambda: ms._pack(k, n=1024, idx_bits=10),
-                 lambda: ms._unpack(u, idx_mask=1023)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
     assert all(v == 0 for v in _build.launches().values())

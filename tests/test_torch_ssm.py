@@ -67,7 +67,8 @@ def xlstm():
 
 def _port_cfg(jcfg):
     """The port's ModelConfig with a JAX config's values (jamba is not in
-    the port's registry: MoE is not ported, its Mamba layers are)."""
+    the port's registry: its full-width MoE layers need more than one
+    card; its Mamba and MoE layers are ported)."""
     return ModelConfig(**{f.name: getattr(jcfg, f.name)
                           for f in dataclasses.fields(ModelConfig)})
 
