@@ -36,8 +36,12 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 4. hold K1, K2 and K4 against their plain versions at their paths' shapes
    and time kernel, plain version and, where one PyTorch call computes the
    same function, that call (``F.scaled_dot_product_attention`` for K1/K2;
-   none exists for the K4 scans): K1, K2 (with a zero-length row), K4
-   ``logspace`` (mLSTM carry, with extreme gates) and K4 ``affine`` (Mamba);
+   none exists for the K4 scans): K1 (bf16 through v3, the tensor-core
+   kernel, with its split-KV merge: GQA groups 1, 4 and 5, chunks of 1 to
+   256 at offsets 0 to 1792, forced split counts, two launches bit-identical;
+   fp32 through v2; v3 timed beside v2 in turns, unsplit, and over split
+   counts), K2 (with a zero-length row), K4 ``logspace`` (mLSTM carry, with
+   extreme gates) and K4 ``affine`` (Mamba);
 5. the dense path: llama3-8b at full width and full depth (32 layers,
    bf16, seeded random weights) serves 16 requests through
    ``ContinuousEngine`` and 4 through the sync ``Engine``; every attention
@@ -79,6 +83,7 @@ of every case go to ``--out`` (default ``build/chip_smoke.json``).
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -119,6 +124,15 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def free_card(torch) -> None:
+    """Return a phase's device memory before the next phase allocates: an
+    engine holds its model's parameters in a reference cycle (its cap's
+    threshold callback is a bound method), which only the cycle collector
+    frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -164,8 +178,14 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {src}: {line.strip()}")
+    k1_attrs = fa.kernel_attributes()
+    for kname, a in k1_attrs.items():
+        say(f"  K1 {kname}: {a['registers']} registers, {a['spill_bytes']} "
+            f"spill bytes, {a['static_smem'] + a['dynamic_smem']} bytes of "
+            f"shared memory, {a['ctas_per_sm']} CTAs an SM")
 
-    report = {"card": card, "cases": [], "timings": {}}
+    report = {"card": card, "cases": [], "timings": {},
+              "k1_kernel_attributes": k1_attrs}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     H, KV, hd = 32, 8, 128
@@ -234,6 +254,72 @@ def main() -> None:
 
     worst = {}               # kernel → {dtype: max abs err}
 
+    def k1_bf16_checks():
+        """v3 beyond llama3-8b's head layout: GQA group 1 (8/8 heads) and
+        5 (40/8, llama4-scout's) at every chunk, offset and Sk of the
+        group-4 cases, forced split counts (1 to past the kv tiles, so
+        empty splits and splits past a row's window), the merge launch
+        against its twin on the same partials, and two launches
+        bit-identical."""
+        bf = torch.bfloat16
+        for Hq in (8, 40):
+            for Sk in (2048, 1100):
+                k = randn(1, Sk, KV, hd, dtype=bf)
+                v = randn(1, Sk, KV, hd, dtype=bf)
+                for c in (1, 17, 32, 64, 256):
+                    q = randn(1, c, Hq, hd, dtype=bf)
+                    for off in (0, 96, 736, 1792):
+                        out = fa.flash_attention(q, k, v, causal=True,
+                                                 q_offset=off)
+                        ref = fa.flash_attention_plain(
+                            q.float(), k.float(), v.float(), causal=True,
+                            q_offset=off)
+                        torch.cuda.synchronize()
+                        record("flash_attention_fwd", bf, err(out, ref),
+                               c=c, q_offset=off, Sk=Sk, H=Hq,
+                               splits=fa.num_splits(1, c, Hq, KV, Sk,
+                                                    q_offset=off))
+        for Hq, c, off, Sk in ((8, 1, 1792, 2048), (8, 17, 96, 2048),
+                               (8, 64, 736, 2048), (8, 256, 0, 1100),
+                               (40, 1, 96, 1100), (40, 17, 1792, 2048),
+                               (40, 64, 96, 1100), (40, 256, 1792, 2048)):
+            q = randn(1, c, Hq, hd, dtype=bf)
+            k = randn(1, Sk, KV, hd, dtype=bf)
+            v = randn(1, Sk, KV, hd, dtype=bf)
+            ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=True, q_offset=off)
+            for sp in (None, 1, 2, 5, 16, 40):
+                out = fa.flash_attention(q, k, v, causal=True, q_offset=off,
+                                         splits=sp)
+                torch.cuda.synchronize()
+                record("flash_attention_fwd", bf, err(out, ref), c=c,
+                       q_offset=off, Sk=Sk, H=Hq, splits=sp or "rule")
+        k1_same = []
+        for Hq, c, off in ((32, 256, 736), (32, 32, 1792), (40, 256, 736),
+                           (40, 64, 1792), (32, 1, 1792)):
+            q = randn(1, c, Hq, hd, dtype=bf)
+            k = randn(1, 2048, KV, hd, dtype=bf)
+            v = randn(1, 2048, KV, hd, dtype=bf)
+            ns = fa.num_splits(1, c, Hq, KV, 2048, q_offset=off)
+            a = fa.flash_attention(q, k, v, causal=True, q_offset=off)
+            b = fa.flash_attention(q, k, v, causal=True, q_offset=off)
+            k1_same.append(bool(torch.equal(a, b)))
+            check(k1_same[-1], f"K1 v3 H={Hq} c={c} q_offset={off}: two "
+                  f"launches on the same inputs differ")
+            if ns > 1:
+                parts = fa.split_partials(q, k, v, ns, causal=True,
+                                          q_offset=off)
+                got = fa.merge(*parts)
+                torch.cuda.synchronize()
+                record("flash_attention_merge", bf, err(
+                    got, fa.merge_plain(*parts, torch.float32)), c=c,
+                    q_offset=off, Sk=2048, H=Hq, splits=ns)
+                check(torch.equal(got, a), "K1: merge(split_partials) is "
+                      "not the wrapper's output")
+        say(f"K1 v3: two launches bit-identical in {sum(k1_same)} of "
+            f"{len(k1_same)} cases (split and unsplit, G 4 and 5)")
+        report["k1_bit_identical"] = k1_same
+
     def record(kernel, dtype, e, **case):
         tol = TOL[str(dtype).split(".")[-1]]
         name = str(dtype).split(".")[-1]
@@ -245,12 +331,13 @@ def main() -> None:
               f"{kernel} {name} {case}: max abs err {e:.3g} > tol {tol}")
 
     for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
         for Sk in (2048, 1100):
             k = randn(1, Sk, KV, hd, dtype=dtype)
             v = randn(1, Sk, KV, hd, dtype=dtype)
-            for c in (32, 64, 256):
+            for c in (1, 17, 32, 64, 256) if bf16 else (32, 64, 256):
                 q = randn(1, c, H, hd, dtype=dtype)
-                for off in (0, 96, 1792):
+                for off in (0, 96, 736, 1792) if bf16 else (0, 96, 1792):
                     out = fa.flash_attention(q, k, v, causal=True,
                                              q_offset=off)
                     ref = fa.flash_attention_plain(q.float(), k.float(),
@@ -258,7 +345,9 @@ def main() -> None:
                                                    q_offset=off)
                     torch.cuda.synchronize()
                     record("flash_attention_fwd", dtype, err(out, ref),
-                           c=c, q_offset=off, Sk=Sk)
+                           c=c, q_offset=off, Sk=Sk, splits=fa.num_splits(
+                               1, c, H, KV, Sk, q_offset=off) if bf16
+                           else 1)
         for S in (2048, 1100):
             B = 8
             q = randn(B, H, hd, dtype=dtype)
@@ -295,6 +384,8 @@ def main() -> None:
         mean_v = vc[0].float().mean(0).repeat_interleave(H // KV, 0)
         check(err(ref[0], mean_v) <= 1e-4, "K2's twin: a zero-length row "
               "is not the mean of V")
+
+    k1_bf16_checks()
 
     # K1 and K2 at llama4-scout's head layout, the MoE path's: 40 q heads
     # on 8 kv heads (G = 5)
@@ -394,8 +485,11 @@ def main() -> None:
 
     bf = torch.bfloat16
 
-    def k1_case(c, off, Sk, B=1):
-        q = randn(B, c, H, hd, dtype=bf)
+    def k1_case(c, off, Sk, B=1, Hq=H):
+        """v3 (the wrapper's route and split rule) timed in turns with v2
+        (v3, v2, v3, v2: each the mean of its two), v3 unsplit, the plain
+        twin and SDPA, all on the same inputs after an L2 flush."""
+        q = randn(B, c, Hq, hd, dtype=bf)
         k = randn(B, Sk, KV, hd, dtype=bf)
         v = randn(B, Sk, KV, hd, dtype=bf)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -403,12 +497,22 @@ def main() -> None:
                 >= torch.arange(Sk, device=dev)[None, :])
         pairs = sum(min(Sk, off + i + 1) for i in range(c))
         kv_len = min(Sk, off + c)
-        flops = 4.0 * B * H * hd * pairs
-        nbytes = 2.0 * (2 * B * c * H * hd + 2 * B * kv_len * KV * hd)
+        flops = 4.0 * B * Hq * hd * pairs
+        nbytes = 2.0 * (2 * B * c * Hq * hd + 2 * B * kv_len * KV * hd)
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES)
+
+        def v3():
+            return fa.flash_attention(q, k, v, causal=True, q_offset=off)
+
+        def v2():
+            return fa.flash_attention(q, k, v, causal=True, q_offset=off,
+                                      tensor_cores=False)
+        turns = [device_ms(f, cold=True) for f in (v3, v2, v3, v2)]
         return dict(
-            ms=device_ms(lambda: fa.flash_attention(
-                q, k, v, causal=True, q_offset=off), cold=True),
+            ms=(turns[0] + turns[2]) / 2, v2_ms=(turns[1] + turns[3]) / 2,
+            turns_ms=turns,
+            unsplit_ms=device_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True, q_offset=off, splits=1), cold=True),
             plain_ms=device_ms(lambda: fa.flash_attention_plain(
                 q, k, v, causal=True, q_offset=off), cold=True),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
@@ -417,8 +521,27 @@ def main() -> None:
             bound_ms=bound * 1e3,
             bound_by="operations" if flops / PEAK_FLOPS["bfloat16"]
             > nbytes / PEAK_BYTES else "bytes",
-            shape=dict(B=B, c=c, q_offset=off, Sk=Sk, H=H, KV=KV, hd=hd,
-                       dtype="bfloat16"))
+            shape=dict(B=B, c=c, q_offset=off, Sk=Sk, H=Hq, KV=KV, hd=hd,
+                       dtype="bfloat16", splits=fa.num_splits(
+                           B, c, Hq, KV, Sk, q_offset=off)))
+
+    def merge_case(c, off, Sk, Hq=H):
+        """The merge launch alone, on partials v3 just wrote (warm)."""
+        q = randn(1, c, Hq, hd, dtype=bf)
+        k = randn(1, Sk, KV, hd, dtype=bf)
+        v = randn(1, Sk, KV, hd, dtype=bf)
+        ns = fa.num_splits(1, c, Hq, KV, Sk, q_offset=off)
+        m, l, acc = fa.split_partials(q, k, v, ns, causal=True, q_offset=off)
+        rows_ = c * Hq
+        nbytes = 4.0 * ns * rows_ * (hd + 2) + 2.0 * rows_ * hd
+        return dict(
+            ms=device_ms(lambda: fa.merge(m, l, acc), cold=False),
+            plain_ms=device_ms(lambda: fa.merge_plain(m, l, acc, bf),
+                               cold=False),
+            library_ms=None, bound_ms=nbytes / PEAK_BYTES * 1e3,
+            bound_by="bytes",
+            shape=dict(B=1, c=c, q_offset=off, Sk=Sk, H=Hq, KV=KV, hd=hd,
+                       splits=ns, dtype="float32 partials, bfloat16 out"))
 
     def k2_case(B, S, lens):
         q = randn(B, H, hd, dtype=bf)
@@ -463,15 +586,37 @@ def main() -> None:
         return part, comb
 
     t0 = time.perf_counter()
-    for c in (32, 64, 256):
-        for off in (0, 224, 736, 1792):
-            if off + c <= 2048:
-                r = k1_case(c, off, 2048)
-                report["timings"][f"flash_attention_fwd c={c} off={off}"] = r
-                say(f"K1 c={c} q_offset={off} Sk=2048 bf16: kernel "
-                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
-                    f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                    f"({r['bound_by']}) [{card}]")
+    for Hq, c, off in [(H, c, off) for c in (32, 64, 256)
+                       for off in (0, 224, 736, 1792) if off + c <= 2048] + [
+                           (40, 256, 736), (H, 1, 1792)]:
+        r = k1_case(c, off, 2048, Hq=Hq)
+        tag = f"c={c} off={off}" + ("" if Hq == H else f" H={Hq}")
+        report["timings"][f"flash_attention_fwd {tag}"] = r
+        say(f"K1 {tag} Sk=2048 bf16: v3 {r['ms']:.4f} ms "
+            f"({r['shape']['splits']} splits; unsplit "
+            f"{r['unsplit_ms']:.4f}), v2 {r['v2_ms']:.4f} ms"
+            f", plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    merge_row = merge_case(32, 1792, 2048)
+    report["timings"]["flash_attention_merge c=32 off=1792"] = merge_row
+    say(f"K1 merge c=32 off=1792 ({merge_row['shape']['splits']} splits): "
+        f"{merge_row['ms']:.4f} ms, plain {merge_row['plain_ms']:.4f} ms, "
+        f"bound {merge_row['bound_ms']:.4f} ms (bytes) [{card}]")
+    # v3 over forced split counts: the data behind the split rule
+    for Hq, c, off in ((H, 256, 736), (H, 256, 1792), (H, 32, 1792),
+                       (H, 1, 1792), (40, 256, 736), (H, 128, 1024)):
+        q = randn(1, c, Hq, hd, dtype=bf)
+        k = randn(1, 2048, KV, hd, dtype=bf)
+        v = randn(1, 2048, KV, hd, dtype=bf)
+        sweep = {sp: device_ms(lambda: fa.flash_attention(
+            q, k, v, causal=True, q_offset=off, splits=sp), cold=True)
+            for sp in (1, 2, 3, 4, 6, 9, 12, 16)}
+        rule = fa.num_splits(1, c, Hq, KV, 2048, q_offset=off)
+        report["timings"][f"flash_attention_fwd split sweep H={Hq} c={c} "
+                          f"off={off}"] = dict(rule=rule, ms=sweep)
+        say(f"K1 v3 H={Hq} c={c} q_offset={off} by splits (rule {rule}): "
+            + ", ".join(f"{sp}: {t:.4f}" for sp, t in sweep.items())
+            + f" ms [{card}]")
     lens_rng = np.random.RandomState(args.seed)
     main_lens = lens_rng.randint(64, 1089, size=8)
     for S, lens in ((2048, main_lens), (2048, [2048] * 8),
@@ -536,6 +681,7 @@ def main() -> None:
     rows = {
         "flash_attention_fwd": report["timings"][
             "flash_attention_fwd c=256 off=736"],
+        "flash_attention_merge": merge_row,
         "flash_decode_partials": report["timings"][
             f"flash_decode_partials B=8 S=2048 mean_len="
             f"{main_lens.mean():.0f}"],
@@ -595,8 +741,8 @@ def main() -> None:
     torch.cuda.synchronize()
     t_cont = time.perf_counter() - t0
     calls_cont = dict(model.calls)
-    dense_kernels = ("flash_attention_fwd", "flash_decode_partials",
-                     "flash_decode_combine")
+    dense_kernels = ("flash_attention_fwd", "flash_attention_merge",
+                     "flash_decode_partials", "flash_decode_combine")
 
     def path_launches():
         return {k: v for k, v in _build.launches().items()
@@ -636,8 +782,14 @@ def main() -> None:
               "flash_decode_partials": L * calls["decode_step"],
               "flash_decode_combine": L * calls["decode_step"]}
     check(calls["prefill"] == 0, "the engines ran a non-chunked prefill")
-    check(launches == expect, f"launch counts {launches} != layers x "
+    got = {k: n for k, n in launches.items() if k in expect}
+    check(got == expect, f"launch counts {got} != layers x "
           f"(prefill chunks, decode steps) {expect}")
+    # K1's merge runs once for each attention call that split its keys:
+    # a whole number of layers, at most one per K1 launch
+    n_merge = launches["flash_attention_merge"]
+    check(n_merge % L == 0 and n_merge <= launches["flash_attention_fwd"],
+          f"K1 merge launches {n_merge}: not layers x split chunks")
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the path never launched: {launches}")
     check(launches_cont["flash_attention_fwd"]
@@ -647,8 +799,8 @@ def main() -> None:
     gen_cont = sum(len(r.result) for r in done.values())
     gen_sync = sum(len(r.result) for r in sync_done.values())
     say(f"dense path: launches {launches} = {L} layers x "
-        f"{calls['prefill_chunk']} prefill chunks / "
-        f"{calls['decode_step']} decode steps")
+        f"{calls['prefill_chunk']} prefill chunks ({n_merge // L} of them "
+        f"split) / {calls['decode_step']} decode steps")
     say(f"ContinuousEngine: 16 requests, {gen_cont} tokens in {t_cont:.2f} s"
         f" = {gen_cont / t_cont:.1f} tok/s; Engine: 4 requests, {gen_sync} "
         f"tokens in {t_sync:.2f} s = {gen_sync / t_sync:.1f} tok/s; peak "
@@ -682,7 +834,8 @@ def main() -> None:
             if ev.device_type != DeviceType.CUDA:
                 continue
             name = ev.key
-            g = ("flash_attention_fwd" if "flash_fwd_kernel" in name else
+            # K1: v3 (flash_fwd_tc_kernel), its merge and v2 all land here
+            g = ("flash_attention_fwd" if "flash_fwd" in name else
                  "flash_decode_partials" if "decode_partials_kernel" in name
                  else "flash_decode_combine" if "decode_combine_kernel" in name
                  else "tile_scan_logspace" if "logspace_scan_kernel" in name
@@ -718,7 +871,7 @@ def main() -> None:
             f"ms (" + ", ".join(f"{g} {t:.2f}" for g, t in sorted(
                 groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
     del dcache, pcache, params, model
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # ------------------------------------------------- 6. fp32 at full width
     cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
@@ -791,7 +944,7 @@ def main() -> None:
         f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties)")
     report["fp32"] = dict(max_logit_err=worst_logit, near_ties=ties)
     del ce, params, model
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # ------------------------------------------ 7. the SSM path: xlstm-1.3b
     xcfg = get_config("xlstm-1.3b")
@@ -854,7 +1007,7 @@ def main() -> None:
             3, V, size=plen).astype(np.int32),
             max_new=int(xrng.randint(16, 65))))
     del xcache
-    torch.cuda.empty_cache()
+    free_card(torch)
     _build.reset_launches()
     xmodel.calls = dict.fromkeys(xmodel.calls, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -932,7 +1085,7 @@ def main() -> None:
             f"{dev_ms:.2f} ms (" + ", ".join(f"{g} {t:.2f}" for g, t in sorted(
                 groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
     del pcache, xparams, xmodel, prompts, ptoks, short
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # ----------------------------- 8. fp32 at xlstm's full width, one period
     x32 = dataclasses.replace(xcfg, num_layers=8, param_dtype="float32",
@@ -1041,7 +1194,7 @@ def main() -> None:
                               pallas_lax_ties=ssm_ties, near_ties=ties,
                               early_exits=geng.telemetry.early_exits)
     del m_pal, p32
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # --------------------- 9. the Mamba layer path at jamba-1.5-large width
     from repro_torch.configs.base import ModelConfig
@@ -1078,7 +1231,7 @@ def main() -> None:
     report["mamba_layer"] = dict(launches=mamba_launches, wall_s=t_mamba,
                                  rel_err_output=e_y, rel_err_state=e_h)
     del mparams, xm, ym, yl, stm, stl
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # -------------------- 10. the MoE path: llama4-scout, 12 layers, bf16
     moe_launches = moe_path(np, torch, dev, args.seed, card, report,
@@ -1095,6 +1248,8 @@ def main() -> None:
     meta = {
         "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:72"),
+        "flash_attention_merge": ("src/repro_torch/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:72"),
         "flash_decode_partials": ("src/repro_torch/csrc/flash_decode.cu",
                                   "src/repro/kernels/flash_decode.py:53"),
         "flash_decode_combine": ("src/repro_torch/csrc/flash_decode.cu",
@@ -1126,7 +1281,9 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_computes": row.get("library_computes"),
-            "shape": row["shape"]})
+            "shape": row["shape"],
+            **({"v2_ms": row["v2_ms"], "unsplit_ms": row["unsplit_ms"]}
+               if "v2_ms" in row else {})})
     kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
     kernels += moe_kernel_entries(moe_rows, moe_errs, moe_launches)
     report["kernels"] = kernels
@@ -1943,6 +2100,10 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
           f"(prefill chunks + decode steps) {expect}")
     check(all(v > 0 for v in got.values()), f"a kernel of the MoE path "
           f"never launched: {got}")
+    n_merge = launches["flash_attention_merge"]
+    check(n_merge % L == 0 and n_merge <= launches["flash_attention_fwd"],
+          f"MoE path: K1 merge launches {n_merge}: not layers x split "
+          f"chunks")
     check(k3["launches_cont"]["moe_dispatch"] == n_moe * (
         k3["calls_cont"]["prefill_chunk"] + k3["calls_cont"]["decode_step"]),
         "continuous-engine K3 launches")
@@ -1953,7 +2114,8 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
     gen_sync = sum(len(v) for k, v in k3["tokens"].items() if k >= 100)
     say(f"MoE path: launches {got} = {n_moe} MoE layers x "
         f"({calls['prefill_chunk']} prefill chunks + {calls['decode_step']} "
-        f"decode steps)")
+        f"decode steps); K1 merge {n_merge} = {L} layers x "
+        f"{n_merge // L} split chunks")
     say(f"MoE ContinuousEngine: 16 requests, {gen_cont} tokens in "
         f"{k3['continuous_s']:.2f} s = {gen_cont / k3['continuous_s']:.1f} "
         f"tok/s; Engine: 4 requests, {gen_sync} tokens in "
@@ -2074,14 +2236,17 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
     peak = torch.cuda.max_memory_allocated()
     say(f"MoE path: peak memory {peak / 2**30:.2f} GiB [{card}]")
     report["moe_path"] = dict(
-        layers=L, launches=got, calls=calls, continuous_s=k3["continuous_s"],
+        layers=L, launches=got, merge_launches=n_merge, calls=calls,
+        continuous_s=k3["continuous_s"],
         continuous_tokens=gen_cont, sync_s=k3["sync_s"], sync_tokens=gen_sync,
         argsort_route_sync_s=t_ref, shadow_k3_calls=shadow["calls"],
         prefill_s=t_prefill, bitonic_prefill_s=t_bitonic,
         bitonic_launches=k9_got, peak_bytes=peak, breakdown=breakdowns,
         telemetry=k3["telemetry"])
     del dcache, pcache, params, model, prompts, lk, lb
-    torch.cuda.empty_cache()
+    free_card(torch)
+    say(f"MoE path done: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"still allocated")
     return {"moe_dispatch": got["moe_dispatch"],
             **{k: k9_got[k] for k in ("bitonic_tile_sort", "pack_keys",
                                       "unpack_order")}}
@@ -2163,7 +2328,7 @@ def moe_fp32(np, torch, seed, report, drain):
         f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties)")
     report["fp32_moe"] = dict(max_logit_err=worst, near_ties=ties)
     del ce, params, model
-    torch.cuda.empty_cache()
+    free_card(torch)
 
 
 def moe_kernel_entries(rows, errs, launches):

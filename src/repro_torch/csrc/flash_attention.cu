@@ -8,28 +8,72 @@
 // What bounds it on this card: a prefill chunk of c queries at offset P
 // against its causal window does about 4*c*(P + c/2)*hd*H FLOPs on
 // (2*c*H + 2*(P + c)*KV)*hd elements, so a chunk of 256 is bound by
-// arithmetic (past ~295 FLOPs per byte in bf16).  This version does its
-// arithmetic as fp32 FMAs from shared memory (no tensor cores), so it is
-// bound by the FMA issue rate and shared-memory bandwidth, far below the
-// 989 TFLOP/s bf16 tensor-core peak; mma/wgmma with TMA comes later.
+// arithmetic (past ~295 FLOPs per byte in bf16), a chunk of 32 by bytes.
 //
-// Design: one CTA of 256 threads per (64-query tile, q head, batch row).
-// The TPU kernel carries its running max, denominator and accumulator
-// across *sequential grid steps* in VMEM scratch; a Hopper grid runs in no
-// order, so the carry lives inside the CTA, in registers, across a loop
-// over 64-key tiles of K/V staged in shared memory (fp32).  The threads
-// form a 16 x 16 grid: thread (ty, tx) owns query rows ty + 16i and, per
-// tile, keys tx + 16j (i, j < 4), so each shared-memory read feeds 2 FMAs
+// Two kernels compute it, chosen by a shape rule in the Python wrapper:
+//
+// v3, flash_fwd_tc_kernel<HD> (bf16, head dim HD a multiple of 16, <=
+// 128): both products on the bf16 tensor cores (mma.sync.aligned.m16n8k16,
+// fp32 accumulation; mma.sync rather than wgmma because at these sizes --
+// at most ~1024 packed rows by 2048 keys per kv head -- occupancy and
+// latency bound the kernel before the tensor-core rate does, and its
+// fragments are registers a warp owns).  One CTA of 4 warps serves one kv
+// head: its 64 rows are (query, q head of the group) pairs packed
+// query-major (row R = i * G + g), so K/V are read once per group and not
+// once per q head, and each row's causal bound is its own query position
+// q_offset + R / G (G need not divide 64; the last tile is ragged).  K/V
+// tiles of 64 keys go into a ring of 2 shared-memory stages by
+// cp.async.cg 16-byte copies: the next tile is in flight while the
+// current one is in the tensor cores, with one barrier a tile.  Shared
+// memory holds bf16 rows padded by 16 bytes, so every ldmatrix (.trans
+// for V) is free of bank conflicts; Q is staged in the ring's last K
+// stage before the loop, so 68 KB a CTA (and 200 registers a thread at
+// HD 128) let 2 CTAs share an SM.  Each warp owns 16 rows: S = Q K^T
+// stays in the m16n8 accumulator fragments, the softmax scale (folded
+// with log2 e, for exp2f) is applied to the fp32 logits, the row max and
+// sum are reduced over the 4 lanes of a quad with shuffles, and P,
+// rounded to bf16, is reused in registers as the A fragment of P V (as
+// FlashAttention-2 does).  Where the TPU kernel scales fp32 q and keeps P
+// in fp32, this one rounds q only once (to bf16, as given) and rounds P
+// to bf16: both are roundings within the bf16 tolerance.  When the row
+// tiles leave SMs idle (short chunks, late offsets), the wrapper splits
+// each tile's key range over nsplit CTAs: each writes fp32 partials (m,
+// l, acc) and flash_fwd_merge_kernel merges them in split order -- no
+// atomics, so one input gives bit-identical outputs on every run.  A
+// split that lies past a row's causal window gives that row m = -1e30,
+// l = 0, acc = 0, weight 0 in the merge; key 0 is visible to every row,
+// so no row is empty.  What holds v3 back now: every warp reads the whole
+// K and V tile from shared memory through ldmatrix (128 KB a tile a CTA),
+// and with one or two warps a scheduler little of its latency is hidden;
+// a deeper ring (3 or 4 stages) was tried and was no faster.  wgmma,
+// which reads B from shared memory once per warpgroup, is the next step.
+//
+// v2, flash_fwd_kernel (fp32, and bf16 head dims that are not a multiple
+// of 16): fp32 FMAs from shared memory, no tensor cores (tensor cores in
+// fp32 would be TF32, and the fp32 goldens pin exact tokens).  One CTA of
+// 256 threads per (64-query tile, q head, batch row).  The TPU kernel
+// carries its running max, denominator and accumulator across
+// *sequential grid steps* in VMEM scratch; a Hopper grid runs in no order,
+// so the carry lives inside the CTA, in registers, across a loop over
+// 64-key tiles of K/V staged in shared memory (fp32).  The threads form a
+// 16 x 16 grid: thread (ty, tx) owns query rows ty + 16i and, per tile,
+// keys tx + 16j (i, j < 4), so each shared-memory read feeds 2 FMAs
 // (register blocking; row stride hd + 1 keeps the reads free of bank
 // conflicts), and output dims tx + 16e.  The row max and sum are reduced
-// over the 16 lanes of a row group with shuffles.  The kv loop stops at
-// q_offset + the tile's last query (causal pruning); masked logits are
-// -1e30, never -inf, so exp() gives exactly 0 and pruning changes no value.
-// The q-head -> kv-head map is h / (H / KV), as in the TPU index map;
-// ragged Sq and Sk edges are masked, not asserted away.
+// over the 16 lanes of a row group with shuffles.
+//
+// Both: the kv loop stops at q_offset + the tile's last query (causal
+// pruning); masked logits are -1e30, never -inf, so exp() gives exactly 0
+// and pruning changes no value.  The q-head -> kv-head map is h / (H /
+// KV), as in the TPU index map; ragged Sq and Sk edges are masked (keys
+// past the edge are zero-filled and their logits masked), not asserted
+// away.  The kernels allocate nothing: the wrapper passes the output and
+// the partials.
 #include "common.cuh"
 
 namespace {
+
+// ------------------------------------------------ v2: fp32 FMA kernel
 
 constexpr int BQ = 64;            // query rows per CTA
 constexpr int BK = 64;            // keys per kv tile
@@ -41,7 +85,7 @@ constexpr int RI = BQ / 16;       // rows per thread
 constexpr int KJ = BK / 16;       // keys per thread and tile
 constexpr int DE = MAX_HD / 16;   // output dims per thread
 
-constexpr size_t smem_bytes() {
+constexpr size_t fma_smem_bytes() {
   return sizeof(float) * (BQ * LD + BK * LD + BK * MAX_HD + BQ * PLD);
 }
 
@@ -194,21 +238,371 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Sk, int H, int KV, int hd, int causal,
-                   float scale, int q_offset, cudaStream_t stream) {
-  const size_t smem = smem_bytes();
-  // above 48 KB only after opting in; once per process, so that a launch
-  // inside a CUDA graph capture makes no non-stream API call
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
+// -------------------------------------------- v3: bf16 tensor-core kernel
+
+constexpr int TC_BM = 64;                 // packed rows per CTA (16 a warp)
+constexpr int TC_BN = 64;                 // keys per kv tile
+constexpr int TC_MAXD = 128;
+constexpr int TC_LDS = TC_MAXD + 8;       // bf16 row stride: +16 bytes
+constexpr int TC_STAGES = 2;              // K/V ring
+constexpr int TC_THREADS = 128;
+constexpr int MERGE_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// K and V rings; Q is staged in the last K stage before the loop fills it
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) * TC_LDS * 2 * TC_STAGES * TC_BN;
+}
+static_assert(TC_BM == TC_BN, "Q is staged in a K stage");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !full
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool full) {
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  unsigned u;
+  memcpy(&u, &x, sizeof(u));
+  return u;
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t.  The fp32
+// accumulator of an m16n8 tile holds (row g, cols 2t, 2t+1) in [0], [1]
+// and (row g + 8, same cols) in [2], [3].  The A operand holds rows g and
+// g + 8 at k = 2t, 2t+1 (regs 0, 1) and k = 8 + 2t, 9 + 2t (regs 2, 3),
+// which is two accumulator tiles side by side: P needs no shuffle.
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
+                    float* __restrict__ pl, float* __restrict__ pacc, int Sq,
+                    int Sk, int H, int KV, int causal,
+                    float scale_log2, int q_offset, int nsplit) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + TC_STAGES * TC_BN * TC_LDS;   // [stage][key][d]
+  __nv_bfloat16* sQ = sK + (TC_STAGES - 1) * TC_BN * TC_LDS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // latest rows, most keys, first
+  const int kvh = blockIdx.y;
+  const int B = gridDim.z / nsplit;
+  const int b = blockIdx.z / nsplit, split = blockIdx.z - b * nsplit;
+  const int G = H / KV;
+  const int M = Sq * G;                          // packed rows of a kv head
+  const int r0 = tile * TC_BM;
+  const int q_last = (min(r0 + TC_BM, M) - 1) / G;
+  const int k_hi = causal ? min(Sk, q_offset + q_last + 1) : Sk;
+  const int n_t = (k_hi + TC_BN - 1) / TC_BN;
+  const int per = (n_t + nsplit - 1) / nsplit;
+  const int t_begin = split * per, t_end = min(n_t, t_begin + per);
+  constexpr int nd8 = HD / 8;                    // 16-byte chunks of a row
+  constexpr int ndk = HD / 16;                   // 16-wide steps over HD
+  const size_t kv_row = (size_t)KV * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * Sk * kv_row + (size_t)kvh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * Sk * kv_row + (size_t)kvh * HD;
+
+  // packed row R of this kv head -> its q row in (B, Sq, H, HD)
+  auto q_row_offset = [&](int R) {
+    const int i = R / G;
+    return ((size_t)(b * Sq + i) * H + kvh * G + (R - i * G)) * HD;
+  };
+
+  // Q tile (zero rows past M): cp.async group 0
+  for (int c = tid; c < TC_BM * nd8; c += TC_THREADS) {
+    const int r = c / nd8, d = (c - r * nd8) * 8;
+    const bool full = r0 + r < M;
+    cp_async16(smem_addr(sQ + r * TC_LDS + d),
+               full ? q + q_row_offset(r0 + r) + d : q, full);
   }
+  auto load_kv = [&](int t, int stage) {
+    __nv_bfloat16* dK = sK + stage * TC_BN * TC_LDS;
+    __nv_bfloat16* dV = sV + stage * TC_BN * TC_LDS;
+    for (int c = tid; c < TC_BN * nd8; c += TC_THREADS) {
+      const int j = c / nd8, d = (c - j * nd8) * 8;
+      const int key = t * TC_BN + j;
+      const bool full = key < k_hi;   // past it: zero-filled and masked
+      const size_t off = (size_t)(full ? key : 0) * kv_row + d;
+      cp_async16(smem_addr(dK + j * TC_LDS + d), kb + off, full);
+      cp_async16(smem_addr(dV + j * TC_LDS + d), vb + off, full);
+    }
+  };
+  cp_async_commit();
+  // the ring's first TC_STAGES - 1 tiles: one group each (maybe empty)
+#pragma unroll
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (t_begin + i < t_end) load_kv(t_begin + i, i);
+    cp_async_commit();
+  }
+
+  // my two rows: packed rows r0 + 16 warp + g4 (+ 8); a padding row takes
+  // the last real row's position (it is computed, never written)
+  const int wr = warp * 16;
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    qpos[h] = q_offset + min(r0 + wr + g4 + 8 * h, M - 1) / G;
+  const int warp_qmin = q_offset + min(r0 + wr, M - 1) / G;
+
+  unsigned qf[ndk][4];    // A fragments of my 16 rows of Q
+  float acc[nd8][4];       // O, fp32, 16 rows x HD
+#pragma unroll
+  for (int n = 0; n < nd8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};   // running max, log2-scaled units
+  float l_r[2] = {0.f, 0.f};           // this lane's part of the row sums
+
+  cp_async_wait<TC_STAGES - 1>();      // group 0: Q is in
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < ndk; ++kk)
+    ldmatrix_x4(qf[kk], smem_addr(sQ + (wr + (lane & 15)) * TC_LDS +
+                                  kk * 16 + (lane >> 4) * 8));
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) % TC_STAGES;
+    // TC_STAGES - 2 newer groups may still be in flight: tile t is in.
+    // The barrier also ends every warp's reads of the stage refilled next
+    // (the previous tile's, or Q's at the first tile)
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    if (t + TC_STAGES - 1 < t_end)
+      load_kv(t + TC_STAGES - 1, (stage + TC_STAGES - 1) % TC_STAGES);
+    cp_async_commit();
+    const __nv_bfloat16* cK = sK + stage * TC_BN * TC_LDS;
+    const __nv_bfloat16* cV = sV + stage * TC_BN * TC_LDS;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, 8 accumulator tiles
+    float s[TC_BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ndk; ++kk) {
+      // all fragments of the step first, then the products: the loads'
+      // latency overlaps instead of stalling each mma
+      unsigned bk[TC_BN / 16][4];   // keys np*16 + 0..7 (k lo, hi), 8..15
+#pragma unroll
+      for (int np = 0; np < TC_BN / 16; ++np)
+        ldmatrix_x4(bk[np], smem_addr(cK + (np * 16 + (lane & 7) +
+                                            ((lane >> 4) << 3)) * TC_LDS +
+                                      kk * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+      for (int np = 0; np < TC_BN / 16; ++np) {
+        mma_bf16(s[2 * np], qf[kk], bk[np][0], bk[np][1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[np][2], bk[np][3]);
+      }
+    }
+
+    // scale (log2 units) and mask: past Sk, and keys after the row's query
+    const int k0 = t * TC_BN;
+    const bool edge = k0 + TC_BN > Sk || (causal && k0 + TC_BN - 1 > warp_qmin);
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          if (key >= Sk || (causal && key > qpos[e >> 1])) x = NEG_INF;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax: row max over the quad, rescale, P in bf16 fragments
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m_r[h];
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // no valid key yet: subtract 0, so masked p = exp2(-1e30) = 0
+      mu[h] = mx == NEG_INF ? 0.f : mx;
+      alpha[h] = exp2f(m_r[h] - mu[h]);
+      m_r[h] = mx;
+    }
+    unsigned pf[TC_BN / 16][4];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j) {
+      const float p0 = exp2f(s[j][0] - mu[0]), p1 = exp2f(s[j][1] - mu[0]);
+      const float p2 = exp2f(s[j][2] - mu[1]), p3 = exp2f(s[j][3] - mu[1]);
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int n = 0; n < nd8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: V^T fragments by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) {
+      unsigned bv[ndk][4];   // dims dp*16 + 0..7 (keys lo, hi), 8..15
+#pragma unroll
+      for (int dp = 0; dp < ndk; ++dp)
+        ldmatrix_x4_trans(bv[dp], smem_addr(cV + (kk * 16 + (lane & 7) +
+                                                  ((lane >> 3) & 1) * 8) *
+                                                     TC_LDS +
+                                            dp * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int dp = 0; dp < ndk; ++dp) {
+        mma_bf16(acc[2 * dp], pf[kk], bv[dp][0], bv[dp][1]);
+        mma_bf16(acc[2 * dp + 1], pf[kk], bv[dp][2], bv[dp][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = r0 + wr + g4 + 8 * h;
+    if (R >= M) continue;
+    const int i = R / G, head = kvh * G + (R - i * G);
+    const size_t row = (size_t)(b * Sq + i) * H + head;
+    if (nsplit == 1) {
+      const float inv = 1.f / fmaxf(l_r[h], 1e-30f);
+      __nv_bfloat16* orow = o + row * HD;
+#pragma unroll
+      for (int n = 0; n < nd8; ++n) {
+        if (n >= nd8) break;
+        const __nv_bfloat162 x = __floats2bfloat162_rn(acc[n][2 * h] * inv,
+                                                       acc[n][2 * h + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) = x;
+      }
+    } else {
+      const size_t prow = (size_t)split * B * Sq * H + row;
+      if (t4 == 0) {
+        pm[prow] = m_r[h] == NEG_INF ? NEG_INF : m_r[h] * LN2;
+        pl[prow] = l_r[h];
+      }
+      float* arow = pacc + prow * HD;
+#pragma unroll
+      for (int n = 0; n < nd8; ++n) {
+        if (n >= nd8) break;
+        *reinterpret_cast<float2*>(arow + n * 8 + 2 * t4) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Merge the splits of each (b, query, head) row in split order: m = max
+// m_s, o = sum_s e^(m_s - m) acc_s / max(sum_s e^(m_s - m) l_s, 1e-30).
+// One thread per 4 output dims.
+__global__ void flash_fwd_merge_kernel(const float* __restrict__ pm,
+                                       const float* __restrict__ pl,
+                                       const float* __restrict__ pacc,
+                                       __nv_bfloat16* __restrict__ o,
+                                       int rows, int hd, int nsplit) {
+  const int hd4 = hd >> 2;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)rows * hd4) return;
+  const int row = (int)(idx / hd4), d = (int)(idx - (long long)row * hd4) * 4;
+  float mx = NEG_INF;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pm[(size_t)s * rows + row]);
+  float L = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < nsplit; ++s) {
+    const size_t pr = (size_t)s * rows + row;
+    const float w = expf(pm[pr] - mx);
+    L += w * pl[pr];
+    const float4 x = *reinterpret_cast<const float4*>(pacc + pr * hd + d);
+    a[0] += w * x.x;
+    a[1] += w * x.y;
+    a[2] += w * x.z;
+    a[3] += w * x.w;
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  __nv_bfloat16* out = o + (size_t)row * hd + d;
+  *reinterpret_cast<__nv_bfloat162*>(out) =
+      __floats2bfloat162_rn(a[0] * inv, a[1] * inv);
+  *reinterpret_cast<__nv_bfloat162*>(out + 2) =
+      __floats2bfloat162_rn(a[2] * inv, a[3] * inv);
+}
+
+// above 48 KB of shared memory only after opting in; once per process and
+// kernel, so that a launch inside a CUDA graph capture makes no non-stream
+// API call
+template <typename K>
+cudaError_t opt_in(K kernel, size_t smem, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) done = true;
+  return err;
+}
+bool opted_in_tc[TC_MAXD / 16 + 1] = {};   // by head dim / 16
+bool opted_in_fma[2] = {false, false};   // bf16, fp32
+
+template <typename T>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
+                       int B, int Sq, int Sk, int H, int KV, int hd,
+                       int causal, float scale, int q_offset,
+                       cudaStream_t stream) {
+  const size_t smem = fma_smem_bytes();
+  cudaError_t err = opt_in(flash_fwd_kernel<T>, smem,
+                           opted_in_fma[sizeof(T) == sizeof(float)]);
+  if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -217,21 +611,140 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      void* m, void* l, void* acc, int B, int Sq, int Sk,
+                      int H, int KV, int causal, float scale, int q_offset,
+                      int nsplit, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes();
+  cudaError_t err = opt_in(flash_fwd_tc_kernel<HD>, smem,
+                           opted_in_tc[HD / 16]);
+  if (err != cudaSuccess) return err;
+  const int M = Sq * (H / KV);
+  dim3 grid((M + TC_BM - 1) / TC_BM, KV, B * nsplit);
+  flash_fwd_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
+      Sq, Sk, H, KV, causal, scale * LOG2E, q_offset, nsplit);
+  return cudaGetLastError();
+}
+
+// the head dim as a template argument: every fragment loop unrolls and
+// the copy's index arithmetic is shifts
+cudaError_t launch_tc_hd(const void* q, const void* k, const void* v,
+                         void* o, void* m, void* l, void* acc, int B, int Sq,
+                         int Sk, int H, int KV, int hd, int causal,
+                         float scale, int q_offset, int nsplit,
+                         cudaStream_t stream) {
+#define REPRO_TC_CASE(D)                                                      \
+  case D:                                                                     \
+    return launch_tc<D>(q, k, v, o, m, l, acc, B, Sq, Sk, H, KV, causal,      \
+                        scale, q_offset, nsplit, stream);
+  switch (hd) {
+    REPRO_TC_CASE(16)
+    REPRO_TC_CASE(32)
+    REPRO_TC_CASE(48)
+    REPRO_TC_CASE(64)
+    REPRO_TC_CASE(80)
+    REPRO_TC_CASE(96)
+    REPRO_TC_CASE(112)
+    REPRO_TC_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_TC_CASE
+}
+
+template <typename K>
+cudaError_t attrs(K kernel, int threads, size_t smem, bool* opted, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess && opted != nullptr)
+    err = opt_in(kernel, smem, *opted);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)smem;
+  out[4] = per_sm;
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// tensor_cores = 0: v2 (fp32 or bf16, nsplit 1, o written).  tensor_cores
+// = 1: v3 (bf16, hd % 16 == 0); nsplit == 1 writes o, nsplit > 1 writes
+// the fp32 partials m, l (nsplit, B, Sq, H) and acc (nsplit, B, Sq, H, hd)
+// for flash_attention_merge.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Sk, int H,
-                                   int KV, int hd, int causal, float scale,
-                                   int q_offset, int is_bf16, void* stream) {
-  if (hd > MAX_HD || hd % 4 != 0 || H % KV != 0)
+                                   void* o, void* m, void* l, void* acc, int B,
+                                   int Sq, int Sk, int H, int KV, int hd,
+                                   int causal, float scale, int q_offset,
+                                   int is_bf16, int tensor_cores, int nsplit,
+                                   void* stream) {
+  if (hd > MAX_HD || hd % 4 != 0 || H % KV != 0 || nsplit < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (!is_bf16 || hd % 16 != 0 || hd > TC_MAXD || B * nsplit > 65535 ||
+        (nsplit > 1 && (m == nullptr || l == nullptr || acc == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_tc_hd(q, k, v, o, m, l, acc, B, Sq, Sk, H, KV, hd,
+                             causal, scale, q_offset, nsplit, s);
+  }
+  if (nsplit != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal,
-                                      scale, q_offset, s)
-              : launch<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale,
-                              q_offset, s);
+      is_bf16 ? launch_fma<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd,
+                                          causal, scale, q_offset, s)
+              : launch_fma<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal,
+                                  scale, q_offset, s);
   return (int)err;
+}
+
+// o (rows, hd) bf16 from the partials of nsplit splits; rows = B * Sq * H
+extern "C" int flash_attention_merge(const void* m, const void* l,
+                                     const void* acc, void* o, int rows,
+                                     int hd, int nsplit, void* stream) {
+  if (hd % 4 != 0 || nsplit < 1 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)rows * (hd / 4);
+  const int block = MERGE_THREADS;
+  flash_fwd_merge_kernel<<<(unsigned)((threads + block - 1) / block), block,
+                           0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(o), rows, hd,
+      nsplit);
+  return (int)cudaGetLastError();
+}
+
+// What the compiler and the occupancy calculator give each kernel:
+// out[0..4] = registers a thread, local (spill) bytes a thread, static
+// shared bytes, dynamic shared bytes a launch, CTAs an SM can hold.
+// which: 0 = v3 flash_fwd_tc_kernel<128>, 1 = v2 bf16, 2 = v2 fp32,
+// 3 = merge.
+extern "C" int flash_attention_attrs(int which, int* out) {
+  switch (which) {
+    case 0:
+      return (int)attrs(flash_fwd_tc_kernel<128>, TC_THREADS, tc_smem_bytes(),
+                        &opted_in_tc[128 / 16], out);
+    case 1:
+      return (int)attrs(flash_fwd_kernel<__nv_bfloat16>, THREADS,
+                        fma_smem_bytes(), &opted_in_fma[0], out);
+    case 2:
+      return (int)attrs(flash_fwd_kernel<float>, THREADS, fma_smem_bytes(),
+                        &opted_in_fma[1], out);
+    case 3:
+      return (int)attrs(flash_fwd_merge_kernel, MERGE_THREADS, 0, nullptr,
+                        out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -37,9 +37,11 @@ LL = ctypes.c_longlong
 # C signature of every entry point: (source stem, function) → argtypes
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_attention": {
-        # q, k, v, o, B, Sq, Sk, H, KV, hd, causal, scale, q_offset,
-        # is_bf16, stream
-        "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, P],
+        # q, k, v, o, m, l, acc (null unless split), B, Sq, Sk, H, KV, hd,
+        # causal, scale, q_offset, is_bf16, tensor_cores, nsplit, stream
+        "flash_attention_fwd": [P] * 7 + [I] * 7 + [F, I, I, I, I, P],
+        # m, l, acc, o, rows, hd, nsplit, stream
+        "flash_attention_merge": [P, P, P, P, I, I, I, P],
     },
     "flash_decode": {
         # q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit,

@@ -1,20 +1,31 @@
-"""K1: GQA flash attention forward — the hand-written Hopper kernel
-(``csrc/flash_attention.cu``) and its plain PyTorch twin.
+"""K1: GQA flash attention forward — the hand-written Hopper kernels
+(``csrc/flash_attention.cu``) and their plain PyTorch twins.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention``.  Beyond the
 TPU kernel it takes a ``q_offset`` (query row i sits at position
 q_offset + i and attends to keys ≤ that position — chunked prefill over a
 cache), ragged ``Sq``/``Sk`` and causal pruning of the kv loop.
 
-:func:`flash_attention` launches the kernel for CUDA tensors and raises on
-what the kernel does not take; it runs :func:`flash_attention_plain` only
-for tensors on the CPU.
+Two kernels compute it, chosen by :func:`uses_tensor_cores` from the dtype
+and the head dim alone: v3 (bf16, head dim a multiple of 16) on the tensor
+cores, with GQA row packing and, for short chunks, the key range split
+over CTAs (:func:`num_splits`) and merged by a second launch; v2 (fp32,
+and other bf16 head dims) with fp32 FMAs.  The split decomposition, in plain
+PyTorch: the per-split partials (:func:`split_partials_plain`) over the
+packed rows (:func:`packed_rows`, :func:`split_key_ranges`) and their
+fixed-order merge (:func:`merge_plain`).
+
+:func:`flash_attention` (and :func:`split_partials`, :func:`merge`, the
+two launches of a split) launches a kernel for CUDA tensors and raises on
+what the kernels do not take; each runs its plain twin only for tensors
+on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,7 +33,14 @@ from . import _build
 
 NEG_INF = -1e30
 KERNEL = _build.KERNELS["flash_attention_fwd"]
+MERGE = _build.KERNELS["flash_attention_merge"]
 MAX_HEAD_DIM = 128
+BLOCK_M = 64          # v3: packed (query, q head) rows a CTA
+BLOCK_N = 64          # v3: keys a shared-memory tile
+NUM_SMS = 132         # H100 SXM
+CTAS_PER_SM = 2       # v3's occupancy (registers: 200 a thread)
+MIN_TILES_PER_SPLIT = 3
+MAX_SPLITS = 16
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,6 +65,115 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
+
+# ----------------------------------------------- the v3 decomposition, plain
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """The route: v3 (tensor cores) for bf16 with a head dim that is a
+    multiple of the MMA depth 16; v2 (fp32 FMAs) for the rest."""
+    return dtype == torch.bfloat16 and head_dim % 16 == 0
+
+
+def num_splits(B: int, Sq: int, H: int, KV: int, Sk: int, *,
+               causal: bool = True, q_offset: int = 0) -> int:
+    """Key-range splits of v3, from shapes alone: as many as keep every
+    CTA (row tiles × kv heads × rows × splits) in one wave of
+    :data:`CTAS_PER_SM` CTAs on each SM, with at least
+    :data:`MIN_TILES_PER_SPLIT` kv tiles of the chunk's window a split (a
+    split costs a partials round trip and a share of the merge), and at
+    most :data:`MAX_SPLITS`."""
+    G = H // KV
+    ctas = B * KV * -(-Sq * G // BLOCK_M)
+    kv_len = min(Sk, q_offset + Sq) if causal else Sk
+    kv_tiles = -(-kv_len // BLOCK_N)
+    return max(1, min(MAX_SPLITS, kv_tiles // MIN_TILES_PER_SPLIT,
+                      CTAS_PER_SM * NUM_SMS // ctas))
+
+
+def packed_rows(Sq: int, G: int) -> torch.Tensor:
+    """(Sq·G, 2) int64: packed row R of a kv head's CTAs holds query
+    R // G and q head R % G of the group (query-major, so a 64-row tile
+    covers 64 / G consecutive queries and G need not divide 64)."""
+    R = torch.arange(Sq * G)
+    return torch.stack([R // G, R % G], dim=1)
+
+
+def split_key_ranges(Sq: int, G: int, Sk: int, nsplit: int, *,
+                     causal: bool = True,
+                     q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi), each (nsplit, Sq·G): the keys [lo, hi) that split s reads
+    for packed row R, as v3 cuts them.  Its tile of BLOCK_M rows reads keys
+    below k_hi (the tile's last query + 1 if causal, at most Sk) in n_t
+    tiles of BLOCK_N; split s takes tiles [s·per, (s+1)·per) of them, per =
+    ceil(n_t / nsplit).  A split may be empty (lo = hi = k_hi) or lie past
+    a row's causal window."""
+    M = Sq * G
+    first = torch.arange(0, M, BLOCK_M)
+    q_last = (torch.clamp(first + BLOCK_M, max=M) - 1) // G
+    k_hi = (torch.clamp(q_offset + q_last + 1, max=Sk) if causal
+            else torch.full_like(q_last, Sk))
+    n_t = -(-k_hi // BLOCK_N)
+    per = -(-n_t // nsplit)
+    s = torch.arange(nsplit)[:, None]
+    lo = torch.minimum(torch.minimum(s * per, n_t) * BLOCK_N, k_hi)
+    hi = torch.minimum(torch.minimum((s + 1) * per, n_t) * BLOCK_N, k_hi)
+    tile = torch.arange(M) // BLOCK_M
+    return lo[:, tile], hi[:, tile]
+
+
+def split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         nsplit: int, *, causal: bool = True,
+                         scale: Optional[float] = None, q_offset: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each split's fp32 partials over its keys: m (nsplit,B,Sq,H) the max
+    scaled logit, l the sum of exp(logit − m), acc (nsplit,B,Sq,H,hd) the
+    exp-weighted sum of V.  A row with no valid key in a split gets
+    m = -1e30, l = 0, acc = 0 (weight 0 in the merge)."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = (q.float() * scale).reshape(B, Sq, KV, G, hd)
+    logits = torch.einsum("bqkgd,bskd->bqkgs", qf, k.float()
+                          ).reshape(B, Sq, H, Sk)
+    lo, hi = split_key_ranges(Sq, G, Sk, nsplit, causal=causal,
+                              q_offset=q_offset)
+    # packed row R = i·G + g is the same for every kv head: (nsplit, Sq, H)
+    lo = lo.reshape(nsplit, Sq, 1, G).expand(-1, -1, KV, -1
+                                             ).reshape(nsplit, Sq, H)
+    hi = hi.reshape(nsplit, Sq, 1, G).expand(-1, -1, KV, -1
+                                             ).reshape(nsplit, Sq, H)
+    kpos = torch.arange(Sk)
+    valid = (kpos >= lo[..., None]) & (kpos < hi[..., None])
+    if causal:
+        qpos = q_offset + torch.arange(Sq)
+        valid = valid & (kpos <= qpos[:, None, None])
+    valid = valid.to(q.device)[:, None]                # (n, 1, Sq, H, Sk)
+    x = torch.where(valid, logits[None], NEG_INF)
+    seen = valid.any(-1)
+    m = torch.where(seen, x.amax(-1), NEG_INF)
+    p = torch.exp(x - torch.where(seen, m, 0.0)[..., None])
+    acc = torch.einsum("nbqhs,bshd->nbqhd", p,
+                       v.float().repeat_interleave(G, dim=2))
+    return m, p.sum(-1), acc
+
+
+def merge_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The merge of the splits: o = Σ_s e^(m_s − M) acc_s /
+    max(Σ_s e^(m_s − M) l_s, 1e-30), M = max_s m_s, summed in split
+    order."""
+    M = m.amax(0)
+    L = torch.zeros_like(l[0])
+    o = torch.zeros_like(acc[0])
+    for s in range(m.shape[0]):
+        w = torch.exp(m[s] - M)
+        L = L + w * l[s]
+        o = o + w[..., None] * acc[s]
+    return (o / torch.clamp(L, min=1e-30)[..., None]).to(dtype)
+
+
+# ------------------------------------------------------------- the kernels
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int) -> None:
@@ -76,12 +203,74 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"aligned (vector loads)")
 
 
+def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   nsplit: int, *, causal: bool = True,
+                   scale: Optional[float] = None, q_offset: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The v3 launch into fp32 partials m, l (nsplit,B,Sq,H) and acc
+    (…, hd) of :func:`split_partials_plain`; P is rounded to bf16 before
+    the P·V product, so acc differs from the twin's by that rounding."""
+    q_offset = int(q_offset)
+    if q.device.type == "cpu":
+        return split_partials_plain(q, k, v, nsplit, causal=causal,
+                                    scale=scale, q_offset=q_offset)
+    _check(q, k, v, q_offset)
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if not uses_tensor_cores(q.dtype, hd) or nsplit < 2:
+        raise ValueError(f"flash_attention: split partials need bf16, "
+                         f"head_dim % 16 == 0 and >= 2 splits, got "
+                         f"{q.dtype}, {hd}, {nsplit}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    m = torch.empty((nsplit, B, Sq, H), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((nsplit, B, Sq, H, hd), dtype=torch.float32,
+                      device=q.device)
+    KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, m.data_ptr(),
+           l.data_ptr(), acc.data_ptr(), B, Sq, Sk, H, KV, hd, int(causal),
+           float(scale), q_offset, 1, 1, nsplit,
+           torch.cuda.current_stream(q.device).cuda_stream)
+    return m, l, acc
+
+
+def merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+          ) -> torch.Tensor:
+    """The merge launch: (nsplit,B,Sq,H) fp32 m, l and (…, hd) acc → bf16
+    (B,Sq,H,hd), splits summed in order (bit-identical across runs)."""
+    if m.device.type == "cpu":
+        return merge_plain(m, l, acc, torch.bfloat16)
+    if not (m.is_cuda and l.device == m.device and acc.device == m.device):
+        raise ValueError("flash_attention merge: partials must be on one "
+                         "CUDA device")
+    if m.dtype != torch.float32 or l.dtype != torch.float32 or \
+            acc.dtype != torch.float32:
+        raise TypeError("flash_attention merge: partials must be fp32")
+    nsplit, B, Sq, H = m.shape
+    hd = acc.shape[-1]
+    if l.shape != m.shape or acc.shape != (nsplit, B, Sq, H, hd) or \
+            hd % 4 or not (m.is_contiguous() and l.is_contiguous()
+                           and acc.is_contiguous()):
+        raise ValueError(f"flash_attention merge: bad partials m"
+                         f"{tuple(m.shape)} l{tuple(l.shape)} "
+                         f"acc{tuple(acc.shape)}")
+    out = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16, device=m.device)
+    MERGE(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+          B * Sq * H, hd, nsplit,
+          torch.cuda.current_stream(m.device).cuda_stream)
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    q_offset=0) -> torch.Tensor:
+                    q_offset=0, tensor_cores: Optional[bool] = None,
+                    splits: Optional[int] = None) -> torch.Tensor:
     """q: (B,Sq,H,hd)  k,v: (B,Sk,KV,hd) → (B,Sq,H,hd).
 
-    ``q_offset`` may be an int or a 0-d tensor (read on the host)."""
+    ``q_offset`` may be an int or a 0-d tensor (read on the host).
+    ``tensor_cores`` and ``splits`` override :func:`uses_tensor_cores` and
+    :func:`num_splits` (the card check compares v2 with v3 and forces
+    split counts); v2 takes no split, and a forced v3 raises on what it
+    does not take."""
     q_offset = int(q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -89,13 +278,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, q_offset)
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
+    tc = uses_tensor_cores(q.dtype, hd) if tensor_cores is None \
+        else tensor_cores
+    if tc and not uses_tensor_cores(q.dtype, hd):
+        raise ValueError(f"flash_attention: the tensor-core kernel takes "
+                         f"bf16 with head_dim % 16 == 0, got {q.dtype}, "
+                         f"{hd}")
+    nsplit = 1 if not tc else splits if splits is not None else num_splits(
+        B, Sq, H, KV, Sk, causal=causal, q_offset=q_offset)
+    if nsplit < 1 or (nsplit > 1 and not tc):
+        raise ValueError(f"flash_attention: {nsplit} splits need the "
+                         f"tensor-core kernel and >= 1")
+    if nsplit > 1:
+        return merge(*split_partials(q, k, v, nsplit, causal=causal,
+                                     scale=scale, q_offset=q_offset))
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           B, Sq, Sk, H, KV, hd, int(causal), float(scale), q_offset,
-           int(q.dtype == torch.bfloat16),
+           None, None, None, B, Sq, Sk, H, KV, hd, int(causal),
+           float(scale), q_offset, int(q.dtype == torch.bfloat16), int(tc), 1,
            torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 
-__all__ = ["flash_attention", "flash_attention_plain", "KERNEL"]
+def kernel_attributes() -> Dict[str, Dict[str, int]]:
+    """Registers, spills, shared memory and CTAs an SM of K1's kernels, as
+    the compiled library and the occupancy calculator report them."""
+    lib = ctypes.CDLL(str(_build.build("flash_attention")))
+    lib.flash_attention_attrs.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_attrs.restype = ctypes.c_int
+    out = {}
+    for which, name in enumerate(("v3 flash_fwd_tc_kernel<128>",
+                                  "v2 flash_fwd_kernel<bf16>",
+                                  "v2 flash_fwd_kernel<float>",
+                                  "flash_fwd_merge_kernel")):
+        vals = (ctypes.c_int * 5)()
+        err = lib.flash_attention_attrs(which, vals)
+        if err:
+            raise RuntimeError(f"flash_attention_attrs({which}): cudaError "
+                               f"{err}")
+        out[name] = dict(zip(("registers", "spill_bytes", "static_smem",
+                              "dynamic_smem", "ctas_per_sm"), vals))
+    return out
+
+
+__all__ = ["flash_attention", "flash_attention_plain", "uses_tensor_cores",
+           "num_splits", "packed_rows", "split_key_ranges",
+           "split_partials_plain", "merge_plain", "split_partials", "merge",
+           "kernel_attributes", "KERNEL", "MERGE"]

@@ -212,3 +212,186 @@ def test_reference_oracles_match_jax(causal):
     lens = _lengths(2, 40)
     _close(tref.decode_attention_reference(*_t(q[:, 0], k, v, lens)),
            _jit(jref.decode_attention_reference, *_j(q[:, 0], k, v, lens)))
+
+
+# --------------------------------------------------------------------------
+# K1 v3 on the card splits each 64-row tile of GQA-packed (query, q head)
+# rows over key ranges and merges the fp32 partials in split order.  Its
+# plain decomposition (``split_partials_plain`` + ``merge_plain``) is held
+# here against the fp32 twin and the Pallas kernel in interpret mode, on
+# the same numpy inputs, fp32, atol = rtol = 1e-5 (summation order only).
+
+SPLIT_KV = 2
+SPLIT_SK = 181            # ragged: not a multiple of the 64-key tile
+
+
+@functools.lru_cache(maxsize=None)
+def _causal_square(G):
+    """SPLIT_SK queries over SPLIT_SK keys, causal, through the Pallas
+    kernel (interpret mode, one block).  A chunk of c queries at offset P
+    is rows P..P+c-1 of it: the reference kernel has no q_offset."""
+    r = np.random.RandomState(40 + G)
+    H = G * SPLIT_KV
+    q = r.randn(1, SPLIT_SK, H, hd).astype(np.float32)
+    k = r.randn(1, SPLIT_SK, SPLIT_KV, hd).astype(np.float32)
+    v = r.randn(1, SPLIT_SK, SPLIT_KV, hd).astype(np.float32)
+    ref = _jit(pallas_flash, *_j(q, k, v), causal=True, block_q=SPLIT_SK,
+               block_k=SPLIT_SK, interpret=True)
+    return q, k, v, np.asarray(ref)
+
+
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("c", [1, 17, 32, 64])
+@pytest.mark.parametrize("where", ["start", "96", "end"])
+def test_split_decomposition_matches_twin_and_pallas(G, c, where):
+    """Every split count, the rule's among them (empty splits past the
+    tiles' windows included), gives the twin's and the Pallas kernel's
+    output; every (row, split) without a valid key is m = -1e30, l = 0,
+    acc = 0."""
+    q, k, v, ref = _causal_square(G)
+    off = {"start": 0, "96": 96, "end": SPLIT_SK - c}[where]
+    qc = q[:, off:off + c]
+    plain = tfa.flash_attention_plain(*_t(qc, k, v), causal=True,
+                                      q_offset=off)
+    np.testing.assert_allclose(plain.numpy(), ref[:, off:off + c], **TOL)
+    rule = tfa.num_splits(1, c, G * SPLIT_KV, SPLIT_KV, SPLIT_SK,
+                          q_offset=off)
+    for nsplit in sorted({rule, 1, 2, 3, 5}):
+        m, l, acc = tfa.split_partials_plain(*_t(qc, k, v), nsplit,
+                                             causal=True, q_offset=off)
+        out = tfa.merge_plain(m, l, acc, torch.float32)
+        np.testing.assert_allclose(out.numpy(), plain.numpy(), **TOL)
+        np.testing.assert_allclose(out.numpy(), ref[:, off:off + c], **TOL)
+        lo, hi = tfa.split_key_ranges(c, G, SPLIT_SK, nsplit, q_offset=off)
+        qpos = off + tfa.packed_rows(c, G)[:, 0]
+        empty = torch.minimum(hi, qpos + 1) <= lo          # (nsplit, c·G)
+        empty = empty.reshape(nsplit, 1, c, 1, G).expand(
+            -1, 1, -1, SPLIT_KV, -1).reshape(nsplit, 1, c, G * SPLIT_KV)
+        assert (m[empty] == tfa.NEG_INF).all()
+        assert (l[empty] == 0).all() and (acc[empty] == 0).all()
+        assert (l[~empty] > 0).all()
+
+
+def test_split_wholly_past_the_causal_window():
+    """G = 1, 64 queries at 96: the tile's keys stop at 160, 3 kv tiles;
+    split 2 (keys 128..159) lies past the window of the rows at 96..127,
+    which get weight 0 from it, and the merge is still the twin's."""
+    q, k, v, ref = _causal_square(1)
+    qc = q[:, 96:160]
+    lo, hi = tfa.split_key_ranges(64, 1, SPLIT_SK, 3, q_offset=96)
+    assert lo[:, 0].tolist() == [0, 64, 128] and hi[:, 0].tolist() == \
+        [64, 128, 160]
+    m, l, acc = tfa.split_partials_plain(*_t(qc, k, v), 3, causal=True,
+                                         q_offset=96)
+    assert (m[2, :, :32] == tfa.NEG_INF).all()
+    assert (l[2, :, :32] == 0).all() and (acc[2, :, :32] == 0).all()
+    assert (m[2, :, 32:] > tfa.NEG_INF).all()
+    out = tfa.merge_plain(m, l, acc, torch.float32)
+    np.testing.assert_allclose(out.numpy(), ref[:, 96:160], **TOL)
+
+
+@pytest.mark.parametrize("G", [1, 4, 5])
+def test_merge_plain_matches_jax_combine(G):
+    """The fixed-order merge == the JAX package's pairwise LSE combine
+    (``combine_partials``) folded over the same partials."""
+    q, k, v, _ = _causal_square(G)
+    m, l, acc = tfa.split_partials_plain(*_t(q[:, 96:128], k, v), 3,
+                                         causal=True, q_offset=96)
+    mF, lF, aF = _j(m[0].numpy(), l[0].numpy(), acc[0].numpy())
+    for s in range(1, 3):
+        mF, lF, aF = combine_partials((mF, lF, aF), tuple(_j(
+            m[s].numpy(), l[s].numpy(), acc[s].numpy())))
+    _close(tfa.merge_plain(m, l, acc, torch.float32),
+           aF / jnp.maximum(lF, 1e-30)[..., None])
+
+
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("Sq", [1, 17, 64, 77, 256])
+def test_packed_rows_cover_every_pair_once(G, Sq):
+    """Packed rows map onto (query, q head of the group) one to one,
+    query-major: a 64-row tile holds consecutive queries, the last tile is
+    ragged when G does not divide 64 or Sq·G is not a multiple of 64."""
+    rows = tfa.packed_rows(Sq, G)
+    assert rows.shape == (Sq * G, 2)
+    pairs = {(int(i), int(g)) for i, g in rows}
+    assert pairs == {(i, g) for i in range(Sq) for g in range(G)}
+    assert (rows[:, 0] == torch.arange(Sq * G) // G).all()
+    for t0 in range(0, Sq * G, tfa.BLOCK_M):
+        qs = rows[t0:t0 + tfa.BLOCK_M, 0]
+        assert (qs.diff() >= 0).all() and (qs.diff() <= 1).all()
+
+
+@pytest.mark.parametrize("G,c,off,Sk", [
+    (4, 256, 736, 2048), (5, 256, 736, 2048), (4, 32, 1792, 2048),
+    (1, 17, 96, 181), (5, 64, 0, 1100), (4, 1, 2047, 2048)])
+@pytest.mark.parametrize("nsplit", [1, 2, 9, 16])
+def test_split_key_ranges_tile_each_window(G, c, off, Sk, nsplit):
+    """For every packed row, the splits' key ranges are disjoint, in split
+    order, and cover exactly the keys below its tile's bound (the tile's
+    last query + 1, at most Sk), which holds the row's own window."""
+    lo, hi = tfa.split_key_ranges(c, G, Sk, nsplit, q_offset=off)
+    assert lo.shape == hi.shape == (nsplit, c * G)
+    assert (lo[0] == 0).all() and (lo <= hi).all()
+    assert (lo[1:] == hi[:-1]).all()
+    qpos = off + tfa.packed_rows(c, G)[:, 0]
+    tile_last = torch.tensor([
+        int(qpos[min(r // tfa.BLOCK_M * tfa.BLOCK_M + tfa.BLOCK_M,
+                     c * G) - 1]) for r in range(c * G)])
+    assert (hi[-1] == torch.clamp(tile_last + 1, max=Sk)).all()
+    assert (hi[-1] >= torch.clamp(qpos + 1, max=Sk)).all()
+
+
+def test_split_rule_at_the_main_paths_shapes():
+    """``num_splits`` from shapes alone: the engines' 256-token chunks of
+    llama3-8b (32/8 heads) split in 2 (128 CTAs, two fit an SM), of
+    llama4-scout (40/8) not at all (160 CTAs); a 32-token or 1-token chunk
+    late in a 2048 cache splits 9 ways (29 kv tiles, 3 a split); a short
+    window is never split."""
+    cases = {(1, 256, 32, 8, 2048, 736): 2, (1, 256, 32, 8, 2048, 1792): 2,
+             (1, 256, 40, 8, 2048, 736): 1, (1, 32, 32, 8, 2048, 1792): 9,
+             (1, 1, 32, 8, 2048, 1792): 9, (1, 128, 32, 8, 2048, 1024): 4,
+             (1, 64, 40, 8, 2048, 736): 4, (1, 256, 32, 8, 2048, 0): 1,
+             (1, 64, 32, 8, 2048, 224): 1, (1, 32, 32, 8, 2048, 0): 1,
+             (4, 2048, 32, 8, 2048, 0): 1, (1, 1, 8, 8, 2048, 2047): 10}
+    for (B, Sq, H, KV, Sk, off), want in cases.items():
+        got = tfa.num_splits(B, Sq, H, KV, Sk, q_offset=off)
+        assert got == want, ((B, Sq, H, KV, Sk, off), got, want)
+        ctas = B * KV * -(-Sq * (H // KV) // tfa.BLOCK_M)
+        assert 1 <= got <= tfa.MAX_SPLITS
+        assert got == 1 or ctas * got <= tfa.CTAS_PER_SM * tfa.NUM_SMS
+    assert tfa.num_splits(1, 32, 32, 8, 2048, causal=False) == 10
+
+
+def test_route_by_dtype_and_head_dim():
+    """v3 takes bf16 with head dims that are multiples of 16; fp32 (exact
+    goldens) and other bf16 head dims stay on v2."""
+    assert tfa.uses_tensor_cores(torch.bfloat16, 128)
+    assert tfa.uses_tensor_cores(torch.bfloat16, 48)
+    assert not tfa.uses_tensor_cores(torch.bfloat16, 72)
+    assert not tfa.uses_tensor_cores(torch.float32, 128)
+
+
+def test_merge_and_forced_routes_raise_off_the_card():
+    """The merge launch and the forced routes refuse what is not on a CUDA
+    device; no launch counts."""
+    _build.reset_launches()
+    m = torch.zeros((2, 1, 4, H), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.merge(m, m, torch.zeros((2, 1, 4, H, hd), device="meta"))
+    q, k, v = (t.to("meta") for t in _t(*_qkv(1, 8, 8)))
+    for kw in ({"tensor_cores": True}, {"tensor_cores": False},
+               {"splits": 4}):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention(q, k, v, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.split_partials(q, k, v, 2)
+    # on the CPU the two launches of a split are their plain twins
+    q, k, v = _t(*_qkv(1, 8, 70, seed=9))
+    parts = tfa.split_partials(q, k, v, 2, q_offset=62)
+    for got, want in zip(parts, tfa.split_partials_plain(q, k, v, 2,
+                                                         q_offset=62)):
+        assert torch.equal(got, want)
+    out = tfa.merge(*parts)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, tfa.merge_plain(*parts, torch.bfloat16))
+    assert set(_build.launches().values()) == {0}
