@@ -15,7 +15,13 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    shapes, bit for bit (K5 ``tile_scan_add``, K6a ``radix_mt_local``, K6b
    ``radix_mt_scatter``, K7a ``radix_tile_sort``, K7b
    ``radix_tile_sort_packed``, K8 ``merge_level``), each timed beside its
-   twin and a per-row ``torch.sort`` / ``torch.cumsum``; 2b. the same for
+   twin and a per-row ``torch.sort`` / ``torch.cumsum``; K5 (one cluster
+   launch) also at seven histogram shapes under its rule and forced
+   clusters, and as a 1-D scan both ways (misaligned too), timed over
+   cluster sizes; K7a (8-bit digits in registers) at tiles 1 to 8192 over
+   every bit range and digit width and on equal, sorted and reverse-sorted
+   words; both bit-identical across two launches, their registers, spills,
+   shared memory and CTAs an SM printed; 2b. the same for
    the MoE dispatch K3 ``moe_dispatch`` (a decode step's 8 rows, a
    256-token chunk, ``Model.prefill``'s 8192 rows at d_model 5120; ragged,
    top-k 2, 256 experts; 300 experts raise) and the comparison sort's K9a
@@ -1395,17 +1401,32 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             local0, hist0, base0 = local, hist, base
     check(torch.equal(x.to(torch.int64), torch.argsort(keys, stable=True)),
           "three K6a/K5/K6b passes are not the stable argsort")
-    # K5 on the largest histogram of the path (case (c): 16384 tiles x 16)
-    # and as a plain 1-D scan, both ways
-    hist_c = ints(16384 * 16, 10).reshape(16384, 16)
-    same("tile_scan_add", ts.histogram_offsets(hist_c),
-         ts.histogram_offsets_plain(hist_c), what="histogram_offsets",
-         nt=16384, radix=16)
-    flat = ints(1_000_003, 8)
-    for inclusive in (False, True):
-        same("tile_scan_add", ts.tile_scan(flat, inclusive=inclusive),
-             ts.scan_plain(flat, inclusive=inclusive), what="tile_scan",
-             n=flat.numel(), inclusive=inclusive)
+    # K5 (v2, one cluster) beyond the path's histograms: ragged row blocks,
+    # blocks empty under a forced cluster, radix 4 to 256, and the 1-D scan
+    # both ways (misaligned too: scalar loads); two launches bit-identical
+    for nt_, r_ in ((1, 16), (7, 16), (192, 4), (192, 16), (1024, 16),
+                    (16384, 16), (128, 256)):
+        h = ints(nt_ * r_, 10).reshape(nt_, r_)
+        want = ts.histogram_offsets_plain(h)
+        got = ts.histogram_offsets(h)
+        same("tile_scan_add", got, want, what="histogram_offsets", nt=nt_,
+             radix=r_)
+        for cl in (1, 3, ts.MAX_CLUSTER):
+            same("tile_scan_add", ts._scan_add(h, nt_, r_, False, cluster=cl),
+                 want, what="histogram_offsets", nt=nt_, radix=r_,
+                 cluster=cl)
+        check(torch.equal(got, ts.histogram_offsets(h)), f"K5 ({nt_} x "
+              f"{r_}): two launches on the same input differ")
+    hist_c = ints(16384 * 16, 10).reshape(16384, 16)   # case (c)'s shape
+    for n1 in (1, 4097, 1_000_003):
+        flat = ints(n1, 8)
+        for inclusive in (False, True):
+            same("tile_scan_add", ts.tile_scan(flat, inclusive=inclusive),
+                 ts.scan_plain(flat, inclusive=inclusive), what="tile_scan",
+                 n=n1, inclusive=inclusive)
+        odd = ints(n1 + 1, 8)[1:]                      # 4 bytes off 16
+        same("tile_scan_add", ts.tile_scan(odd), ts.scan_plain(odd),
+             what="tile_scan misaligned", n=n1)
     # K7b: case (d)'s tile phase, and case (g)'s single tile with unpack
     kw = dict(n=n, tile=tile, num_key_bits=12, idx_bits=ib)
     packed = rs.radix_tile_sort_packed(keys, **kw)
@@ -1419,11 +1440,35 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         unpack=True), rs.radix_tile_sort_packed_plain(
         keys_g, n=1000, tile=tile, idx_bits=10, sort_bits=12, unpack=True),
         n=1000, tile=tile, unpack=True)
-    # K7a: case (f)'s tile phase, random u32 with ties (every word twice)
+    # K7a: case (f)'s tile phase, random u32 with ties (every word twice),
+    # then every tile size, bit range and digit width (v2 ranks 8 bits a
+    # pass whatever digit_bits says), adversarial inputs, and two launches
+    # bit-identical
     w = words(n)
     tiles = rs.radix_tile_sort(w, tile=tile)
     same("radix_tile_sort", tiles, rs.radix_tile_sort_plain(
         w, tile=tile, total_bits=32, key_shift=0), n=n, tile=tile)
+    check(torch.equal(tiles, rs.radix_tile_sort(w, tile=tile)),
+          "K7a: two launches on the same input differ")
+    for t7 in (1, 4, 64, 256, 1024, 8192):
+        wt7 = w[:max(64 * t7, 1 << 16)]
+        for tb in (0, 7, 12, 32):
+            for ks in (0, 4, 20):
+                want = rs.radix_tile_sort_plain(wt7, tile=t7, total_bits=tb,
+                                                key_shift=ks)
+                for db in (2, 4, 8):
+                    same("radix_tile_sort", rs.radix_tile_sort(
+                        wt7, tile=t7, total_bits=tb, key_shift=ks,
+                        digit_bits=db), want, tile=t7, total_bits=tb,
+                        key_shift=ks, digit_bits=db)
+    srt = torch.sort(_flip(torch, w)).values
+    srt = _flip(torch, srt).view(torch.uint32)
+    for kind, x7 in (("all-equal", torch.full_like(w, 0x9e3779b9)),
+                     ("sorted", srt), ("reverse-sorted", srt.flip(0))):
+        for t7 in (1024, 8192):
+            same("radix_tile_sort", rs.radix_tile_sort(x7, tile=t7),
+                 rs.radix_tile_sort_plain(x7, tile=t7, total_bits=32,
+                                          key_shift=0), tile=t7, kind=kind)
     # K8: the first level after each tile phase, and a last level (two
     # sorted halves of 2^19) with the fused unpack
     for src, what in ((packed, "argsort words"), (tiles, "u32 with ties")):
@@ -1509,7 +1554,8 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             lambda: rs.radix_tile_sort_plain(w, tile=tile, total_bits=32,
                                              key_shift=0),
             lambda: torch.sort(fw, dim=1, stable=True),
-            4.0 * 2 * n, dict(n=n, tile=tile, total_bits=32, passes=8),
+            4.0 * 2 * n, dict(n=n, tile=tile, total_bits=32, passes=4,
+                              digit_bits=8),
             "per-tile stable sort of the words (top bit flipped, int32)"),
         "merge_level": row(
             lambda: ms._merge_level(packed, run=tile, tile=tile),
@@ -1524,10 +1570,51 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                                             unpack_mask=mask),
                None, 4.0 * 2 * n, dict(n=n, run=n // 2, unpack=True))
     report["timings"]["merge_level last level run=2^19"] = last
+    hist_c_dm = hist_c.t().contiguous().reshape(-1)
     hc = row(lambda: ts.histogram_offsets(hist_c),
-             lambda: ts.histogram_offsets_plain(hist_c), None,
-             4.0 * 2 * hist_c.numel(), dict(nt=16384, radix=16))
+             lambda: ts.histogram_offsets_plain(hist_c),
+             lambda: torch.cumsum(hist_c_dm, 0),
+             4.0 * 2 * hist_c.numel(), dict(nt=16384, radix=16),
+             "cumsum of the histogram already laid out digit-major")
     report["timings"]["tile_scan_add histogram 16384 x 16"] = hc
+    flat_m = ints(1_000_003, 8)                   # the 1-D scan, off the path
+    h1 = row(lambda: ts.tile_scan(flat_m), lambda: ts.scan_plain(flat_m),
+             lambda: torch.cumsum(flat_m, 0), 4.0 * 2 * flat_m.numel(),
+             dict(n=flat_m.numel(), what="tile_scan"), "cumsum")
+    report["timings"]["tile_scan_add 1-D n=1000003"] = h1
+    say(f"tile_scan (1-D, n=1000003): kernel {h1['ms']:.4f} ms, plain "
+        f"{h1['plain_ms']:.4f} ms, library {h1['library_ms']:.4f} ms, bound "
+        f"{h1['bound_ms']:.4f} ms [{card}]")
+    # K5 over forced cluster sizes at both histograms (the rule's pick is
+    # the rows above), and the kernels' attributes
+    sweep = {}
+    for hh in (hist0, hist_c):
+        nt_ = hh.shape[0]
+        sweep[nt_] = {cl: device_ms(lambda: ts._scan_add(
+            hh, nt_, 16, False, cluster=cl), cold=True)
+            for cl in (1, 2, 4, 8, 16)}
+        say(f"tile_scan_add ({nt_} x 16) by cluster size: " + ", ".join(
+            f"{cl} CTAs {t:.4f} ms" for cl, t in sweep[nt_].items())
+            + f" [{card}]")
+    report["timings"]["tile_scan_add cluster sweep"] = sweep
+    attrs = {"tile_scan_add": {f"radix {r_}, {words} words":
+                               ts.kernel_attributes(words, r_)
+                               for r_, words in ((16, R), (16, hist_c.numel()),
+                                                 (256, hist8.numel()),
+                                                 (1, 1_000_003))},
+        "radix_tile_sort": {f"tile {t7}": rs.kernel_attributes(t7)
+                            for t7 in (1, 256, 1024, 8192)}}
+    for kname, per in attrs.items():
+        for what, a in per.items():
+            extra = (f", largest cluster {a['max_cluster']} "
+                     f"({a['active_clusters']} at once), the rule's "
+                     f"{a['rule_cluster']} for this call"
+                     if "max_cluster" in a else f", {a['threads']} threads")
+            say(f"  {kname} {what}: {a['registers']} registers, "
+                f"{a['spill_bytes']} spill bytes, "
+                f"{a['static_smem'] + a['dynamic_smem']} bytes of shared "
+                f"memory, {a['ctas_per_sm']} CTAs an SM{extra}")
+    report["sort_kernel_attributes"] = attrs
     for name, r in rows.items():
         report["timings"][f"{name} {r['shape']}"] = r
         lib = "none" if r["library_ms"] is None else \
@@ -1538,8 +1625,8 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     say(f"merge_level last level (run 2^19, unpack): kernel "
         f"{last['ms']:.4f} ms, plain {last['plain_ms']:.4f} ms, bound "
         f"{last['bound_ms']:.4f} ms; histogram_offsets at 16384 x 16: kernel "
-        f"{hc['ms']:.4f} ms, plain {hc['plain_ms']:.4f} ms, bound "
-        f"{hc['bound_ms']:.4f} ms [{card}]")
+        f"{hc['ms']:.4f} ms, plain {hc['plain_ms']:.4f} ms, library "
+        f"{hc['library_ms']:.4f} ms, bound {hc['bound_ms']:.4f} ms [{card}]")
     say("sort kernels equal their twins bit for bit: " + ", ".join(
         f"{k} {v}" for k, v in errs.items()) + " (max abs err, tol 0)")
     return rows, errs
@@ -1759,14 +1846,19 @@ def sort_path(np, torch, dev, seed, card, report):
              ("tile_sort_kernel", "radix_tile_sort"),
              ("mt_local_kernel", "radix_mt_local"),
              ("mt_scatter_kernel", "radix_mt_scatter"),
-             ("scan_kernel", "tile_scan_add"),
+             ("cluster_scan_kernel", "tile_scan_add"),
              ("merge_level_kernel", "merge_level"))
     breakdown = {}
-    for res, (keys, bits, strategy, _) in zip(results[:5], inputs[:5]):
-        def call():
-            if strategy is None:
-                return ops.stable_argsort(keys, num_key_bits=bits)
-            return ms.argsort(keys, num_key_bits=bits, strategy=strategy)
+
+    def argsort_call(keys, bits, strategy):
+        if strategy is None:
+            return lambda: ops.stable_argsort(keys, num_key_bits=bits)
+        return lambda: ms.argsort(keys, num_key_bits=bits, strategy=strategy)
+
+    profiled = [(res, argsort_call(*inp[:3]))
+                for res, inp in zip(results[:5], inputs[:5])]
+    profiled.append((results[-2], lambda: ms.sort_u32(w)))   # case (f)
+    for res, call in profiled:
         call()
         torch.cuda.synchronize()
         t0 = time.perf_counter()

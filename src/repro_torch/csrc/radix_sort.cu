@@ -1,6 +1,6 @@
 // K6a, K6b, K7a and K7b: the stable radix sort's kernels for Hopper
-// (sm_90a), over one shared device routine, a stable in-tile rank by one
-// digit.
+// (sm_90a).  K6a and K7b share one device routine, a stable in-tile rank by
+// one digit (rank_pass, radix_rank.cuh); K7a has its own.
 //
 // Replaces, in repro/kernels/radix_sort.py:
 //   K7a radix_tile_sort        (body _radix_sort_kernel): in-tile stable LSD
@@ -18,28 +18,50 @@
 // from device memory and writes it once (8 bytes a word, plus R counts a
 // tile), a few hundred integer operations per word at most, far below the
 // card's integer rate.  At 2^20 words the byte bound is 2.5 us.  The
-// digit passes of K7 run inside one CTA on the tile held in shared memory,
-// so their cost is shared-memory traffic and synchronisation, not device
-// bytes; the design keeps every pass there.
+// digit passes of K7 run inside one CTA on the tile held on chip, so in
+// practice their cost is the latency of the passes' chain of warp sweeps
+// and CTA barriers, not device bytes; the designs keep every pass there.
 //
 // Design.  The TPU kernels rank by a masked cumsum over a (G, m, R) one-hot
 // and place by a one-hot matmul, because the TPU has no 1-D gathers or
-// scatters.  The card has both in shared memory: one CTA per tile keeps the
-// tile (<= 2^13 words) in two shared buffers and places each word by a
-// scatter to its rank, ping-ponging across the digit passes.
+// scatters.  The card has both in shared memory: one CTA per tile places
+// each word by a scatter to its rank.
 //
 // Stability is the hazard.  A word's rank must be exactly (words of smaller
 // digit in the tile) + (earlier words of the same digit).  A rank taken
 // from the return value of a shared atomicAdd follows the order in which
-// threads happen to run, so it is not stable.  rank_pass gives each warp a
-// contiguous chunk of the tile and walks it 32 words at a time in index
-// order.  __match_any_sync gives each lane the lanes with its digit; the
-// popcount of those below it is its rank among equal digits in this step,
-// and the lowest such lane (the leader) advances a per-(digit, warp)
-// counter.  One sweep counts, an exclusive scan of the (digit, warp)
-// counts in digit-major order gives each segment's first rank, and a
-// second sweep ranks and scatters.  The order of ranks is then (digit,
+// threads happen to run, so it is not stable.  Both routines give each warp
+// a contiguous chunk of the tile and walk it 32 words at a time in index
+// order.  A match (__match_any_sync in rank_pass, eight ballots in K7a)
+// gives each lane the lanes with its digit; the popcount of those below it
+// is its rank among equal digits in this step, and the lowest such lane
+// (the leader) advances a per-(digit, warp) counter.  An exclusive scan of the (digit, warp) counts in digit-major
+// order gives each segment's first rank, so the order of ranks is (digit,
 // warp chunk, step, lane), which is (digit, index): stable.
+//
+// rank_pass (K6a, K7b, and K3 in moe_dispatch.cu) keeps the tile in two
+// shared buffers and ping-pongs: one sweep counts, the scan, a second sweep
+// ranks and scatters, about five CTA barriers a pass.
+//
+// K7a v2.  v1 ran rank_pass 8 times for 32 bits with 4-bit digits: two
+// match sweeps, about five barriers and a round trip of the tile through
+// shared memory a pass, some 40 barriers and 64 sweeps a warp for a
+// 1024-word tile, 23x its byte bound.  A stable LSD sort by the same bits
+// has one result whatever its digit width, so v2 ranks 8 bits a pass (4
+// passes for 32 bits; a pass wholly at bit 32 or above is the identity and
+// is skipped) whatever digit_bits the caller gives.  Each thread holds its
+// keys in registers, warp-striped, so (step, lane) is index order in the
+// warp's chunk.  One match sweep a pass gives each key both its offset
+// among the equal digits before it in the warp and, through the leaders'
+// counter updates, the (digit, warp) counts; the warp remembers each key's
+// offset in a register.  Each thread then scans its digits' per-warp
+// counts in registers and the CTA scans the threads' totals (two
+// barriers); every key goes to base[digit, warp] + offset in one shared
+// buffer; one barrier; the keys come back to registers for the next pass.
+// Four barriers and one sweep a pass.  Up to tile 1024 a CTA has 128
+// threads (8 KB of shared memory at tile 1024: 4 KB of keys, 4 KB of
+// counters, against v1's 16 KB), so 9 CTAs fit an SM and 1024 tiles run
+// in one wave; larger tiles take 256.
 //
 // K6b: the TPU design does not carry over.  The reference revisits the
 // whole output across its sequential grid steps, copying masked windows by
@@ -51,16 +73,29 @@
 // matter; K6b fuses the last pass's & idx_mask unpack.
 #include "radix_rank.cuh"
 
+#include <algorithm>
+
 namespace {
 
 constexpr int MAX_TILE = 1 << 13;
 constexpr int MAX_RADIX = 256;
 constexpr unsigned SENTINEL = 0xffffffffu;
+constexpr int RADIX8 = 256;              // K7a's digits are 8 bits wide
 
-// dynamic shared memory of the tile kernels: two word buffers of the tile,
+// dynamic shared memory of K6a and K7b: two word buffers of the tile,
 // the (digit, warp) counts and the scan scratch
 size_t tile_smem(int tile) {
   return sizeof(unsigned) * (2 * (size_t)tile + WARPS * MAX_RADIX + WARPS + 1);
+}
+
+// K7a's CTA: 128 threads up to tile 1024 (more CTAs an SM), 256 above
+constexpr int K7A_SMALL_THREADS = 128;
+constexpr int K7A_SMALL_TILE = 1024;
+
+// K7a's dynamic shared memory: one word buffer of the tile and the
+// (warp, digit) counters
+size_t k7a_smem(int tile, int threads) {
+  return sizeof(unsigned) * ((size_t)tile + threads / 32 * RADIX8);
 }
 
 struct Smem {
@@ -79,23 +114,138 @@ __device__ __forceinline__ Smem carve(unsigned* smem, int tile) {
   return s;
 }
 
-// K7a: every tile sorted by bits [key_shift, key_shift + total_bits)
-__global__ void __launch_bounds__(THREADS)
-tile_sort_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ out,
-                 int tile, int key_shift, int total_bits, int digit_bits) {
-  extern __shared__ unsigned smem[];
-  Smem s = carve(smem, tile);
-  const size_t off = (size_t)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += THREADS) s.a[i] = x[off + i];
-  __syncthreads();
-  for (int lo = 0; lo < total_bits; lo += digit_bits) {
-    rank_pass(s.a, s.b, tile, key_shift + lo, min(digit_bits, total_bits - lo),
-              s.cnt, s.ws, nullptr);
-    unsigned* t = s.a;
-    s.a = s.b;
-    s.b = t;
+// The lanes of the warp whose 8-bit digit equals this lane's, among the
+// valid lanes (an invalid lane gets itself alone): one ballot a bit.
+// __match_any_sync took longer the more distinct values a warp held (about
+// 30 for random 8-bit digits) and lost to the ballots there; eight
+// ballots cost the same whatever the digits.
+__device__ __forceinline__ unsigned match8(unsigned digit, bool valid) {
+  unsigned peers = __ballot_sync(FULL, valid);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const bool bit = (digit >> b) & 1u;
+    const unsigned same = __ballot_sync(FULL, bit);
+    peers &= bit ? same : ~same;
   }
-  for (int i = threadIdx.x; i < tile; i += THREADS) out[off + i] = s.a[i];
+  return valid ? peers : 1u << (threadIdx.x & 31);
+}
+
+// K7a v2: every tile sorted by bits [key_shift, key_shift + total_bits),
+// its keys in registers, 8-bit digits (see the notes above).  NT threads, K
+// keys a thread, warp-striped: warp w owns words [w * 32K, (w + 1) * 32K)
+// of the tile and lane l holds word w * 32K + 32 s + l as key[s], so (s,
+// lane) runs in index order within the warp's chunk.  Words past the tile
+// (tiles below NT words) are masked lanes.
+template <int K, int NT>
+__global__ void __launch_bounds__(NT)
+tile_sort_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ out,
+                 int tile, int key_shift, int total_bits) {
+  constexpr int NW = NT / 32, DPT = RADIX8 / NT;   // warps, digits a thread
+  extern __shared__ unsigned smem[];
+  unsigned* buf = smem;                                  // [tile]
+  int* cnt = reinterpret_cast<int*>(smem + tile);        // [NW][RADIX8]
+  __shared__ int wtot[NW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const size_t off = (size_t)blockIdx.x * tile;
+  const int first = warp * 32 * K + lane;                // key[s]: first + 32 s
+  int* mine = cnt + warp * RADIX8;
+  unsigned key[K];
+  int rank[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int i = first + 32 * s;
+    key[s] = i < tile ? x[off + i] : 0u;
+  }
+  bool placed = false;                   // the tile lies in buf, in order
+  for (int lo = 0; lo < total_bits && key_shift + lo < 32; lo += 8) {
+    // a pass by bits at 32 or above is the identity: those bits are 0
+    const int shift = key_shift + lo;
+    const unsigned mask = (1u << min(8, total_bits - lo)) - 1u;
+    if (placed) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const int i = first + 32 * s;
+        if (i < tile) key[s] = buf[i];
+      }
+    }
+    for (int dd = lane; dd < RADIX8; dd += 32) mine[dd] = 0;
+    __syncwarp();
+    // 1. one match sweep: each key's offset among the equal digits before
+    // it in the warp's chunk, and the (digit, warp) counts in `mine`
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const bool valid = first + 32 * s < tile;
+      rank[s] = (int)match8(shr(key[s], shift) & mask, valid);
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const bool valid = first + 32 * s < tile;
+      const unsigned dg = shr(key[s], shift) & mask;
+      const unsigned peers = (unsigned)rank[s];
+      const int leader = __ffs(peers) - 1;
+      int before = 0;
+      if (valid && lane == leader) {
+        before = mine[dg];
+        mine[dg] = before + __popc(peers);
+      }
+      before = __shfl_sync(FULL, before, leader);
+      rank[s] = before + __popc(peers & below);
+      __syncwarp();
+    }
+    __syncthreads();
+    // 2. the first rank of every (digit, warp) segment, digit-major:
+    // thread t scans the NW counts of its DPT digits in registers, the CTA
+    // scans the threads' totals
+    const int d0 = threadIdx.x * DPT;
+    int v[DPT][NW], sum = 0;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        v[dd][w] = cnt[w * RADIX8 + d0 + dd];
+        sum += v[dd][w];
+      }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) wtot[warp] = incl;
+    __syncthreads();
+    int run = incl - sum;
+    for (int w = 0; w < warp; ++w) run += wtot[w];
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        cnt[w * RADIX8 + d0 + dd] = run;
+        run += v[dd][w];
+      }
+    __syncthreads();
+    // 3. place every key at its rank
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (first + 32 * s < tile)
+        buf[mine[shr(key[s], shift) & mask] + rank[s]] = key[s];
+    }
+    __syncthreads();
+    placed = true;
+  }
+  if (!placed) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int i = first + 32 * s;
+      if (i < tile) out[off + i] = key[s];
+    }
+  } else if (tile >= 4) {
+    uint4* o4 = reinterpret_cast<uint4*>(out + off);
+    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+    for (int i = threadIdx.x; i < tile / 4; i += NT) o4[i] = b4[i];
+  } else {
+    for (int i = threadIdx.x; i < tile; i += NT) out[off + i] = buf[i];
+  }
 }
 
 // K7b: pack, sort by the key digits above log2(tile), emit packed words or
@@ -199,21 +349,87 @@ int log2_int(int v) {
   return l;
 }
 
+template <int K, int NT>
+int launch_tile_sort(const void* x, void* out, int nt, int tile,
+                     int key_shift, int total_bits, cudaStream_t st) {
+  const size_t smem = k7a_smem(tile, NT);
+  const cudaError_t err = allow_smem(tile_sort_kernel<K, NT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  tile_sort_kernel<K, NT><<<nt, NT, smem, st>>>(
+      static_cast<const unsigned*>(x), static_cast<unsigned*>(out), tile,
+      key_shift, total_bits);
+  return (int)cudaGetLastError();
+}
+
+template <int K, int NT>
+cudaError_t tile_sort_attrs(int tile, int* out) {
+  const size_t smem = k7a_smem(tile, NT);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, tile_sort_kernel<K, NT>);
+  if (err == cudaSuccess) err = allow_smem(tile_sort_kernel<K, NT>, smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, tile_sort_kernel<K, NT>, NT, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)smem;
+  out[4] = per_sm;
+  return cudaSuccess;
+}
+
+// K7a's instance for a tile: NT threads, K = tile / NT keys a thread (at
+// least 1); attrs != nullptr asks for its attributes instead of a launch
+int tile_sort_dispatch(const void* x, void* out, int nt, int tile,
+                       int key_shift, int total_bits, cudaStream_t st,
+                       int* attrs) {
+#define K7A_CASE(K, NT)                                                    \
+  return attrs != nullptr                                                  \
+             ? (int)tile_sort_attrs<K, NT>(tile, attrs)                    \
+             : launch_tile_sort<K, NT>(x, out, nt, tile, key_shift,        \
+                                       total_bits, st)
+  if (tile <= K7A_SMALL_TILE) {
+    constexpr int NT = K7A_SMALL_THREADS;
+    switch (std::max(1, tile / NT)) {
+      case 1: K7A_CASE(1, NT);
+      case 2: K7A_CASE(2, NT);
+      case 4: K7A_CASE(4, NT);
+      default: K7A_CASE(K7A_SMALL_TILE / NT, NT);
+    }
+  }
+  switch (tile / THREADS) {
+    case 8: K7A_CASE(8, THREADS);
+    case 16: K7A_CASE(16, THREADS);
+    default: K7A_CASE(32, THREADS);
+  }
+#undef K7A_CASE
+}
+
 }  // namespace
 
+// digit_bits is checked and otherwise unused: K7a ranks 8 bits a pass,
+// and a stable LSD sort by the same bits has one result whatever its
+// digit width
 extern "C" int radix_tile_sort(const void* x, void* out, int nt, int tile,
                                int key_shift, int total_bits, int digit_bits,
                                void* stream) {
   if (nt < 1 || !pow2_tile(tile) || key_shift < 0 || total_bits < 0 ||
       digit_bits < 1 || digit_bits > 8)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = tile_smem(tile);
-  cudaError_t err = allow_smem(tile_sort_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  tile_sort_kernel<<<nt, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(x), static_cast<unsigned*>(out), tile,
-      key_shift, total_bits, digit_bits);
-  return (int)cudaGetLastError();
+  return tile_sort_dispatch(x, out, nt, tile, key_shift, total_bits,
+                            static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// What the compiler and the occupancy calculator give K7a's instance for
+// `tile`: out[0..5] = registers a thread, local (spill) bytes a thread,
+// static shared bytes, dynamic shared bytes a launch, CTAs an SM can hold,
+// threads a CTA.
+extern "C" int radix_tile_sort_attrs(int tile, int* out) {
+  if (!pow2_tile(tile)) return (int)cudaErrorInvalidValue;
+  out[5] = tile <= K7A_SMALL_TILE ? K7A_SMALL_THREADS : THREADS;
+  return tile_sort_dispatch(nullptr, nullptr, 0, tile, 0, 0, nullptr, out);
 }
 
 extern "C" int radix_tile_sort_packed(const void* keys, void* out, int nt,

@@ -43,7 +43,12 @@
 // mamba_assoc_scan needs the states alone.
 #include "common.cuh"
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -180,240 +185,435 @@ affine_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// K5: the int32 sum scan with a carry, one CTA.
+// K5: the int32 sum scan with a carry, one launch over a thread-block
+// cluster.
 //
 // Replaces: repro/kernels/tile_scan.py::tile_scan (body _scan_kernel) and
 // histogram_offsets, which scans the (nt, R) digit histogram digit-major
 // for the multi-tile radix sort.  The TPU kernel carries the sum of earlier
-// blocks in a (1, 1) VMEM cell across its sequential grid.  A Hopper grid
-// runs in no order, so one CTA loops over the array with the carry in
-// registers and shared memory: one launch, as in the reference.
+// blocks in a (1, 1) VMEM cell across its sequential grid: one launch,
+// whatever n.
 //
-// What bounds it: bytes (read once, written once: 2 MB at this slice's
-// largest histogram, 16384 x 16), but one CTA moves them, so in practice
-// the latency of its loop (a round of loads and four barriers a step) and
-// the rate at which one SM starts loads and stores.  So every access is
-// coalesced:
+// What bounds it on this card: bytes, each word read once and written once
+// (2 MB at the sort path's largest histogram, 16384 x 16: 0.6 us at
+// 3.35 TB/s), and at the path's usual sizes (64 KB) the latency of one
+// launch.  v1 carried the TPU's sequential grid over literally: one CTA
+// looped over the array with the carry, staging slabs in shared memory
+// behind seven barriers each, so one SM made every access: 156x the bound
+// at 16384 x 16.
 //
-// scan_add_kernel (1-D): chunks of SCAN_CHUNK elements staged in shared
-// memory with neighbouring threads on neighbouring elements; each thread
-// scans SCAN_ITEMS consecutive ones, warps combine by shuffles.
-//
-// histogram_scan_kernel (r a power of two, 2..256, 16-byte aligned input):
-// the offsets in (nt, r) layout, no transposes, reading rows as they lie.
-// A first sweep sums each digit's column (a thread always meets the same
-// four digits); a digit's base is the exclusive scan of the columns before
-// it.  Then slabs of rows are staged in shared memory (the next slab's
-// loads in flight while one is scanned); thread (d, g) takes
-// HIST_ROWS_PER_THREAD consecutive rows of digit d, a block-wide scan of
-// the threads' sums in digit-major order gives each thread its prefix
-// within its digit, and a per-digit carry crosses slabs.  Index arithmetic
-// shifts by log2(r): an integer division per word cost more than the
-// loads.  Sums wrap as int32 does.
+// Design (v2): reduce, then scan, in one cluster of C <= 16 CTAs of 1024
+// threads (cudaLaunchKernelEx with a cluster dimension; C above 8 is
+// non-portable; the rule takes a CTA per 4096 words).  CTA c owns a
+// contiguous block of rows, a multiple of 4 words, in chunks of 16 words a
+// thread kept in registers.  For r >= 16 thread t holds digit t % r of 16
+// consecutive rows, so a warp's access is runs of r words, a thread's
+// words are one digit in index order, and the cross-thread scan is one
+// shuffle step (r = 16) or none; for r < 16 (the 1-D scan) thread t holds
+// words [16t, 16t + 16) as four int4s and scans r digits.  A template on
+// log2(r) unrolls every loop.
+//  1. Column sums.  A block of one chunk (every block of the sort path) is
+//     scanned at once: a shuffle scan over the threads of one digit in a
+//     warp (or a group of r threads), the rows' totals to shared memory,
+//     thread d scans digit d over the rows; two barriers.  A longer block
+//     sums its chunks first (shared atomics of warp-folded sums: integer
+//     counts, order-free and exact).
+//  2. Each CTA writes its column sums into every CTA's shared memory
+//     (distributed shared memory stores: no round trip), then one cluster
+//     barrier; every CTA then reads them locally: digit d's base is the sum
+//     of the columns of smaller digits, and the carry entering block c adds
+//     digit d's column over blocks before c.  A relaxed cluster arrive at
+//     the start, waited on just before those stores, makes sure every CTA
+//     has started; after the barrier no CTA touches another's memory.
+//  3. Each thread writes carry + earlier rows + earlier threads + its own
+//     earlier words from registers; a longer block loads and scans chunk by
+//     chunk, the carry crossing chunks.
+// No global scratch and no global atomics; the result is exact and the
+// same every run.  Sums wrap as int32 does.
 constexpr int SCAN_THREADS = 1024;
-constexpr int SCAN_ITEMS = 4;
-constexpr int SCAN_CHUNK = SCAN_THREADS * SCAN_ITEMS;
-// odd: lanes g and g + 1 read rows 11 (r + 1) words apart, an odd stride,
-// so a warp's 32 reads fall in 32 banks
-constexpr int HIST_ROWS_PER_THREAD = 11;
-constexpr int HIST_SLAB = SCAN_THREADS * HIST_ROWS_PER_THREAD;  // words
-// the padded slab (row stride r + 1, r >= 2): dynamic shared memory
-constexpr size_t HIST_SMEM = sizeof(unsigned) * (HIST_SLAB + HIST_SLAB / 2);
+constexpr int CHUNK = SCAN_THREADS * 16;   // words: 16 a thread
+constexpr int MAX_CLUSTER = 16;
+// the cluster rule's least words a CTA: below it another CTA adds more
+// barrier latency than it saves in loads (4096 was best at 1024 x 16)
+constexpr int MIN_CTA_WORDS = 4096;
 
-// exclusive scan of one value per thread over the CTA, in thread order;
-// wsum: shared scratch of SCAN_THREADS / 32.  Returns the thread's prefix
-// and leaves the CTA total in *total.
-__device__ __forceinline__ unsigned cta_exclusive_scan(unsigned v,
-                                                       unsigned* wsum,
-                                                       unsigned* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned s = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xffffffffu, s, o);
-    if (lane >= o) s += y;
-  }
-  if (lane == 31) wsum[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned t = wsum[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    wsum[lane] = t;
-  }
-  __syncthreads();
-  const unsigned excl = s - v + (warp > 0 ? wsum[warp - 1] : 0u);
-  *total = wsum[SCAN_THREADS / 32 - 1];
-  __syncthreads();
-  return excl;
+// How a CTA's 1024 threads hold a chunk of 16384 words of an (rows, 2^LR)
+// matrix.  r < 16 (BLOCKED): thread t holds words [16t, 16t + 16), digits
+// j % r, read as four int4s.  r >= 16: thread t holds digit t % r of the
+// 16 rows from 16 (t / r), so a warp's access j is r-word runs of rows.
+// Either way a thread's words run in index order, threads with one digit
+// follow each other in index order P lanes apart, and the cross-thread
+// scan runs over U rows of ROW threads (a warp, or a group of r threads).
+template <int LR>
+struct ScanShape {
+  static constexpr int R = 1 << LR;
+  static constexpr bool BLOCKED = R < 16;
+  static constexpr int KC = BLOCKED ? R : 1;      // digits a thread holds
+  static constexpr int P = BLOCKED ? 1 : (R < 32 ? R : 32);
+  static constexpr int ROW = R > 32 ? R : 32;
+  static constexpr int U = SCAN_THREADS / ROW;
+};
+
+// cluster barrier halves: arrive (relaxed: it orders nothing; release:
+// this thread's earlier writes, remote ones included, are seen by every
+// thread that has waited) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_add_kernel(const int* __restrict__ x, int* __restrict__ out, int n,
-                int inclusive) {
-  __shared__ unsigned buf[SCAN_CHUNK];
-  __shared__ unsigned wsum[SCAN_THREADS / 32];
-  unsigned carry = 0;
-  for (int base = 0; base < n; base += SCAN_CHUNK) {
-#pragma unroll
-    for (int j = 0; j < SCAN_ITEMS; ++j) {
-      const int q = j * SCAN_THREADS + threadIdx.x;
-      const int k = base + q;
-      buf[q] = k < n ? (unsigned)x[k] : 0u;
-    }
-    __syncthreads();
-    unsigned v[SCAN_ITEMS], sum = 0;
-#pragma unroll
-    for (int j = 0; j < SCAN_ITEMS; ++j) {
-      v[j] = buf[threadIdx.x * SCAN_ITEMS + j];
-      sum += v[j];
-    }
-    unsigned total;
-    unsigned run = carry + cta_exclusive_scan(sum, wsum, &total);
-#pragma unroll
-    for (int j = 0; j < SCAN_ITEMS; ++j) {
-      if (inclusive) run += v[j];
-      buf[threadIdx.x * SCAN_ITEMS + j] = run;
-      if (!inclusive) run += v[j];
-    }
-    carry += total;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < SCAN_ITEMS; ++j) {
-      const int q = j * SCAN_THREADS + threadIdx.x;
-      const int k = base + q;
-      if (k < n) out[k] = (int)buf[q];
-    }
-    __syncthreads();
-  }
+template <int LR>
+__device__ __forceinline__ int word_of(int t, int j) {
+  using S = ScanShape<LR>;
+  return S::BLOCKED ? 16 * t + j
+                    : (((t >> LR) * 16 + j) << LR) | (t & (S::R - 1));
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
-histogram_scan_kernel(const int* __restrict__ x, int* __restrict__ out,
-                      int nt, int lr, int inclusive) {
-  // a slab of rows, row stride r + 1 against bank conflicts
-  extern __shared__ unsigned slab[];
-  __shared__ unsigned wsum[SCAN_THREADS / 32];
-  __shared__ unsigned dbase[256], carry[256], start[256];
-  const int tid = threadIdx.x;
-  const int r = 1 << lr;                 // shifts: no integer division
-  const unsigned rm = (unsigned)r - 1u;
-  const size_t total = (size_t)nt * r;
-  // 1. column sums, 16-byte loads, four in flight: word 4q + c of the
-  // matrix has digit (4 tid + c) % r for every q = tid + k * SCAN_THREADS
-  if (tid < r) carry[tid] = 0;
-  __syncthreads();
-  unsigned c[4] = {0u, 0u, 0u, 0u};
-  const size_t n4 = total / 4;
-  const int4* x4 = reinterpret_cast<const int4*>(x);
-#pragma unroll 4
-  for (size_t q = tid; q < n4; q += SCAN_THREADS) {
-    const int4 v = __ldg(x4 + q);
-    c[0] += (unsigned)v.x;
-    c[1] += (unsigned)v.y;
-    c[2] += (unsigned)v.z;
-    c[3] += (unsigned)v.w;
-  }
-  for (size_t i = 4 * n4 + tid; i < total; i += SCAN_THREADS)
-    atomicAdd(&carry[i & rm], (unsigned)x[i]);
+template <int LR>
+__device__ __forceinline__ int digit_of(int t, int k) {
+  using S = ScanShape<LR>;
+  return S::BLOCKED ? k : t & (S::R - 1);
+}
+
+// the thread's 16 words of the chunk at p, 0 at or past limit; int4 loads
+// (BLOCKED, p 16-byte aligned: vec) where all four lie inside
+template <int LR>
+__device__ __forceinline__ void load16(const int* p, int limit, bool vec,
+                                       unsigned (&w)[16]) {
+  const int t = threadIdx.x;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)            // a count: order-free
-    atomicAdd(&carry[(4 * tid + j) & rm], c[j]);
-  __syncthreads();
-  // 2. each digit's base: the columns of smaller digits
-  if (tid == 0) {
-    unsigned run = 0;
-    for (int d = 0; d < r; ++d) {
-      dbase[d] = run;
-      run += carry[d];
-      carry[d] = 0;
-    }
-  }
-  __syncthreads();
-  // 3. slabs of rows; thread (d, g) owns rows [g * PER, g * PER + PER)
-  const int rows = HIST_SLAB >> lr, groups = SCAN_THREADS >> lr;
-  const int d = tid / groups, g = tid % groups;
-  const int stride = r + 1;
-  // a slab is exactly HIST_ROWS_PER_THREAD words a thread: word
-  // tid + j * SCAN_THREADS of it, prefetched into registers
-  unsigned next[HIST_ROWS_PER_THREAD];
-  auto prefetch = [&](int row) {
-    const int words = min(rows, nt - row) * r;
+  for (int q = 0; q < 4; ++q) {
+    const int b = word_of<LR>(t, 4 * q);
+    if (ScanShape<LR>::BLOCKED && vec && b + 4 <= limit) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p + b));
+      w[4 * q] = (unsigned)v.x;
+      w[4 * q + 1] = (unsigned)v.y;
+      w[4 * q + 2] = (unsigned)v.z;
+      w[4 * q + 3] = (unsigned)v.w;
+    } else {
 #pragma unroll
-    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
-      const int i = tid + j * SCAN_THREADS;
-      next[j] = i < words ? (unsigned)x[(size_t)row * r + i] : 0u;
-    }
-  };
-  prefetch(0);
-  for (int row0 = 0; row0 < nt; row0 += rows) {
-    const int nrow = min(rows, nt - row0);
-    const size_t off = (size_t)row0 * r;
-#pragma unroll
-    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
-      const int i = tid + j * SCAN_THREADS;
-      if (i < nrow * r) slab[(i >> lr) * stride + (i & rm)] = next[j];
-    }
-    __syncthreads();
-    if (row0 + rows < nt) prefetch(row0 + rows);
-    unsigned v[HIST_ROWS_PER_THREAD], sum = 0;
-#pragma unroll
-    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
-      const int row = g * HIST_ROWS_PER_THREAD + j;
-      v[j] = row < nrow ? slab[row * stride + d] : 0u;
-      sum += v[j];
-    }
-    unsigned slab_total;
-    const unsigned excl = cta_exclusive_scan(sum, wsum, &slab_total);
-    if (g == 0) start[d] = excl;
-    __syncthreads();
-    const unsigned within = excl - start[d];   // earlier groups, digit d
-    unsigned run = dbase[d] + carry[d] + within;
-#pragma unroll
-    for (int j = 0; j < HIST_ROWS_PER_THREAD; ++j) {
-      const int row = g * HIST_ROWS_PER_THREAD + j;
-      if (row < nrow) {
-        if (inclusive) run += v[j];
-        slab[row * stride + d] = run;
-        if (!inclusive) run += v[j];
+      for (int e = 0; e < 4; ++e) {
+        const int i = word_of<LR>(t, 4 * q + e);
+        w[4 * q + e] = i < limit ? (unsigned)__ldg(p + i) : 0u;
       }
     }
+  }
+}
+
+template <int LR>
+__device__ __forceinline__ void store16(int* p, int limit, bool vec,
+                                        const unsigned (&w)[16]) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int b = word_of<LR>(t, 4 * q);
+    if (ScanShape<LR>::BLOCKED && vec && b + 4 <= limit) {
+      *reinterpret_cast<int4*>(p + b) =
+          make_int4((int)w[4 * q], (int)w[4 * q + 1], (int)w[4 * q + 2],
+                    (int)w[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = word_of<LR>(t, 4 * q + e);
+        if (i < limit) p[i] = (int)w[4 * q + e];
+      }
+    }
+  }
+}
+
+// The scan of one chunk, its carry left out.  On return excl[k] is the
+// sum of the thread's k-th digit over the earlier threads of its scan row
+// (a shuffle scan of stride P), wt[u * r + d] the sum of digit d over
+// earlier rows u, and ctot[d] the chunk's column sum.  Two CTA barriers.
+template <int LR>
+__device__ __forceinline__ void chunk_scan(const unsigned (&w)[16],
+                                           unsigned (&excl)[16],
+                                           unsigned* wt, unsigned* ctot) {
+  using S = ScanShape<LR>;
+  const int t = threadIdx.x, lane = t & 31, u = t / S::ROW;
+#pragma unroll
+  for (int k = 0; k < S::KC; ++k) {
+    unsigned a = 0u;
+#pragma unroll
+    for (int j = k; j < 16; j += S::KC) a += w[j];
+    unsigned x = a;
+#pragma unroll
+    for (int o = S::P; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    excl[k] = x - a;
+    if (lane >= 32 - S::P) wt[u * S::R + digit_of<LR>(t, k)] = x;
+  }
+  __syncthreads();
+  if (t < S::R) {
+    unsigned run = 0u;
+#pragma unroll
+    for (int v = 0; v < S::U; ++v) {
+      const unsigned s = wt[v * S::R + t];
+      wt[v * S::R + t] = run;
+      run += s;
+    }
+    ctot[t] = run;
+  }
+  __syncthreads();
+}
+
+// the thread's 16 outputs: carry + earlier rows + earlier threads of its
+// row + its own earlier words of the same digit
+template <int LR>
+__device__ __forceinline__ void emit(int* p, int limit, bool vec,
+                                     const unsigned (&w)[16],
+                                     const unsigned (&excl)[16],
+                                     const unsigned* wt,
+                                     const unsigned* carry, int inclusive) {
+  using S = ScanShape<LR>;
+  const int t = threadIdx.x, u = t / S::ROW;
+  unsigned run[S::KC], o[16];
+#pragma unroll
+  for (int k = 0; k < S::KC; ++k) {
+    const int d = digit_of<LR>(t, k);
+    run[k] = carry[d] + wt[u * S::R + d] + excl[k];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int k = j % S::KC;
+    if (inclusive) run[k] += w[j];
+    o[j] = run[k];
+    if (!inclusive) run[k] += w[j];
+  }
+  store16<LR>(p, limit, vec, o);
+}
+
+// out[t, d] = sum_{d' < d} colsum[d'] + sum_{t' < t} x[t', d] (+ x[t, d]
+// if inclusive) over an (nt, 2^LR) int32 matrix; CTA c of the cluster owns
+// rows [c * block_rows, (c + 1) * block_rows), block_rows << LR a multiple
+// of 4.  vec: x and out are 16-byte aligned.
+template <int LR>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+cluster_scan_kernel(const int* __restrict__ x, int* __restrict__ out, int nt,
+                    int block_rows, int inclusive, int vec) {
+  using S = ScanShape<LR>;
+  __shared__ unsigned wt[SCAN_THREADS];
+  __shared__ unsigned sums[MAX_CLUSTER * S::R];   // every block's columns
+  __shared__ unsigned colsum[S::R], tot[S::R], carry[S::R], ctot[S::R];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int t = threadIdx.x, lane = t & 31;
+  const int rlo = min(nt, c * block_rows);
+  const int words = (min(nt, rlo + block_rows) - rlo) << LR;
+  const int* xb = x + ((size_t)rlo << LR);
+  int* ob = out + ((size_t)rlo << LR);
+  const int nch = (words + CHUNK - 1) / CHUNK;
+  unsigned w[16], excl[16];
+  // every CTA of the cluster has started before any writes to another's
+  // shared memory (step 2): arrive now, wait just before the writes
+  cluster_arrive_relaxed();
+  load16<LR>(xb, words, vec, w);
+
+  // 1. the block's column sums: a block of one chunk is scanned at once
+  // and keeps its words in registers; a longer one is summed first
+  if (nch <= 1) {
+    chunk_scan<LR>(w, excl, wt, ctot);
+    if (t < S::R) colsum[t] = ctot[t];
+  } else {
+    if (t < S::R) colsum[t] = 0u;
+    unsigned acc[S::KC];
+#pragma unroll
+    for (int k = 0; k < S::KC; ++k) acc[k] = 0u;
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch > 0) load16<LR>(xb + ch * CHUNK, words - ch * CHUNK, vec, w);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[j % S::KC] += w[j];
+    }
     __syncthreads();
-    if (g == groups - 1) carry[d] += within + sum;
-    for (int i = tid; i < nrow * r; i += SCAN_THREADS)
-      out[off + i] = (int)slab[(i >> lr) * stride + (i & rm)];
+#pragma unroll
+    for (int k = 0; k < S::KC; ++k) {
+      unsigned v = acc[k];                 // fold the lanes of one digit
+#pragma unroll
+      for (int o = S::P; o < 32; o <<= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane < S::P) atomicAdd(&colsum[digit_of<LR>(t, k)], v);
+    }
     __syncthreads();
   }
+
+  // 2. each block's column sums to every CTA's shared memory (remote
+  // stores, no round trip), one cluster barrier, then local reads only:
+  // no CTA touches another's shared memory after it, so any may exit
+  cluster_wait();
+  if (t < S::R)
+    for (int k = 0; k < C; ++k)
+      cluster.map_shared_rank(sums, k)[c * S::R + t] = colsum[t];
+  cluster_arrive();
+  cluster_wait();
+  if (t < S::R) {
+    unsigned all = 0u, pre = 0u;
+    for (int k = 0; k < C; ++k) {
+      const unsigned v = sums[k * S::R + t];
+      all += v;
+      if (k < c) pre += v;
+    }
+    tot[t] = all;
+    carry[t] = pre;
+  }
+  __syncthreads();
+  if (t < 32) {                            // digit bases: one warp's scan
+    constexpr int per = (S::R + 31) / 32;
+    const int lo = lane * per;
+    unsigned s = 0u;
+#pragma unroll
+    for (int k = 0; k < per; ++k)
+      if (lo + k < S::R) s += tot[lo + k];
+    unsigned incl = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    unsigned run = incl - s;
+#pragma unroll
+    for (int k = 0; k < per; ++k)
+      if (lo + k < S::R) {
+        carry[lo + k] += run;
+        run += tot[lo + k];
+      }
+  }
+  __syncthreads();
+
+  // 3. the outputs
+  if (nch <= 1) {
+    emit<LR>(ob, words, vec, w, excl, wt, carry, inclusive);
+  } else {
+    for (int ch = 0; ch < nch; ++ch) {
+      const int left = words - ch * CHUNK;
+      load16<LR>(xb + ch * CHUNK, left, vec, w);
+      chunk_scan<LR>(w, excl, wt, ctot);
+      emit<LR>(ob + ch * CHUNK, left, vec, w, excl, wt, carry, inclusive);
+      __syncthreads();
+      if (t < S::R) carry[t] += ctot[t];
+    }
+  }
+}
+
+using ScanKernel = void (*)(const int*, int*, int, int, int, int);
+const ScanKernel SCAN_KERNELS[9] = {
+    cluster_scan_kernel<0>, cluster_scan_kernel<1>, cluster_scan_kernel<2>,
+    cluster_scan_kernel<3>, cluster_scan_kernel<4>, cluster_scan_kernel<5>,
+    cluster_scan_kernel<6>, cluster_scan_kernel<7>, cluster_scan_kernel<8>};
+
+cudaLaunchConfig_t cluster_config(int C, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(SCAN_THREADS);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the largest cluster the card places for radix 2^lr (it needs C SMs of
+// one GPC free at once), asked once
+int max_cluster(int lr) {
+  static int cached[9] = {};
+  if (cached[lr] > 0) return cached[lr];
+  const ScanKernel k = SCAN_KERNELS[lr];
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess)
+    return 1;
+  for (int C = MAX_CLUSTER; C > 1; --C) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(C, &attr);
+    int active = 0;
+    if (cudaOccupancyMaxActiveClusters(&active, k, &cfg) == cudaSuccess &&
+        active > 0)
+      return cached[lr] = C;
+    cudaGetLastError();                    // clear a refusal
+  }
+  return cached[lr] = 1;
+}
+
+// the cluster rule: a CTA per MIN_CTA_WORDS words, up to the largest
+// cluster the card places
+int rule_cluster(int words, int lr) {
+  return std::max(1, std::min(max_cluster(lr),
+                              (words + MIN_CTA_WORDS - 1) / MIN_CTA_WORDS));
 }
 
 }  // namespace
 
 // r = 1: a 1-D scan of n = nt elements; r > 1: the digit-major offsets of
-// an (nt, r) histogram, r a power of two up to 256, x 16-byte aligned
+// an (nt, r) histogram, r a power of two up to 256.  cluster: the CTAs of
+// the one cluster launched, 1 to 16, or 0 for the rule
 extern "C" int tile_scan_add(const void* x, void* out, int n, int nt, int r,
-                             int inclusive, void* stream) {
+                             int inclusive, int cluster, void* stream) {
   if (n < 1 || nt < 1 || r < 1 || r > 256 || (r & (r - 1)) != 0 ||
-      (long long)nt * r != n ||
-      (r > 1 && reinterpret_cast<uintptr_t>(x) % 16 != 0))
+      (long long)nt * r != n || cluster < 0 || cluster > MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r == 1) {
-    scan_add_kernel<<<1, SCAN_THREADS, 0, st>>>(
-        static_cast<const int*>(x), static_cast<int*>(out), n, inclusive);
-    return (int)cudaGetLastError();
-  }
-  const cudaError_t err = cudaFuncSetAttribute(
-      histogram_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)HIST_SMEM);
-  if (err != cudaSuccess) return (int)err;
   int lr = 0;
   while ((1 << lr) < r) ++lr;
-  histogram_scan_kernel<<<1, SCAN_THREADS, HIST_SMEM, st>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), nt, lr, inclusive);
+  const ScanKernel k = SCAN_KERNELS[lr];
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const int C = cluster > 0 ? cluster : rule_cluster(n, lr);
+  // blocks of whole rows and of a multiple of 4 words (16-byte accesses)
+  const int unit = r >= 4 ? 1 : 4 >> lr;
+  const int units = (nt + unit - 1) / unit;
+  const int block_rows = (units + C - 1) / C * unit;
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(C, &attr);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  err = cudaLaunchKernelEx(&cfg, k, static_cast<const int*>(x),
+                           static_cast<int*>(out), nt, block_rows, inclusive,
+                           vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// What the compiler and the occupancy calculator give K5's kernel for
+// radix r: out[0..7] = registers a thread, local (spill) bytes a thread,
+// static shared bytes, dynamic shared bytes a launch, CTAs an SM can hold,
+// the largest cluster the card places, how many of those it holds at
+// once, and the rule's cluster for a call of `words` words.
+extern "C" int tile_scan_add_attrs(int words, int r, int* out) {
+  if (r < 1 || r > 256 || (r & (r - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  int lr = 0;
+  while ((1 << lr) < r) ++lr;
+  const ScanKernel k = SCAN_KERNELS[lr];
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, k);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k,
+                                                        SCAN_THREADS, 0);
+  const int C = max_cluster(lr);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(C, &attr);
+  int active = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&active, k, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = 0;
+  out[4] = per_sm;
+  out[5] = C;
+  out[6] = active;
+  out[7] = rule_cluster(words, lr);
+  return cudaSuccess;
 }
 
 extern "C" int tile_scan_logspace(const void* la, const void* ms,

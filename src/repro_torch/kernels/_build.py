@@ -57,8 +57,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "tile_scan_logspace": [P] * 12 + [I, I, I, I, I, P],
         # a, b, a0, h0, gain_out (or null), h_out, B, L, F, inclusive, stream
         "tile_scan_affine": [P] * 6 + [I, I, I, I, P],
-        # x, out, n, nt, r, inclusive, stream
-        "tile_scan_add": [P, P, I, I, I, I, P],
+        # x, out, n, nt, r, inclusive, cluster (0: the rule), stream
+        "tile_scan_add": [P, P, I, I, I, I, I, P],
     },
     "radix_sort": {
         # x, out, nt, tile, key_shift, total_bits, digit_bits, stream

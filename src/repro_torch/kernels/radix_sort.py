@@ -4,7 +4,9 @@
 
 * K7a ``radix_tile_sort``: every tile of a (n,) uint32 array sorted stably
   by the bits ``[key_shift, key_shift + total_bits)``; all digit passes in
-  one launch.
+  one launch.  The kernel ranks 8 bits a pass whatever ``digit_bits`` says
+  (a stable LSD sort by the same bits has one result whatever its digit
+  width); ``digit_bits`` is checked as the reference checks it.
 * K7b ``radix_tile_sort_packed``: raw int32 keys in, per-tile-sorted packed
   words ``key << idx_bits | global_index`` out (pad slots the sentinel), or
   with ``unpack`` the int32 order itself.  Only the key digits are ranked:
@@ -31,8 +33,9 @@ and changes nothing here.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -118,6 +121,50 @@ def radix_tile_sort_plain(x: torch.Tensor, *, tile: int, total_bits: int,
     w = _u64(x).reshape(n // tile, tile)
     field = _shr(w, key_shift) & ((1 << min(total_bits, 32)) - 1)
     return _u32(_sort_rows(w, field)).reshape(n)
+
+
+def k7a_threads(tile: int) -> int:
+    """K7a's CTA size for a tile: 128 threads up to 1024 words, else 256
+    (``K7A_SMALL_THREADS`` and ``K7A_SMALL_TILE`` in csrc/radix_sort.cu)."""
+    return 128 if tile <= 1024 else 256
+
+
+def radix_tile_sort_model(x: torch.Tensor, *, tile: int, total_bits: int,
+                          key_shift: int) -> torch.Tensor:
+    """K7a's decomposition in plain PyTorch, pass by pass: 8-bit digits (the
+    last pass narrower; none at bit 32 or above); with T = k7a_threads(tile)
+    and K = max(1, tile // T), warp w owns the tile's words ``[w * 32K,
+    (w + 1) * 32K)``; a word's rank is ``base[digit, w]`` (the digit-major
+    exclusive scan of the (digit, warp) counts) plus its offset among the
+    equal digits before it in its warp's chunk.  Equals
+    :func:`radix_tile_sort_plain`."""
+    n = x.shape[0]
+    nt = n // tile
+    w = _u64(x).reshape(nt, tile)
+    warps = k7a_threads(tile) // 32
+    chunk = 32 * max(1, tile // k7a_threads(tile))
+    warp = (torch.arange(tile, device=x.device) // chunk).expand(nt, tile)
+    rows = torch.arange(nt, device=x.device)[:, None]
+    lo = 0
+    while lo < total_bits and key_shift + lo < 32:
+        digit = (w >> (key_shift + lo)) & ((1 << min(8, total_bits - lo)) - 1)
+        seg = digit * warps + warp                      # digit-major
+        counts = torch.zeros(nt, 256 * warps, dtype=torch.int64,
+                             device=x.device)
+        counts.scatter_add_(1, seg, torch.ones_like(seg))
+        base = torch.cumsum(counts, 1) - counts
+        # offset among equal (digit, warp) before it: its place in the
+        # stable order of seg, less the segment's first place
+        order = torch.sort(seg, dim=1, stable=True).indices
+        offset = torch.empty_like(seg)
+        offset[rows, order] = torch.arange(tile, device=x.device) - \
+            torch.gather(base, 1, torch.gather(seg, 1, order))
+        rank = torch.gather(base, 1, seg) + offset
+        placed = torch.empty_like(w)
+        placed[rows, rank] = w
+        w = placed
+        lo += 8
+    return _u32(w).reshape(n)
 
 
 def _composite(keys: torch.Tensor, nt: int, tile: int) -> torch.Tensor:
@@ -207,7 +254,11 @@ def radix_tile_sort(x: torch.Tensor, *, tile: int = 1024,
                     key_shift: int = 0, group: int = 8) -> torch.Tensor:
     """Sort each tile of a (n,) uint32 tensor by the ``total_bits`` bits at
     ``key_shift`` — stable, so tie order (bits outside the range) is
-    preserved; ``ceil(total_bits / digit_bits)`` passes in one launch."""
+    preserved; one launch.  The reference runs ``ceil(total_bits /
+    digit_bits)`` passes; the kernel runs ``ceil(total_bits / 8)`` 8-bit
+    passes (none at bit 32 or above) whatever ``digit_bits`` is, which
+    gives the same words, since a stable sort by the same bits has one
+    result.  ``digit_bits`` is checked as the reference checks it."""
     n = x.shape[0]
     tile = min(tile, n)
     _check_tile(tile, digit_bits)
@@ -453,8 +504,26 @@ def moe_dispatch_sort(x: torch.Tensor, experts: torch.Tensor,
     return xd, sorted_e, sorted_tok, sorted_p, counts
 
 
+def kernel_attributes(tile: int) -> Dict[str, int]:
+    """Registers, spills, shared memory, CTAs an SM and threads a CTA of
+    K7a's kernel instance for ``tile`` (one a keys-per-thread count and CTA
+    size), as the compiled library and the occupancy calculator report
+    them."""
+    lib = ctypes.CDLL(str(_build.build("radix_sort")))
+    lib.radix_tile_sort_attrs.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.radix_tile_sort_attrs.restype = ctypes.c_int
+    vals = (ctypes.c_int * 6)()
+    err = lib.radix_tile_sort_attrs(tile, vals)
+    if err:
+        raise RuntimeError(f"radix_tile_sort_attrs({tile}): cudaError {err}")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "ctas_per_sm", "threads"), vals))
+
+
 __all__ = ["radix_tile_sort", "radix_tile_sort_packed",
            "multi_tile_argsort_packed", "radix_tile_sort_plain",
+           "radix_tile_sort_model", "k7a_threads", "kernel_attributes",
            "radix_tile_sort_packed_plain", "mt_local_plain",
            "mt_scatter_plain", "moe_dispatch_sort", "moe_dispatch_sort_plain",
            "SENTINEL", "K3", "K6A", "K6B", "K7A", "K7B"]

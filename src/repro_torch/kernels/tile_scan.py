@@ -10,8 +10,11 @@ a CUDA tensor only the int32 sum (``combine`` None or ``torch.add``, unit
 0; for the histogram a power-of-two radix up to 256) launches
 ``tile_scan_add``, and anything else raises.  The reference
 pads the last block with the unit and carries a sum across sequential
-grid steps; the kernel is one CTA looping over the array with a running
-carry, so ``block`` changes no value and is checked only.
+grid steps; the kernel is one launch of a thread-block cluster: each CTA
+sums its block of rows, writes the sums into every CTA's shared memory
+(distributed shared memory), then scans its block from its carry
+(:func:`cluster_scan_plain` models the split), so ``block`` changes no
+value and is checked only.
 
 K4 — ``tree_scan`` and ``batched_scan``, the pytree scans.
 
@@ -42,8 +45,9 @@ checked for the reference's signature and change nothing else.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +58,7 @@ LOGSPACE = _build.KERNELS["tile_scan_logspace"]
 AFFINE = _build.KERNELS["tile_scan_affine"]
 SCAN_ADD = _build.KERNELS["tile_scan_add"]
 MAX_L = 2048          # logspace scan length the kernel stages in shared memory
+MAX_CLUSTER = 16      # K5's CTAs: one cluster (above 8 is non-portable)
 
 
 # ---------------------------------------------------------------------------
@@ -81,25 +86,58 @@ def scan_plain(x: torch.Tensor, *, combine: Optional[Callable] = None,
                                  device=x.device), incl[:-1]])
 
 
-def _scan_add(x: torch.Tensor, nt: int, r: int,
-              inclusive: bool) -> torch.Tensor:
+def _scan_add(x: torch.Tensor, nt: int, r: int, inclusive: bool, *,
+              cluster: int = 0) -> torch.Tensor:
     """``tile_scan_add``: r = 1, a 1-D scan of nt elements; r = R (a power
     of two up to 256), the digit-major offsets of an (nt, R) histogram,
-    written in (nt, R) layout."""
+    written in (nt, R) layout.  ``cluster`` forces the cluster's CTAs (1 to
+    16; 0 takes the kernel's rule)."""
     if not x.is_cuda:
         raise ValueError("tile_scan: expected a CUDA tensor")
     if x.dtype != torch.int32 or not x.is_contiguous():
         raise NotImplementedError(
             f"tile_scan on the card takes a contiguous int32 sum, got "
             f"{x.dtype}; other monoids and dtypes run only on the CPU twin")
-    if r > 256 or r & (r - 1) or (r > 1 and x.data_ptr() % 16):
+    if r > 256 or r & (r - 1):
         raise NotImplementedError(
-            f"histogram_offsets on the card takes a 16-byte aligned "
-            f"histogram of a power-of-two radix up to 256, got radix {r}")
+            f"histogram_offsets on the card takes a power-of-two radix up "
+            f"to 256, got radix {r}")
+    if not 0 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"tile_scan: cluster must be 0 (the rule) to "
+                         f"{MAX_CLUSTER}, got {cluster}")
     out = torch.empty_like(x)
     SCAN_ADD(x.data_ptr(), out.data_ptr(), nt * r, nt, r, int(inclusive),
-             _stream(x))
+             cluster, _stream(x))
     return out
+
+
+def cluster_scan_plain(hist: torch.Tensor, clusters: int, *,
+                       inclusive: bool = False) -> torch.Tensor:
+    """K5's decomposition in plain PyTorch: ``clusters`` blocks of whole
+    rows, split as the kernel splits them (a multiple of 4 words each, the
+    last ragged or empty); per block its column sums, then each block's
+    carry (every column of smaller digit, plus its own digit's column over
+    earlier blocks), then the block's rows scanned from that carry.  Equals
+    :func:`histogram_offsets_plain` (r > 1) and :func:`scan_plain` (r = 1,
+    ``hist`` of shape (n, 1)) exactly, wrapping as int32 does."""
+    nt, r = hist.shape
+    unit = 1 if r >= 4 else 4 // r
+    units = -(-nt // unit)
+    block_rows = -(-units // clusters) * unit
+    h = hist.to(torch.int64)
+    blocks = [h[min(nt, c * block_rows):min(nt, (c + 1) * block_rows)]
+              for c in range(clusters)]
+    colsums = torch.stack([b.sum(0) for b in blocks])        # (C, r)
+    total = colsums.sum(0)
+    dbase = torch.cumsum(total, 0) - total
+    before = torch.cumsum(colsums, 0) - colsums               # (C, r)
+    outs = []
+    for c, b in enumerate(blocks):
+        incl = torch.cumsum(b, 0)
+        rows = incl if inclusive else incl - b
+        outs.append(rows + dbase + before[c])
+    out = torch.cat(outs)
+    return ((out + 2 ** 31) % 2 ** 32 - 2 ** 31).to(hist.dtype)
 
 
 def tile_scan(x: torch.Tensor, *, block: int = 256,
@@ -136,8 +174,9 @@ def histogram_offsets(hist: torch.Tensor, *, block: int = 256
     ``offsets[t, d]`` = #(elements with digit < d anywhere) + #(elements
     with digit d in tiles before ``t``), the exclusive scan of the
     histogram flattened digit-major.  The kernel reads the (nt, R) matrix
-    as it lies (column sums, then slabs of rows) and writes the offsets in
-    (nt, R) layout: one launch, no transposes."""
+    as it lies (each CTA of a cluster its block of rows: column sums, then
+    the rows' scan from registers) and writes the offsets in (nt, R)
+    layout: one launch, no transposes."""
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
     nt, r = hist.shape
@@ -350,7 +389,26 @@ def batched_scan(xs: Any, *, combine: Callable[[Any, Any], Any], units: Any,
                     batched=True)
 
 
+def kernel_attributes(words: int, radix: int) -> Dict[str, int]:
+    """Registers, spills, shared memory and CTAs an SM of K5's kernel for
+    ``radix`` (1 for the 1-D scan), the largest cluster the card places and
+    how many of those fit at once, and the cluster the rule takes for a
+    call of ``words`` words."""
+    lib = ctypes.CDLL(str(_build.build("tile_scan")))
+    lib.tile_scan_add_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
+    lib.tile_scan_add_attrs.restype = ctypes.c_int
+    vals = (ctypes.c_int * 8)()
+    err = lib.tile_scan_add_attrs(words, radix, vals)
+    if err:
+        raise RuntimeError(f"tile_scan_add_attrs: cudaError {err}")
+    return dict(zip(("registers", "spill_bytes", "static_smem",
+                     "dynamic_smem", "ctas_per_sm", "max_cluster",
+                     "active_clusters", "rule_cluster"), vals))
+
+
 __all__ = ["tile_scan", "histogram_offsets", "scan_plain",
-           "histogram_offsets_plain", "tree_scan", "batched_scan", "fold",
+           "histogram_offsets_plain", "cluster_scan_plain",
+           "kernel_attributes", "tree_scan", "batched_scan", "fold",
            "logspace_scan", "affine_scan", "LOGSPACE", "AFFINE", "SCAN_ADD",
-           "MAX_L"]
+           "MAX_L", "MAX_CLUSTER"]

@@ -1,12 +1,15 @@
 """The port's stable sort against the JAX package on the same numpy inputs,
-bit for bit: K5 (``tile_scan``, ``histogram_offsets``), K6 (``_mt_local``,
-``_mt_scatter``), K7 (``radix_tile_sort``, ``radix_tile_sort_packed``), K8
-(``_merge_path_starts``, ``_merge_level``), ``sort_u32``, ``merge_pair``
-and ``argsort`` under both strategies.  On the CPU every wrapper runs its
-plain twin; the JAX side runs its Pallas kernels in interpret mode, as
-``tests/test_kernels.py`` does, so sizes stay small (n <= 4096, tile <=
-256).  Integer data: the tolerance is 0 mismatches.
+bit for bit: K5 (``tile_scan``, ``histogram_offsets``, and the cluster
+split of its kernel), K6 (``_mt_local``, ``_mt_scatter``), K7
+(``radix_tile_sort`` and its kernel's 8-bit warp rank order,
+``radix_tile_sort_packed``), K8 (``_merge_path_starts``, ``_merge_level``),
+``sort_u32``, ``merge_pair`` and ``argsort`` under both strategies.  On the
+CPU every wrapper runs its plain twin; the JAX side runs its Pallas kernels
+in interpret mode, as ``tests/test_kernels.py`` does, so sizes stay small
+(n <= 4096, tile <= 1024).  Integer data: the tolerance is 0 mismatches.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -97,6 +100,41 @@ def test_histogram_offsets_matches_reference(nt, r):
           jts.histogram_offsets(jnp.asarray(hist), block=64))
 
 
+@functools.lru_cache(maxsize=None)
+def _k5_case(nt, r, inclusive):
+    """One seeded histogram (r > 1) or 1-D array (r = 1, shaped (nt, 1))
+    and the JAX package's offsets or scan of it, computed once for every
+    cluster size."""
+    hist = np.random.default_rng(nt * 1000 + r).integers(
+        0, 1 << 20, (nt, r)).astype(np.int32)
+    hist[nt // 2] = 0                                   # an empty row
+    if r == 1:
+        want = jts.tile_scan(jnp.asarray(hist[:, 0]), block=4096,
+                             inclusive=inclusive)
+    else:
+        want = jts.histogram_offsets(jnp.asarray(hist), block=4096)
+    return hist, np.asarray(want).reshape(nt, r)
+
+
+@pytest.mark.parametrize("r,inclusive", [(1, False), (1, True), (4, False),
+                                         (16, False), (256, False)])
+@pytest.mark.parametrize("nt", [1, 5, 192, 1024])
+@pytest.mark.parametrize("clusters", [1, 3, 16])
+def test_cluster_scan_split_matches_reference(clusters, nt, r, inclusive):
+    """K5 v2's decomposition (blocks of rows, column sums per block, each
+    block's carry from the others' sums, then the block's own scan) equals
+    the twin and the Pallas kernel bit for bit, ragged and empty blocks
+    included; r = 1 is ``tile_scan`` both ways."""
+    hist, want = _k5_case(nt, r, inclusive)
+    got = ts.cluster_scan_plain(_t(hist), clusters, inclusive=inclusive)
+    _same(got, want)
+    if r == 1:
+        _same(ts.tile_scan(_t(hist[:, 0]), inclusive=inclusive),
+              want[:, 0])
+    else:
+        _same(ts.histogram_offsets(_t(hist)), want)
+
+
 # ---------------------------------------------------------------------------
 # K7
 # ---------------------------------------------------------------------------
@@ -112,6 +150,27 @@ def test_radix_tile_sort_matches_reference(n, tile, total_bits, digit_bits,
               key_shift=key_shift)
     _same(rs.radix_tile_sort(_t(x), **kw),
           jrs.radix_tile_sort(jnp.asarray(x), interpret=True, **kw))
+
+
+@pytest.mark.parametrize("tile", [4, 64, 256, 1024])
+@pytest.mark.parametrize("key_shift", [0, 4, 20])
+@pytest.mark.parametrize("total_bits", [0, 7, 12, 32])
+def test_radix_tile_sort_8bit_warp_model_matches_reference(total_bits,
+                                                           key_shift, tile):
+    """K7a v2's rank order (8-bit passes, ranks = base[digit, warp] + the
+    offset among equal digits before it in the warp's chunk) equals the
+    Pallas kernel, which runs 4-bit passes, bit for bit; every word twice,
+    so ties are held."""
+    n = 2 * max(tile, 32)
+    x = _words(n, tile * 100 + total_bits + key_shift)
+    x[1::2] = x[::2]                                 # ties of whole words
+    want = jrs.radix_tile_sort(jnp.asarray(x), tile=tile,
+                               total_bits=total_bits, key_shift=key_shift,
+                               interpret=True)
+    _same(rs.radix_tile_sort_model(_t(x), tile=tile, total_bits=total_bits,
+                                   key_shift=key_shift), want)
+    _same(rs.radix_tile_sort(_t(x), tile=tile, total_bits=total_bits,
+                             key_shift=key_shift), want)
 
 
 @pytest.mark.parametrize("unpack", [False, True])
