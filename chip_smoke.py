@@ -27,7 +27,11 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    top-k 2, 256 experts; 300 experts raise) and the comparison sort's K9a
    ``bitonic_tile_sort``, K9b ``pack_keys`` and K9c ``unpack_order`` at
    2^20 keys, timed beside ``torch.argsort`` + ``index_select`` and the
-   per-row ``torch.sort``;
+   per-row ``torch.sort``; K9a (v2, the network in registers and warp
+   shuffles) at every tile from 1 to 8192, on equal, sorted and
+   reverse-sorted words and a misaligned input, two launches
+   bit-identical, its registers, spills, shared memory and CTAs an SM
+   printed;
 3. the sort path: ``ops.stable_argsort`` / ``argsort`` / ``sort_u32`` on
    the card at users' sizes (12-bit ids at 2^20, deepseek-v2-lite's
    routing of 8 x 4096 tokens top-6 and its ragged twin, 8-bit keys at
@@ -46,8 +50,13 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    kernel, with its split-KV merge: GQA groups 1, 4 and 5, chunks of 1 to
    256 at offsets 0 to 1792, forced split counts, two launches bit-identical;
    fp32 through v2; v3 timed beside v2 in turns, unsplit, and over split
-   counts), K2 (with a zero-length row), K4 ``logspace`` (mLSTM carry, with
-   extreme gates) and K4 ``affine`` (Mamba);
+   counts), K2 (bf16 through v2, the tensor-core kernel, at every GQA
+   group of ``GROUPS`` and lengths 0, 1, 127, 128, 129, S and ragged, each
+   row equal to a B = 1 call and two launches bit-identical, bit for bit;
+   fp32 and forced bf16 through v1, with a zero-length row; v2 timed beside
+   v1 in turns; both kernels' registers, spills, shared memory and CTAs an
+   SM printed), K4 ``logspace`` (mLSTM carry, with extreme gates) and K4
+   ``affine`` (Mamba);
 5. the dense path: llama3-8b at full width and full depth (32 layers,
    bf16, seeded random weights) serves 16 requests through
    ``ContinuousEngine`` and 4 through the sync ``Engine``; every attention
@@ -190,8 +199,15 @@ def main() -> None:
             f"spill bytes, {a['static_smem'] + a['dynamic_smem']} bytes of "
             f"shared memory, {a['ctas_per_sm']} CTAs an SM")
 
+    k2_attrs = fd.kernel_attributes()
+    for kname, a in k2_attrs.items():
+        say(f"  K2 {kname}: {a['registers']} registers, {a['spill_bytes']} "
+            f"spill bytes, {a['static_smem'] + a['dynamic_smem']} bytes of "
+            f"shared memory, {a['ctas_per_sm']} CTAs an SM")
+
     report = {"card": card, "cases": [], "timings": {},
-              "k1_kernel_attributes": k1_attrs}
+              "k1_kernel_attributes": k1_attrs,
+              "k2_kernel_attributes": k2_attrs}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     H, KV, hd = 32, 8, 128
@@ -336,6 +352,87 @@ def main() -> None:
         check(math.isfinite(e) and e <= tol,
               f"{kernel} {name} {case}: max abs err {e:.3g} > tol {tol}")
 
+    def k2_v2_record(got, want, **case):
+        """K2 v2's partials against the fp32 twin's.  m and l are fp32
+        arithmetic, as in v1: m (absolute) and l (relative) at the fp32
+        tolerance.  v2 rounds P to bf16 before P·V (as K1 v3 does), and
+        only acc sees it: acc is held normalized, as the split's own output
+        acc / l, at the bf16 tolerance.  A split with l = 0 must be
+        (-1e30, 0, 0) exactly."""
+        (m, l, acc), (rm, rl, racc) = got, want
+        live = rl > 0
+        e_ml = max(err(m, rm), float(((l - rl).abs() / rl.clamp(min=1.0)
+                                      ).max()))
+        e_acc = err(acc[live] / l[live, None], racc[live] / rl[live, None])
+        dead = ~live
+        if bool(dead.any()):
+            exact = bool((m[dead] == rm[dead]).all() and (l[dead] == 0).all()
+                         and (acc[dead] == 0).all())
+            e_ml = e_ml if exact else float("inf")
+        record("flash_decode_partials", torch.float32, e_ml, version="v2",
+               measure="m absolute, l relative", **case)
+        record("flash_decode_partials", torch.bfloat16, e_acc, version="v2",
+               measure="normalized acc / l", **case)
+
+    def k2_v2_checks():
+        """v2 (bf16, tensor cores) at every GQA group of GROUPS (KV = 8),
+        lengths 0, 1, 127, 128, 129, S and ragged, S a multiple of block_k
+        and not; the zero-length row is the mean of V; each row's output
+        equals a B = 1 call's bit for bit; two launches of each kernel are
+        bit-identical."""
+        bf = torch.bfloat16
+        same = []
+        for G in fd.GROUPS:
+            Hq = KV * G
+            for S in (2048, 1100):
+                lens = torch.tensor([0, 1, 127, 128, 129, S] + torch.randint(
+                    1, S + 1, (2,), generator=gen, device=dev).tolist(),
+                    dtype=torch.int32, device=dev)
+                B = lens.numel()
+                q = randn(B, Hq, hd, dtype=bf)
+                kc = randn(B, S, KV, hd, dtype=bf)
+                vc = randn(B, S, KV, hd, dtype=bf)
+                parts = fd.decode_partials(q, kc, vc, lens)
+                out = fd.combine(*parts, bf)
+                ref = fd.flash_decode_plain(q.float(), kc.float(),
+                                            vc.float(), lens)
+                torch.cuda.synchronize()
+                k2_v2_record(parts, fd.decode_partials_plain(q, kc, vc, lens),
+                             B=B, S=S, H=Hq, lengths=lens.tolist())
+                record("flash_decode (partials+combine)", bf, err(out, ref),
+                       B=B, S=S, H=Hq, version="v2", lengths=lens.tolist())
+                mean_v = vc[0].float().mean(0).repeat_interleave(G, 0)
+                record("flash_decode zero-length row", bf,
+                       err(out[0], mean_v), B=B, S=S, H=Hq, version="v2")
+                rows_ok = all(torch.equal(out[i:i + 1], fd.flash_decode(
+                    q[i:i + 1], kc[i:i + 1], vc[i:i + 1], lens[i:i + 1]))
+                    for i in range(B))
+                again = fd.decode_partials(q, kc, vc, lens)
+                twice = all(torch.equal(a, b) for a, b in zip(parts, again))
+                twice = twice and torch.equal(out, fd.combine(*again, bf))
+                same.append(rows_ok and twice)
+                check(rows_ok, f"K2 v2 G={G} S={S}: a row's output differs "
+                      f"between the B={B} call and a B=1 call")
+                check(twice, f"K2 v2 G={G} S={S}: two launches differ")
+        # v1 at G = 3 (fp32 and bf16 forced), the group this PR adds
+        for dtype in (torch.float32, bf):
+            q = randn(4, 3 * KV, hd, dtype=dtype)
+            kc = randn(4, 1100, KV, hd, dtype=dtype)
+            vc = randn(4, 1100, KV, hd, dtype=dtype)
+            lens = torch.tensor([0, 1, 129, 1100], dtype=torch.int32,
+                                device=dev)
+            m, l, acc = fd.decode_partials(q, kc, vc, lens,
+                                           tensor_cores=False)
+            rm, rl, racc = fd.decode_partials_plain(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            record("flash_decode_partials", torch.float32,
+                   max(err(m, rm), err(l, rl), err(acc, racc)), B=4, S=1100,
+                   H=3 * KV, input_dtype=str(dtype), version="v1")
+        say(f"K2 v2: every row equal to its B=1 call and two launches "
+            f"bit-identical in {sum(same)} of {len(same)} cases (G "
+            f"{', '.join(map(str, fd.GROUPS))}; S 2048 and 1100)")
+        report["k2_bit_identical"] = same
+
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
         for Sk in (2048, 1100):
@@ -362,15 +459,20 @@ def main() -> None:
             lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
             lens[0], lens[1] = 1, S
             lens = lens.to(torch.int32)
-            m, l, acc = fd.decode_partials(q, kc, vc, lens)
+            # v1 (forced for bf16, the route for fp32): its partials are
+            # fp32 whatever the input dtype, fp32 tolerance
+            m, l, acc = fd.decode_partials(q, kc, vc, lens,
+                                           tensor_cores=False)
             rm, rl, racc = fd.decode_partials_plain(q, kc, vc, lens)
             out = fd.combine(m, l, acc, dtype)
             ref = fd.combine_plain(m, l, acc, torch.float32)
             torch.cuda.synchronize()
-            # partials are fp32 whatever the input dtype: fp32 tolerance
             e_part = max(err(m, rm), err(l, rl), err(acc, racc))
             record("flash_decode_partials", torch.float32, e_part, B=B, S=S,
-                   input_dtype=str(dtype))
+                   input_dtype=str(dtype), version="v1")
+            if bf16:
+                k2_v2_record(fd.decode_partials(q, kc, vc, lens),
+                             (rm, rl, racc), B=B, S=S)
             record("flash_decode_combine", dtype, err(out, ref), B=B, S=S)
             e2e = err(fd.flash_decode(q, kc, vc, lens),
                       fd.flash_decode_plain(q.float(), kc.float(),
@@ -392,6 +494,7 @@ def main() -> None:
               "is not the mean of V")
 
     k1_bf16_checks()
+    k2_v2_checks()
 
     # K1 and K2 at llama4-scout's head layout, the MoE path's: 40 q heads
     # on 8 kv heads (G = 5)
@@ -570,9 +673,16 @@ def main() -> None:
                      mean_length=tot / B)
         library = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), cold=True)
+
+        def v2():
+            return fd.decode_partials(q, kc, vc, lens)
+
+        def v1():
+            return fd.decode_partials(q, kc, vc, lens, tensor_cores=False)
+        turns = [device_ms(f, cold=True) for f in (v2, v1, v2, v1)]
         part = dict(
-            ms=device_ms(lambda: fd.decode_partials(q, kc, vc, lens),
-                         cold=True),
+            ms=(turns[0] + turns[2]) / 2, v1_ms=(turns[1] + turns[3]) / 2,
+            turns_ms=turns,
             plain_ms=device_ms(lambda: fd.decode_partials_plain(
                 q, kc, vc, lens), cold=True),
             library_ms=library,
@@ -631,7 +741,8 @@ def main() -> None:
         tag = f"B=8 S={S} mean_len={part['shape']['mean_length']:.0f}"
         report["timings"][f"flash_decode_partials {tag}"] = part
         report["timings"][f"flash_decode_combine {tag}"] = comb
-        say(f"K2 {tag} bf16: partials {part['ms']:.4f} ms (plain "
+        say(f"K2 {tag} bf16: partials v2 {part['ms']:.4f} ms (v1 "
+            f"{part['v1_ms']:.4f} in turns, plain "
             f"{part['plain_ms']:.4f}, bound {part['bound_ms']:.4f} "
             f"{part['bound_by']}), combine {comb['ms']:.4f} ms (plain "
             f"{comb['plain_ms']:.4f}, bound {comb['bound_ms']:.4f}), "
@@ -842,7 +953,7 @@ def main() -> None:
             name = ev.key
             # K1: v3 (flash_fwd_tc_kernel), its merge and v2 all land here
             g = ("flash_attention_fwd" if "flash_fwd" in name else
-                 "flash_decode_partials" if "decode_partials_kernel" in name
+                 "flash_decode_partials" if "decode_partials" in name
                  else "flash_decode_combine" if "decode_combine_kernel" in name
                  else "tile_scan_logspace" if "logspace_scan_kernel" in name
                  else "tile_scan_affine" if "affine_scan_kernel" in name
@@ -1274,8 +1385,7 @@ def main() -> None:
                     "tol_kind": "relative", "max_abs_err_fp32": w["abs"]}
         else:
             w = worst[name]
-            main_dtype = "float32" if name == "flash_decode_partials" \
-                else "bfloat16"
+            main_dtype = "bfloat16"
             errs = {"max_abs_err": w[main_dtype], "max_err": w[main_dtype],
                     "tol": TOL[main_dtype],
                     "max_abs_err_fp32": w.get("float32")}
@@ -1289,7 +1399,8 @@ def main() -> None:
             "library_computes": row.get("library_computes"),
             "shape": row["shape"],
             **({"v2_ms": row["v2_ms"], "unsplit_ms": row["unsplit_ms"]}
-               if "v2_ms" in row else {})})
+               if "v2_ms" in row else {}),
+            **({"v1_ms": row["v1_ms"]} if "v1_ms" in row else {})})
     kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
     kernels += moe_kernel_entries(moe_rows, moe_errs, moe_launches)
     report["kernels"] = kernels
@@ -1998,9 +2109,37 @@ def moe_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                       dtype=torch.int64)
     w[1::2] = w[::2]                              # every word twice: ties
     w = w.to(torch.uint32)
-    for t in (tile, 1 << 13):
+    # K9a v2 (the network in registers and shuffles): every tile 1 to 8192
+    # on 2^20 words with ties, equal / sorted / reverse-sorted words, a
+    # misaligned input (scalar loads and stores), two launches identical
+    for t in (1 << i for i in range(14)):
         same("bitonic_tile_sort", (ms.tile_sort(w, tile=t),),
              (ms.tile_sort_plain(w, tile=t),), n=n, tile=t)
+    srt = _flip(torch, torch.sort(_flip(torch, w)).values).view(torch.uint32)
+    for kind, x9 in (("all-equal", torch.full_like(w, 0x9e3779b9)),
+                     ("sorted", srt), ("reverse-sorted", srt.flip(0))):
+        for t in (2, 64, 1024, 2048, 4096, 8192):
+            same("bitonic_tile_sort", (ms.tile_sort(x9, tile=t),),
+                 (ms.tile_sort_plain(x9, tile=t),), n=n, tile=t, kind=kind)
+    odd = w[1:1 + 3 * 1024]
+    for t in (1, 1024):
+        same("bitonic_tile_sort", (ms.tile_sort(odd, tile=t),),
+             (ms.tile_sort_plain(odd, tile=t),), n=odd.numel(), tile=t,
+             what="misaligned")
+    check(torch.equal(ms.tile_sort(w, tile=tile), ms.tile_sort(w, tile=tile)),
+          "K9a: two launches on the same input differ")
+    k9a_attrs = {}
+    for t in (1 << i for i in range(ms.MAX_BITONIC_TILE.bit_length())):
+        a = k9a_attrs[f"tile {t}"] = ms.kernel_attributes(t)
+        say(f"  bitonic_tile_sort tile {t}: {a['registers']} registers, "
+            f"{a['spill_bytes']} spill bytes, "
+            f"{a['static_smem'] + a['dynamic_smem']} bytes of shared memory,"
+            f" {a['ctas_per_sm']} CTAs an SM, {a['threads']} threads")
+        # the CPU model runs k9a_shape's table: it must be the kernel's
+        check(a["threads"] == ms.k9a_shape(t)[1],
+              f"K9a tile {t}: the kernel has {a['threads']} threads a CTA, "
+              f"k9a_shape says {ms.k9a_shape(t)[1]}")
+    report["k9a_kernel_attributes"] = k9a_attrs
     keys = torch.randint(0, 1 << 12, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
     for nn in (n, n - 3):

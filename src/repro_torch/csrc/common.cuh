@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: vector loads that widen to fp32,
-// stores that narrow from fp32, and the masked-logit value.
+// stores that narrow from fp32, the masked-logit value, and the kernel
+// attributes every source reports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +32,28 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// What the compiler and the occupancy calculator give `kernel` launched
+// with `threads` threads and `smem` dynamic shared bytes (any opt-in above
+// 48 KB made first): out[0..4] = registers a thread, local (spill) bytes a
+// thread, static shared bytes, dynamic shared bytes a launch, CTAs an SM
+// can hold.  Every source's `*_attrs` entry point reports through this.
+template <typename K>
+cudaError_t kernel_attrs(K kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)smem;
+  out[4] = per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace

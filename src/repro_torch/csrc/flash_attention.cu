@@ -70,6 +70,7 @@
 // away.  The kernels allocate nothing: the wrapper passes the output and
 // the partials.
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -247,8 +248,6 @@ constexpr int TC_LDS = TC_MAXD + 8;       // bf16 row stride: +16 bytes
 constexpr int TC_STAGES = 2;              // K/V ring
 constexpr int TC_THREADS = 128;
 constexpr int MERGE_THREADS = 256;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // K and V rings; Q is staged in the last K stage before the loop fills it
 constexpr size_t tc_smem_bytes() {
@@ -256,61 +255,8 @@ constexpr size_t tc_smem_bytes() {
 }
 static_assert(TC_BM == TC_BN, "Q is staged in a K stage");
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !full
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool full) {
-  const int n = full ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  unsigned a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  unsigned u;
-  memcpy(&u, &x, sizeof(u));
-  return u;
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t.  The fp32
-// accumulator of an m16n8 tile holds (row g, cols 2t, 2t+1) in [0], [1]
-// and (row g + 8, same cols) in [2], [3].  The A operand holds rows g and
-// g + 8 at k = 2t, 2t+1 (regs 0, 1) and k = 8 + 2t, 9 + 2t (regs 2, 3),
-// which is two accumulator tiles side by side: P needs no shuffle.
+// Fragment layouts: tensor_core.cuh.  Two S accumulator tiles side by side
+// are the A fragment of P V, so P needs no shuffle.
 template <int HD>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -657,23 +603,12 @@ cudaError_t launch_tc_hd(const void* q, const void* k, const void* v,
 #undef REPRO_TC_CASE
 }
 
+// kernel_attrs after the kernel's shared-memory opt-in, if it has one
 template <typename K>
 cudaError_t attrs(K kernel, int threads, size_t smem, bool* opted, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err == cudaSuccess && opted != nullptr)
-    err = opt_in(kernel, smem, *opted);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = (int)smem;
-  out[4] = per_sm;
-  return cudaSuccess;
+  const cudaError_t err =
+      opted != nullptr ? opt_in(kernel, smem, *opted) : cudaSuccess;
+  return err != cudaSuccess ? err : kernel_attrs(kernel, threads, smem, out);
 }
 
 }  // namespace

@@ -14,32 +14,59 @@
 // K/V it reads: the least time is those bytes over 3.35 TB/s, and the
 // design goal is to keep enough loads in flight to cover memory latency.
 //
-// Design, partials (flash_decode_partials): one CTA of 4 warps per
-// (kv split, kv head, batch row).  The CTA holds all G = H/KV query heads
-// of its kv head (G is a template parameter, so the per-head state is
-// exactly sized in registers), so each K/V row is read from device memory
-// once for the G heads (the TPU index map re-reads K/V once per q head).
-// A lane owns 4 consecutive dims of a row (one 8- or 16-byte load) and a
-// warp walks 8 rows at a time, issuing the 8 loads before using any, so
-// each warp keeps 8 rows of K (then V) in flight.  Scores: 4 FMAs per head
-// and a shuffle reduction; they go to shared memory, where one warp per
-// head takes the max and the exp.  PV: each warp accumulates its rows for
-// all G heads in registers; the 4 warps' sums meet in shared memory.
-// Positions >= lengths[b] are not read at all: a split that lies wholly
-// past lengths[b] writes m = -1e30, l = 0, acc = 0 without touching the
-// cache, and masked positions of a split contribute exactly 0 (no -inf
-// anywhere, so no inf - inf = nan).  A row with lengths[b] <= 0 gives the
-// reference's dense softmax over all-masked logits, the mean of V: it
-// masks no position and scores each with the same logit -1e30 (one branch
-// at the score store, no extra pass).  S need not be a multiple of block_k.
-// The split count is a function of S alone, never of B or lengths, so
-// batched and one-at-a-time decode sum in the same order.
+// Two kernels compute the partials, chosen by dtype and head dim in the
+// Python wrapper (kernels/flash_decode.py::uses_tensor_cores):
+//
+// v2, decode_partials_tc_kernel<HD> (bf16, head dim HD a multiple of 16,
+// <= 128).  One CTA of 4 warps per (kv split, kv head, batch row), as v1,
+// but the split is one pass: each warp owns 32-row sub-tiles of the split
+// (warp w the rows [32 (w + 4 i), 32 (w + 4 i + 1))), copies their K and V
+// rows into its own shared-memory slots with 16-byte cp.async.cg (rows
+// past lengths[b] zero-filled and never read), and keeps its own online
+// softmax over them, so no warp waits for another until the end.  K and V
+// are two copy groups: V of a sub-tile is in flight while its scores are
+// computed, and the next sub-tile's K while this one's P V is summed (at
+// block_k 128 a warp has one sub-tile: the whole split, 64 KB, is in
+// flight at once).  Both products run on the bf16 tensor cores
+// (mma.sync.aligned.m16n8k16, fp32 accumulation), with the fragment code
+// of K1 v3 (flash_attention.cu): the G <= 16 query heads of the kv head are
+// the 16 rows of one A tile (rows >= G zero, computed and never written),
+// K comes in by ldmatrix and V by ldmatrix.trans from rows padded by 16
+// bytes (no bank conflicts); the scale, folded with log2 e for exp2f, goes
+// on the fp32 logits; the row max and sum are reduced over the 4 lanes of
+// a quad; P, rounded to bf16, is reused in registers as the A fragment of
+// P V, and l is summed from the fp32 P.  At the end the 4 warps' (m, l,
+// acc) meet in their own shared memory and are merged in warp order, so
+// one input gives one output bit for bit.  A row with lengths[b] <= 0
+// scores every position 0 (so p = 1) and reports m = -1e30, as v1 does.
+//
+// v1, decode_partials_kernel<T, G> (fp32, and bf16 head dims that are not
+// a multiple of 16): the CTA holds all G query heads of its kv head (G a
+// template parameter, so the per-head state is exactly sized in
+// registers).  A lane owns 4 consecutive dims of a row (one 8- or 16-byte
+// load) and a warp walks 8 rows at a time, issuing the 8 loads before
+// using any.  Scores: 4 FMAs per head and a shuffle reduction; they go to
+// shared memory, where one warp per head takes the max and the exp.  PV:
+// each warp accumulates its rows for all G heads in registers; the 4
+// warps' sums meet in shared memory.
+//
+// Both: each K/V row is read from device memory once for the G heads (the
+// TPU index map re-reads K/V once per q head).  Positions >= lengths[b]
+// are not read at all: a split that lies wholly past lengths[b] writes m =
+// -1e30, l = 0, acc = 0 without touching the cache, and masked positions of
+// a split contribute exactly 0 (no -inf anywhere, so no inf - inf = nan).
+// A row with lengths[b] <= 0 gives the reference's dense softmax over
+// all-masked logits, the mean of V: it masks no position and scores each
+// with one logit.  S need not be a multiple of block_k.  The split count is
+// a function of S alone, never of B or lengths, and a CTA reads only its
+// own row, so batched and one-at-a-time decode give the same bits.
 //
 // Design, combine (flash_decode_combine): one CTA per (head, batch row);
 // each thread owns one output dim and does the LSE merge over all splits
 // against their common max, then acc / max(l, 1e-30), cast to the cache
 // dtype.
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -48,6 +75,9 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 8;          // rows a warp has in flight
 constexpr int MAX_HD = 128;      // 4 dims per lane
 constexpr int MAX_BLOCK_K = 256;
+constexpr int TC_SUB = 32;       // v2: cache rows a warp sub-tile
+constexpr int TC_MAXG = 16;      // v2: query heads a kv head (one m16 tile)
+constexpr int TC_MAXD_SLOTS = MAX_HD / 16 + 1;
 
 template <typename T, int G>
 __global__ void __launch_bounds__(THREADS)
@@ -199,6 +229,251 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------ v2: bf16 tensor-core kernel
+
+template <int HD>
+constexpr size_t tc_smem_bytes() {   // a K and a V slot for every warp
+  return sizeof(__nv_bfloat16) * (size_t)WARPS * 2 * TC_SUB * (HD + 8);
+}
+
+// Fragment layouts: tensor_core.cuh.  Rows of the A tile are the query
+// heads of the kv head.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 3)
+decode_partials_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ m_out, float* __restrict__ l_out,
+                          float* __restrict__ acc_out, int S, int H, int KV,
+                          int block_k, int nsplit, float scale_log2) {
+  constexpr int LDS = HD + 8;        // bf16 row stride: +16 bytes
+  constexpr int nd8 = HD / 8;        // 16-byte chunks of a row; n8 tiles
+  constexpr int ndk = HD / 16;       // k steps of Q K^T, 16-wide dim pairs
+  constexpr int NT = TC_SUB / 8;     // n8 tiles of scores a sub-tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int G = H / KV;
+  const bool none = lengths[b] <= 0;  // no valid position: attend all S
+  const int len = none ? S : min(lengths[b], S);
+  const int s0 = split * block_k;
+  const int n = min(s0 + block_k, len) - s0;   // valid positions here
+  const size_t out0 = ((size_t)b * H + (size_t)kvh * G) * nsplit + split;
+
+  if (n <= 0) {                      // wholly past lengths[b]: no cache read
+    for (int g = 0; g < G; ++g) {
+      if (tid == 0) {
+        m_out[out0 + (size_t)g * nsplit] = NEG_INF;
+        l_out[out0 + (size_t)g * nsplit] = 0.f;
+      }
+      for (int d = tid; d < HD; d += THREADS)
+        acc_out[(out0 + (size_t)g * nsplit) * HD + d] = 0.f;
+    }
+    return;
+  }
+
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw) +
+                      (size_t)warp * 2 * TC_SUB * LDS;
+  __nv_bfloat16* sV = sK + TC_SUB * LDS;
+  const size_t kv_row = (size_t)KV * HD;
+  const size_t first_row = ((size_t)b * S + s0) * KV + kvh;
+  const __nv_bfloat16* kb = k + first_row * HD;
+  const __nv_bfloat16* vb = v + first_row * HD;
+
+  // one sub-tile's rows [j0, j0 + 32) of the split into a slot; rows past
+  // n are zero-filled from no address (row 0 stands in, never read)
+  auto load = [&](const __nv_bfloat16* src, __nv_bfloat16* dst, int j0) {
+#pragma unroll 4
+    for (int c = lane; c < TC_SUB * nd8; c += 32) {
+      const int r = c / nd8, d = (c - r * nd8) * 8;
+      const bool full = j0 + r < n;
+      cp_async16(smem_addr(dst + r * LDS + d),
+                 src + (full ? (size_t)(j0 + r) * kv_row : 0) + d, full);
+    }
+  };
+  int j0 = warp * TC_SUB;            // this warp's first sub-tile
+  const int step = WARPS * TC_SUB;
+  if (j0 < n) {
+    load(kb, sK, j0);
+    cp_async_commit();
+    load(vb, sV, j0);
+    cp_async_commit();
+  }
+
+  // A fragments of Q: heads g4 and g4 + 8 of the kv head, zero past G
+  unsigned qf[ndk][4];
+  const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)kvh * G) * HD;
+#pragma unroll
+  for (int kk = 0; kk < ndk; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = g4 + 8 * h;
+      const __nv_bfloat16* p = qh + (size_t)row * HD + kk * 16 + 2 * t4;
+      qf[kk][h] = row < G ? *reinterpret_cast<const unsigned*>(p) : 0u;
+      qf[kk][h + 2] = row < G ? *reinterpret_cast<const unsigned*>(p + 8) : 0u;
+    }
+
+  float acc[nd8][4];                 // this warp's P V, fp32, 16 rows x HD
+#pragma unroll
+  for (int nn = 0; nn < nd8; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};   // running max, log2-scaled units
+  float l_r[2] = {0.f, 0.f};           // this lane's part of the row sums
+
+  for (; j0 < n; j0 += step) {
+    const bool more = j0 + step < n;
+    cp_async_wait<1>();              // K of this sub-tile is in
+    __syncwarp();
+
+    // S = Q K^T: 16 rows x 32 keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ndk; ++kk) {
+      unsigned bk[NT / 2][4];        // keys np*16 + 0..7 (k lo, hi), 8..15
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        ldmatrix_x4(bk[np], smem_addr(sK + (np * 16 + (lane & 7) +
+                                            ((lane >> 4) << 3)) * LDS +
+                                      kk * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        mma_bf16(s[2 * np], qf[kk], bk[np][0], bk[np][1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[np][2], bk[np][3]);
+      }
+    }
+    __syncwarp();                    // every lane is done with the K slot
+    if (more) load(kb, sK, j0 + step);
+    cp_async_commit();               // (maybe empty) keeps the count fixed
+
+    // scale (log2 units) and mask past n; a row with no valid position
+    // scores every position 0
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + j * 8 + 2 * t4 + (e & 1);
+        s[j][e] = key >= n ? NEG_INF : none ? 0.f : s[j][e] * scale_log2;
+      }
+
+    // online softmax over the warp's sub-tiles: row max over the quad,
+    // rescale, P in bf16 fragments
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m_r[h];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mu[h] = mx == NEG_INF ? 0.f : mx;
+      alpha[h] = exp2f(m_r[h] - mu[h]);
+      m_r[h] = mx;
+    }
+    unsigned pf[NT / 2][4];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float p0 = exp2f(s[j][0] - mu[0]), p1 = exp2f(s[j][1] - mu[0]);
+      const float p2 = exp2f(s[j][2] - mu[1]), p3 = exp2f(s[j][3] - mu[1]);
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int nn = 0; nn < nd8; ++nn) {
+      acc[nn][0] *= alpha[0];
+      acc[nn][1] *= alpha[0];
+      acc[nn][2] *= alpha[1];
+      acc[nn][3] *= alpha[1];
+    }
+
+    cp_async_wait<1>();              // V of this sub-tile is in
+    __syncwarp();
+    // O += P V: V^T fragments by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < ndk; ++dp) {
+        unsigned bv[4];              // dims dp*16 + 0..7 (keys lo, hi), 8..15
+        ldmatrix_x4_trans(bv, smem_addr(sV + (kk * 16 + (lane & 7) +
+                                              ((lane >> 3) & 1) * 8) * LDS +
+                                        dp * 16 + (lane >> 4) * 8));
+        mma_bf16(acc[2 * dp], pf[kk], bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], pf[kk], bv[2], bv[3]);
+      }
+    }
+    __syncwarp();                    // every lane is done with the V slot
+    if (more) load(vb, sV, j0 + step);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // the warps' partials meet in shared memory, each warp in its own slots
+  // (its reads of them are over): m, l of 16 rows, then acc [16][HD + 4]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+  }
+  constexpr int ALD = HD + 4;
+  float* wm = reinterpret_cast<float*>(sK);
+  float* wl = wm + TC_MAXG;
+  float* wacc = wl + TC_MAXG;
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = g4 + 8 * h;
+    if (row < G) {
+      if (t4 == 0) {
+        wm[row] = m_r[h];
+        wl[row] = l_r[h];
+      }
+#pragma unroll
+      for (int nn = 0; nn < nd8; ++nn)
+        *reinterpret_cast<float2*>(wacc + row * ALD + nn * 8 + 2 * t4) =
+            make_float2(acc[nn][2 * h], acc[nn][2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  // merge in warp order: m = max m_w, weights 2^(m_w - m); m reported in
+  // natural-log units, and -1e30 for a row with no valid position
+  constexpr size_t WSTRIDE = 2 * TC_SUB * LDS / 2;   // floats a warp's slots
+  const float* m0 = reinterpret_cast<const float*>(smem_raw);
+  for (int i = tid; i < G * HD; i += THREADS) {
+    const int g = i / HD, d = i - g * HD;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, m0[w * WSTRIDE + g]);
+    const float mu = mx == NEG_INF ? 0.f : mx;
+    float a = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float* base = m0 + w * WSTRIDE;
+      const float wt = exp2f(base[g] - mu);
+      a = fmaf(wt, base[2 * TC_MAXG + g * ALD + d], a);
+      lsum = fmaf(wt, base[TC_MAXG + g], lsum);
+    }
+    const size_t o = out0 + (size_t)g * nsplit;
+    acc_out[o * HD + d] = a;
+    if (d == 0) {
+      m_out[o] = none || mx == NEG_INF ? NEG_INF : mx * LN2;
+      l_out[o] = lsum;
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
@@ -243,6 +518,7 @@ cudaError_t launch_partials(const void* q, const void* k, const void* v,
   switch (H / KV) {
     case 1: return launch_partials<T, 1>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 2: return launch_partials<T, 2>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
+    case 3: return launch_partials<T, 3>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 4: return launch_partials<T, 4>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 5: return launch_partials<T, 5>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
     case 8: return launch_partials<T, 8>(q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit, scale, stream);
@@ -251,14 +527,72 @@ cudaError_t launch_partials(const void* q, const void* k, const void* v,
   }
 }
 
+// above 48 KB of shared memory only after opting in; once per process and
+// head dim, so that a launch inside a CUDA graph capture makes no
+// non-stream API call
+bool opted_in_tc[TC_MAXD_SLOTS] = {};
+
+template <int HD>
+cudaError_t opt_in_tc() {
+  if (opted_in_tc[HD / 16]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      decode_partials_tc_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_smem_bytes<HD>());
+  if (err == cudaSuccess) opted_in_tc[HD / 16] = true;
+  return err;
+}
+
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const int* lengths, float* m, float* l, float* acc,
+                      int B, int S, int H, int KV, int block_k, int nsplit,
+                      float scale, cudaStream_t stream) {
+  const cudaError_t err = opt_in_tc<HD>();
+  if (err != cudaSuccess) return err;
+  dim3 grid(nsplit, KV, B);
+  decode_partials_tc_kernel<HD><<<grid, THREADS, tc_smem_bytes<HD>(),
+                                  stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), lengths, m, l, acc, S, H, KV,
+      block_k, nsplit, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// the head dim as a template argument: every fragment loop unrolls
+cudaError_t launch_tc_hd(const void* q, const void* k, const void* v,
+                         const int* lengths, float* m, float* l, float* acc,
+                         int B, int S, int H, int KV, int hd, int block_k,
+                         int nsplit, float scale, cudaStream_t stream) {
+#define REPRO_TC_CASE(D)                                                    \
+  case D:                                                                   \
+    return launch_tc<D>(q, k, v, lengths, m, l, acc, B, S, H, KV, block_k,  \
+                        nsplit, scale, stream);
+  switch (hd) {
+    REPRO_TC_CASE(16)
+    REPRO_TC_CASE(32)
+    REPRO_TC_CASE(48)
+    REPRO_TC_CASE(64)
+    REPRO_TC_CASE(80)
+    REPRO_TC_CASE(96)
+    REPRO_TC_CASE(112)
+    REPRO_TC_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_TC_CASE
+}
+
 }  // namespace
 
+// tensor_cores = 1: v2 (bf16, hd % 16 == 0, H / KV <= 16); 0: v1 (bf16 or
+// fp32, H / KV one of the template's groups)
 extern "C" int flash_decode_partials(const void* q, const void* k,
                                      const void* v, const void* lengths,
                                      void* m, void* l, void* acc, int B, int S,
                                      int H, int KV, int hd, int block_k,
                                      int nsplit, float scale, int is_bf16,
-                                     void* stream) {
+                                     int tensor_cores, void* stream) {
   if (hd > MAX_HD || hd % 4 != 0 || H % KV != 0 || block_k < 1 ||
       block_k > MAX_BLOCK_K || (long long)nsplit * block_k < S)
     return (int)cudaErrorInvalidValue;
@@ -267,6 +601,12 @@ extern "C" int flash_decode_partials(const void* q, const void* k,
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
   float* af = static_cast<float*>(acc);
+  if (tensor_cores) {
+    if (!is_bf16 || hd % 16 != 0 || H / KV > TC_MAXG)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_tc_hd(q, k, v, len, mf, lf, af, B, S, H, KV, hd,
+                             block_k, nsplit, scale, s);
+  }
   cudaError_t err =
       is_bf16 ? launch_partials<__nv_bfloat16>(q, k, v, len, mf, lf, af, B, S, H,
                                                KV, hd, block_k, nsplit, scale, s)
@@ -292,6 +632,36 @@ extern "C" int flash_decode_combine(const void* m, const void* l,
     decode_combine_kernel<float><<<grid, THREADS, 0, s>>>(
         mf, lf, af, static_cast<float*>(out), H, hd, nsplit);
   return (int)cudaGetLastError();
+}
+
+// What the compiler and the occupancy calculator give each kernel:
+// out[0..4] = registers a thread, local (spill) bytes a thread, static
+// shared bytes, dynamic shared bytes a launch, CTAs an SM can hold.
+// which: 0 = v2 decode_partials_tc_kernel<128>, 1 = v1 bf16 at G = 4, 2 =
+// v1 fp32 at G = 4, 3 = combine (bf16 out).
+extern "C" int flash_decode_attrs(int which, int* out) {
+  switch (which) {
+    case 0: {
+      const cudaError_t err = opt_in_tc<128>();
+      if (err != cudaSuccess) return (int)err;
+      return (int)kernel_attrs(decode_partials_tc_kernel<128>, THREADS,
+                               tc_smem_bytes<128>(), out);
+    }
+    case 1:
+      return (int)kernel_attrs(decode_partials_kernel<__nv_bfloat16, 4>,
+                               THREADS,
+                               sizeof(float) * 4 * (size_t)(128 + WARPS * 128),
+                               out);
+    case 2:
+      return (int)kernel_attrs(decode_partials_kernel<float, 4>, THREADS,
+                               sizeof(float) * 4 * (size_t)(128 + WARPS * 128),
+                               out);
+    case 3:
+      return (int)kernel_attrs(decode_combine_kernel<__nv_bfloat16>, THREADS,
+                               0, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -35,21 +35,38 @@
 // _tile_sort_kernel), K9b _pack (_pack_kernel), K9c _unpack
 // (_unpack_kernel).
 //
-// What bounds them on this card: bytes.  K9b and K9c read 4 bytes and
-// write 4 bytes a word (8 MB, 2.5 us at 2^20 words).  K9a also reads and
-// writes each word once, but its network does log2(tile)(log2(tile)+1)/2
-// compare stages over the tile (55 at 1024), each a pass over shared memory
-// and a __syncthreads: shared-memory traffic and barriers, not device
-// bytes, are what it costs.
+// What bounds them on this card: bytes.  Each reads 4 bytes and writes 4
+// bytes a word (8 MB, 2.5 us at 2^20 words).  K9a's network also does
+// log2(tile)(log2(tile)+1)/2 compare stages over each tile (55 at 1024),
+// W compare-exchanges a thread each, which costs more than its bytes.
 //
-// Design.  K9a: one CTA per tile, the tile in shared memory (at most 2^13
-// words, 32 KB), the reference's bitonic network stage by stage: pair
-// (i, i ^ j) with i's j bit clear, ascending where i & k is 0.  It stays a
-// comparison network on purpose (the method is the comparison baseline
-// next to radix).  Sorting u32 values moves no payload, so any correct sort
-// gives the reference's words bit for bit.  K9b and K9c: grid-stride
-// elementwise passes in 16-byte vectors where both pointers allow, scalar
-// words otherwise.
+// Design, K9a v2: the reference's bitonic network (pair i, i ^ j with i's
+// j bit clear, ascending where i & k is 0 or k is the whole tile) with the
+// tile in registers.  It stays a comparison network on purpose (the method
+// is the comparison baseline next to radix); sorting u32 values moves no
+// payload, so any correct sort gives the reference's words bit for bit.
+// A CTA of NT threads holds a block of W * NT words (one tile, or several
+// small ones: k never exceeds the tile, so no stage crosses a tile), each
+// thread W consecutive words, loaded and stored as 16-byte vectors
+// (blocked layout: word i = t * W + e).  Where the stage's partner
+// distance j lies decides where it runs:
+//  - j < W: inside the thread, registers only;
+//  - W <= j < 32 W: the partner is lane ^ (j / W) of the same warp, one
+//    __shfl_xor_sync a word; each lane keeps the min or the max by its
+//    direction bit;
+//  - j >= 32 W: the block goes once through shared memory into the strided
+//    layout (word i = t + NT * e), where every such j is a multiple of NT
+//    (the (W, NT) pairs are chosen so that 32 W >= NT), so these stages run
+//    inside the thread too, and back: two barriers for each merge step k
+//    that has them (2 of 10 steps, 3 of 55 stages at tile 1024).
+// (W, NT) by tile: (8, 128) up to 1024 words, (8, 256) at 2048, (16, 256)
+// at 4096, (16, 512) at 8192.  128 threads at tile 1024 let 16 CTAs share
+// an SM, so 2^20 words (1024 tiles) run in one wave.  Pad words past n fill
+// whole tiles (n is a multiple of the tile) with the sentinel and are not
+// stored.
+//
+// Design, K9b and K9c: grid-stride elementwise passes in 16-byte vectors
+// where both pointers allow, scalar words otherwise.
 #include "common.cuh"
 
 #include <algorithm>
@@ -58,7 +75,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCK = 4096;  // 2 x 16 KB of shared memory
-constexpr int SORT_THREADS = 512;
 constexpr int MAX_SORT_TILE = 1 << 13;   // 32 KB of shared memory
 constexpr int EW_THREADS = 256;
 constexpr unsigned SENTINEL = 0xffffffffu;
@@ -112,39 +128,114 @@ merge_level_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ out,
   }
 }
 
-// K9a: every tile of `tile` words sorted ascending by the bitonic network
-__global__ void __launch_bounds__(SORT_THREADS)
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// one compare-exchange: a gets the min and b the max if up, else the reverse
+__device__ __forceinline__ void cmp_swap(unsigned& a, unsigned& b, bool up) {
+  const unsigned lo = min(a, b), hi = max(a, b);
+  a = up ? lo : hi;
+  b = up ? hi : lo;
+}
+
+// K9a v2: every tile of `tile` words sorted ascending by the bitonic
+// network, W words a thread in registers (see the notes above)
+template <int W, int NT>
+__global__ void __launch_bounds__(NT)
 bitonic_sort_kernel(const unsigned* __restrict__ x,
-                    unsigned* __restrict__ out, int tile) {
-  extern __shared__ unsigned w[];
-  const size_t off = (size_t)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += SORT_THREADS) w[i] = x[off + i];
-  __syncthreads();
+                    unsigned* __restrict__ out, int n, int tile) {
+  static_assert(W % 4 == 0 && 32 * W >= NT, "strided stages stay in-thread");
+  constexpr int BLOCK = W * NT;
+  extern __shared__ __align__(16) unsigned sbuf[];   // [BLOCK]
+  const int t = threadIdx.x, lane = t & 31;
+  const long long first = (long long)blockIdx.x * BLOCK + (long long)t * W;
+  const bool vec = aligned16(x) && aligned16(out) && first + W <= n;
+  unsigned v[W];
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(x + first) + c);
+      v[4 * c] = q.x; v[4 * c + 1] = q.y; v[4 * c + 2] = q.z;
+      v[4 * c + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e)
+      v[e] = first + e < n ? x[first + e] : SENTINEL;
+  }
+  const int tw = t * W;                  // my first word within the block
   for (int k = 2; k <= tile; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < tile / 2; p += SORT_THREADS) {
-        // the p-th index with its j bit clear, and its partner i ^ j
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const unsigned a = w[i], b = w[i + j];
-        const bool up = (i & k) == 0;
-        if ((a > b) == up) {
-          w[i] = b;
-          w[i + j] = a;
+    const bool whole = k >= tile;        // the last merge: all ascending
+    if (k > 32 * W) {
+      // stages j >= 32 W: blocked -> strided through shared memory, the
+      // stages in registers (partner e ^ j / NT), strided -> blocked.  A
+      // thread writes back only the words it read, and the blocked store
+      // of the next step only its own words, so two barriers suffice
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c)
+        reinterpret_cast<uint4*>(sbuf + tw)[c] =
+            make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+      __syncthreads();
+      unsigned s[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) s[e] = sbuf[t + NT * e];
+#pragma unroll
+      for (int jj = W / 2; jj >= 1; jj >>= 1) {
+        if (jj * NT < k && jj * NT >= 32 * W) {
+#pragma unroll
+          for (int e = 0; e < W; ++e)
+            if ((e & jj) == 0)
+              cmp_swap(s[e], s[e | jj], whole || ((t + NT * e) & k) == 0);
         }
       }
+#pragma unroll
+      for (int e = 0; e < W; ++e) sbuf[t + NT * e] = s[e];
       __syncthreads();
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) {
+        const uint4 q = reinterpret_cast<const uint4*>(sbuf + tw)[c];
+        v[4 * c] = q.x; v[4 * c + 1] = q.y; v[4 * c + 2] = q.z;
+        v[4 * c + 3] = q.w;
+      }
+    }
+    // stages W <= j < 32 W: the partner is lane ^ (j / W), same word slot
+    const bool up = whole || (tw & k) == 0;   // k > j >= W: a bit of tw
+    for (int j = min(k >> 1, 16 * W); j >= W; j >>= 1) {
+      const int d = j / W;
+      const bool keep_min = ((lane & d) == 0) == up;
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const unsigned y = __shfl_xor_sync(0xffffffffu, v[e], d);
+        v[e] = keep_min ? min(v[e], y) : max(v[e], y);
+      }
+    }
+    // stages j < W: inside the thread
+#pragma unroll
+    for (int j = W / 2; j >= 1; j >>= 1) {
+      if (j < k) {
+#pragma unroll
+        for (int e = 0; e < W; ++e)
+          if ((e & j) == 0)
+            cmp_swap(v[e], v[e | j], whole || ((tw + e) & k) == 0);
+      }
     }
   }
-  for (int i = threadIdx.x; i < tile; i += SORT_THREADS) out[off + i] = w[i];
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c)
+      reinterpret_cast<uint4*>(out + first)[c] =
+          make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e)
+      if (first + e < n) out[first + e] = v[e];
+  }
 }
 
 __device__ __forceinline__ unsigned pack1(unsigned key, unsigned i,
                                           unsigned n, int idx_bits) {
   return i < n ? ((idx_bits >= 32 ? 0u : key << idx_bits) | i) : SENTINEL;
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
 // K9b: out[i] = key[i] << idx_bits | i for i < n, the sentinel past n
@@ -202,6 +293,30 @@ unsigned ew_grid(int m) {
   return (unsigned)std::max(1, std::min(want, 132 * 16));
 }
 
+template <int W, int NT>
+int bitonic_launch(const void* x, void* out, int n, int tile,
+                   cudaStream_t st, int* attrs) {
+  constexpr int BLOCK = W * NT;
+  const size_t smem = sizeof(unsigned) * BLOCK;   // <= 32 KB: no opt-in
+  if (attrs != nullptr) {
+    attrs[5] = NT;
+    return (int)kernel_attrs(bitonic_sort_kernel<W, NT>, NT, smem, attrs);
+  }
+  const long long grid = ((long long)n + BLOCK - 1) / BLOCK;
+  bitonic_sort_kernel<W, NT><<<(unsigned)grid, NT, smem, st>>>(
+      static_cast<const unsigned*>(x), static_cast<unsigned*>(out), n, tile);
+  return (int)cudaGetLastError();
+}
+
+// K9a's (W, NT) for a tile (see the notes at the top)
+int bitonic_dispatch(const void* x, void* out, int n, int tile,
+                     cudaStream_t st, int* attrs) {
+  if (tile <= 1024) return bitonic_launch<8, 128>(x, out, n, tile, st, attrs);
+  if (tile == 2048) return bitonic_launch<8, 256>(x, out, n, tile, st, attrs);
+  if (tile == 4096) return bitonic_launch<16, 256>(x, out, n, tile, st, attrs);
+  return bitonic_launch<16, 512>(x, out, n, tile, st, attrs);
+}
+
 }  // namespace
 
 extern "C" int merge_level(const void* x, void* out, int n, int run,
@@ -221,14 +336,23 @@ extern "C" int merge_level(const void* x, void* out, int n, int run,
   return (int)cudaGetLastError();
 }
 
-extern "C" int bitonic_tile_sort(const void* x, void* out, int nt, int tile,
+extern "C" int bitonic_tile_sort(const void* x, void* out, int n, int tile,
                                  void* stream) {
-  if (nt < 1 || tile < 1 || tile > MAX_SORT_TILE || (tile & (tile - 1)) != 0)
+  if (n < 1 || tile < 1 || tile > MAX_SORT_TILE || (tile & (tile - 1)) != 0 ||
+      n % tile != 0)
     return (int)cudaErrorInvalidValue;
-  bitonic_sort_kernel<<<nt, SORT_THREADS, sizeof(unsigned) * (size_t)tile,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(x), static_cast<unsigned*>(out), tile);
-  return (int)cudaGetLastError();
+  return bitonic_dispatch(x, out, n, tile, static_cast<cudaStream_t>(stream),
+                          nullptr);
+}
+
+// What the compiler and the occupancy calculator give K9a's instance for
+// `tile`: out[0..5] = registers a thread, local (spill) bytes a thread,
+// static shared bytes, dynamic shared bytes a launch, CTAs an SM can hold,
+// threads a CTA.
+extern "C" int bitonic_tile_sort_attrs(int tile, int* out) {
+  if (tile < 1 || tile > MAX_SORT_TILE || (tile & (tile - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  return bitonic_dispatch(nullptr, nullptr, 0, tile, nullptr, out);
 }
 
 extern "C" int pack_keys(const void* keys, void* out, int m, int n,

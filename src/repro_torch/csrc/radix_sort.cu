@@ -364,20 +364,10 @@ int launch_tile_sort(const void* x, void* out, int nt, int tile,
 template <int K, int NT>
 cudaError_t tile_sort_attrs(int tile, int* out) {
   const size_t smem = k7a_smem(tile, NT);
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, tile_sort_kernel<K, NT>);
-  if (err == cudaSuccess) err = allow_smem(tile_sort_kernel<K, NT>, smem);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, tile_sort_kernel<K, NT>, NT, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = (int)smem;
-  out[4] = per_sm;
-  return cudaSuccess;
+  const cudaError_t err = allow_smem(tile_sort_kernel<K, NT>, smem);
+  return err != cudaSuccess
+             ? err
+             : kernel_attrs(tile_sort_kernel<K, NT>, NT, smem, out);
 }
 
 // K7a's instance for a tile: NT threads, K = tile / NT keys a thread (at

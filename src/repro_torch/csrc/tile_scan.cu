@@ -592,12 +592,7 @@ extern "C" int tile_scan_add_attrs(int words, int r, int* out) {
   int lr = 0;
   while ((1 << lr) < r) ++lr;
   const ScanKernel k = SCAN_KERNELS[lr];
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, k);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k,
-                                                        SCAN_THREADS, 0);
+  cudaError_t err = kernel_attrs(k, SCAN_THREADS, 0, out);
   const int C = max_cluster(lr);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(C, &attr);
@@ -605,11 +600,6 @@ extern "C" int tile_scan_add_attrs(int words, int r, int* out) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(&active, k, &cfg);
   if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = 0;
-  out[4] = per_sm;
   out[5] = C;
   out[6] = active;
   out[7] = rule_cluster(words, lr);

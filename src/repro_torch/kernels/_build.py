@@ -45,9 +45,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "flash_decode": {
         # q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit,
-        # scale, is_bf16, stream
+        # scale, is_bf16, tensor_cores, stream
         "flash_decode_partials": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                  F, I, P],
+                                  F, I, I, P],
         # m, l, acc, out, B, H, hd, nsplit, is_bf16, stream
         "flash_decode_combine": [P, P, P, P, I, I, I, I, I, P],
     },
@@ -75,7 +75,7 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "merge_sort": {
         # x, out, n, run, block, unpack_mask, unpack, stream
         "merge_level": [P, P, I, I, I, U, I, P],
-        # x, out, nt, tile, stream
+        # x, out, n, tile, stream
         "bitonic_tile_sort": [P, P, I, I, P],
         # keys, out, m, n, idx_bits, stream
         "pack_keys": [P, P, I, I, I, P],
@@ -180,6 +180,28 @@ def build(source: str) -> Path:
     return _lib_path(source)
 
 
+# what every ``*_attrs`` entry point writes first (csrc/common.cuh
+# ``kernel_attrs``)
+ATTRIBUTES = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
+              "ctas_per_sm")
+
+
+def attributes(source: str, func: str, *args: int,
+               extra: Sequence[str] = ()) -> Dict[str, int]:
+    """Call a source's attribute entry point ``func(int..., int* out)``:
+    what the compiler and the occupancy calculator give one kernel, by
+    name (:data:`ATTRIBUTES`, then the entry's ``extra`` fields)."""
+    keys = ATTRIBUTES + tuple(extra)
+    fn = getattr(ctypes.CDLL(str(build(source))), func)
+    fn.argtypes = [I] * len(args) + [ctypes.POINTER(I)]
+    fn.restype = I
+    vals = (I * len(keys))()
+    err = fn(*args, vals)
+    if err:
+        raise RuntimeError(f"{func}{args}: cudaError {err}")
+    return dict(zip(keys, vals))
+
+
 def build_all() -> Dict[str, str]:
     """Compile every kernel source in parallel (one ``nvcc`` each).  Returns
     each source's compiler log (``-Xptxas -v``: registers, shared memory,
@@ -189,5 +211,5 @@ def build_all() -> Dict[str, str]:
     return {s: _finish(s, procs[s]) for s in sources}
 
 
-__all__ = ["Kernel", "KERNELS", "build", "build_all", "reset_launches",
-           "launches", "BUILD_DIR"]
+__all__ = ["Kernel", "KERNELS", "build", "build_all", "attributes",
+           "reset_launches", "launches", "ATTRIBUTES", "BUILD_DIR"]

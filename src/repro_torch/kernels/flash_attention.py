@@ -23,7 +23,6 @@ on the CPU.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
@@ -304,23 +303,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def kernel_attributes() -> Dict[str, Dict[str, int]]:
     """Registers, spills, shared memory and CTAs an SM of K1's kernels, as
     the compiled library and the occupancy calculator report them."""
-    lib = ctypes.CDLL(str(_build.build("flash_attention")))
-    lib.flash_attention_attrs.argtypes = [ctypes.c_int,
-                                          ctypes.POINTER(ctypes.c_int)]
-    lib.flash_attention_attrs.restype = ctypes.c_int
-    out = {}
-    for which, name in enumerate(("v3 flash_fwd_tc_kernel<128>",
-                                  "v2 flash_fwd_kernel<bf16>",
-                                  "v2 flash_fwd_kernel<float>",
-                                  "flash_fwd_merge_kernel")):
-        vals = (ctypes.c_int * 5)()
-        err = lib.flash_attention_attrs(which, vals)
-        if err:
-            raise RuntimeError(f"flash_attention_attrs({which}): cudaError "
-                               f"{err}")
-        out[name] = dict(zip(("registers", "spill_bytes", "static_smem",
-                              "dynamic_smem", "ctas_per_sm"), vals))
-    return out
+    return {name: _build.attributes("flash_attention",
+                                    "flash_attention_attrs", which)
+            for which, name in enumerate(("v3 flash_fwd_tc_kernel<128>",
+                                          "v2 flash_fwd_kernel<bf16>",
+                                          "v2 flash_fwd_kernel<float>",
+                                          "flash_fwd_merge_kernel"))}
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "uses_tensor_cores",

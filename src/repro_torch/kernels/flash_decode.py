@@ -2,6 +2,15 @@
 (``csrc/flash_decode.cu``: partials, then combine) and their plain PyTorch
 twins.
 
+Two kernels compute the partials, routed by :func:`uses_tensor_cores`: v2
+(bf16 with a head dim that is a multiple of 16: one pass a split, K/V
+through a ``cp.async`` ring of warp sub-tiles, both products on the bf16
+tensor cores, P rounded to bf16 before P·V) and v1 (fp32, which the exact
+fp32 goldens run, and other bf16 head dims: FMAs).
+``decode_partials(tensor_cores=)`` forces either on the card;
+:func:`decode_partials_model` is v2's decomposition in
+plain fp32.
+
 Replaces ``repro/kernels/flash_decode.py::decode_partials`` +
 ``combine_partials`` and the reduce in ``flash_decode``.  The KV range
 [0, S) is cut into ``num_splits(S)`` blocks of ``block_k`` positions — a
@@ -19,7 +28,7 @@ position of it is scored with the one logit -1e30 and none is masked.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,15 +39,25 @@ BLOCK_K = 128
 PARTIALS = _build.KERNELS["flash_decode_partials"]
 COMBINE = _build.KERNELS["flash_decode_combine"]
 MAX_HEAD_DIM = 128
-GROUPS = (1, 2, 4, 5, 8, 16)     # H / KV values the kernel is built for
-                                 # (5: llama4-scout's 40 / 8)
+GROUPS = (1, 2, 3, 4, 5, 8, 16)  # H / KV values the kernels take (3:
+                                 # minitron-4b's 24 / 8, 5: llama4-scout's
+                                 # 40 / 8)
 MAX_BLOCK_K = 256
+SUB = 32                         # v2: cache rows a warp sub-tile
+WARPS = 4                        # v2: warps a CTA (one CTA a split)
+LOG2E = 1.4426950408889634
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def num_splits(S: int, block_k: int = BLOCK_K) -> int:
     return -(-S // block_k)
+
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """The route: v2 (tensor cores) for bf16 with a head dim that is a
+    multiple of the MMA depth 16; v1 (FMAs) for fp32 and the rest."""
+    return dtype == torch.bfloat16 and head_dim % 16 == 0
 
 
 def decode_partials_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -71,6 +90,84 @@ def decode_partials_plain(q: torch.Tensor, k_cache: torch.Tensor,
     acc = torch.einsum("bkgnj,bnjkd->bkgnd", p, vf)
     return (m.reshape(B, H, nk), l.reshape(B, H, nk),
             acc.reshape(B, H, nk, hd))
+
+
+def decode_partials_model(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          block_k: int = BLOCK_K,
+                          scale: Optional[float] = None) -> Partials:
+    """v2's decomposition in plain fp32, step for step: in each split, warp
+    w takes the sub-tiles of :data:`SUB` rows starting at SUB·(w + WARPS·i)
+    below the split's valid count n (rows past n zero-filled and masked);
+    the G query heads of a kv head are the rows of one tile; logits are
+    scaled in log2 units (scale·log2 e, for exp2) and the warp keeps an
+    online softmax over its sub-tiles (a row with no valid key yet
+    subtracts 0, so a masked p is exactly 0); the warps' (m, l, acc) merge
+    in warp order with weights 2^(m_w - m).  m is reported in natural-log
+    units.  A split past lengths[b] gives (-1e30, 0, 0); a row with
+    lengths[b] <= 0 scores all S positions 0 and reports m = -1e30.  The
+    kernel rounds P to bf16 before P·V; this model keeps it in fp32.
+    Returns what :func:`decode_partials_plain` returns."""
+    B, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    nk = num_splits(S, block_k)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    dev = q.device
+    kf = torch.zeros(B, nk * block_k + SUB, KV, hd, device=dev)
+    vf = torch.zeros_like(kf)
+    kf[:, :S] = k_cache.float()
+    vf[:, :S] = v_cache.float()
+    qf = q.float().reshape(B, KV, G, hd)
+    lens = lengths.to(dev).long()
+    none = lens <= 0                                         # (B,)
+    length = torch.where(none, S, lens.clamp(max=S))
+    s0 = torch.arange(nk, device=dev) * block_k              # (nk,)
+    n = (torch.minimum(s0[None] + block_k, length[:, None])
+         - s0[None])                                         # (B, nk)
+    m_w, l_w, a_w = [], [], []
+    for w in range(WARPS):
+        m_r = torch.full((B, KV, G, nk), NEG_INF, device=dev)
+        l_r = torch.zeros(B, KV, G, nk, device=dev)
+        acc = torch.zeros(B, KV, G, nk, hd, device=dev)
+        j0 = w * SUB
+        while j0 < block_k:
+            pos = s0[:, None] + j0 + torch.arange(SUB, device=dev)  # (nk,SUB)
+            kt = kf[:, pos]                              # (B,nk,SUB,KV,hd)
+            vt = vf[:, pos]
+            x = torch.einsum("bkgd,bnjkd->bkgnj", qf, kt) * (scale * LOG2E)
+            key = j0 + torch.arange(SUB, device=dev)
+            valid = (key[None, None] < n[:, :, None])[:, None, None]
+            x = torch.where(none[:, None, None, None, None], 0.0, x)
+            x = x.masked_fill(~valid, NEG_INF)
+            mx = torch.maximum(m_r, x.amax(-1))
+            mu = torch.where(mx == NEG_INF, 0.0, mx)
+            alpha = torch.exp2(m_r - mu)
+            p = torch.exp2(x - mu[..., None])
+            l_r = l_r * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgnj,bnjkd->bkgnd", p, vt)
+            m_r = mx
+            j0 += WARPS * SUB
+        m_w.append(m_r)
+        l_w.append(l_r)
+        a_w.append(acc)
+    mx = torch.stack(m_w).amax(0)
+    mu = torch.where(mx == NEG_INF, 0.0, mx)
+    m = torch.full_like(mx, NEG_INF)
+    l = torch.zeros_like(mx)
+    a = torch.zeros_like(a_w[0])
+    for w in range(WARPS):                      # in warp order, as v2 does
+        wt = torch.exp2(m_w[w] - mu)
+        a = a + wt[..., None] * a_w[w]
+        l = l + wt * l_w[w]
+    live = (n > 0)[:, None, None, :]                         # (B,1,1,nk)
+    m = torch.where(live & ~none[:, None, None, None] & (mx != NEG_INF),
+                    mx / LOG2E, m)
+    l = torch.where(live, l, 0.0)
+    a = torch.where(live[..., None], a, 0.0)
+    return (m.reshape(B, H, nk), l.reshape(B, H, nk),
+            a.reshape(B, H, nk, hd))
 
 
 def combine_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
@@ -133,14 +230,22 @@ def _check(q, k_cache, v_cache, lengths, block_k: int) -> None:
 
 
 def decode_partials(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
-                    scale: Optional[float] = None) -> Partials:
-    """Partials kernel (one launch); plain twin for CPU tensors."""
+                    scale: Optional[float] = None,
+                    tensor_cores: Optional[bool] = None) -> Partials:
+    """Partials kernel (one launch); plain twin for CPU tensors.
+    ``tensor_cores`` overrides :func:`uses_tensor_cores` (the card check
+    times v1 beside v2); a forced v2 raises on what it does not take."""
     if q.device.type == "cpu":
         return decode_partials_plain(q, k_cache, v_cache, lengths,
                                      block_k=block_k, scale=scale)
     _check(q, k_cache, v_cache, lengths, block_k)
     B, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
+    tc = uses_tensor_cores(q.dtype, hd) if tensor_cores is None \
+        else tensor_cores
+    if tc and not uses_tensor_cores(q.dtype, hd):
+        raise ValueError(f"flash_decode: the tensor-core kernel takes bf16 "
+                         f"with head_dim % 16 == 0, got {q.dtype}, {hd}")
     nk = num_splits(S, block_k)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     m = torch.empty((B, H, nk), dtype=torch.float32, device=q.device)
@@ -149,7 +254,7 @@ def decode_partials(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
     PARTIALS(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
              B, S, H, KV, hd, block_k, nk, float(scale),
-             int(q.dtype == torch.bfloat16),
+             int(q.dtype == torch.bfloat16), int(tc),
              torch.cuda.current_stream(q.device).cuda_stream)
     return m, l, acc
 
@@ -186,6 +291,18 @@ def flash_decode(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
     return combine(m, l, acc, v_cache.dtype)
 
 
+def kernel_attributes() -> Dict[str, Dict[str, int]]:
+    """Registers, spills, shared memory and CTAs an SM of K2's kernels, as
+    the compiled library and the occupancy calculator report them."""
+    return {name: _build.attributes("flash_decode", "flash_decode_attrs",
+                                    which)
+            for which, name in enumerate(("v2 decode_partials_tc_kernel<128>",
+                                          "v1 decode_partials_kernel<bf16, 4>",
+                                          "v1 decode_partials_kernel<float, 4>",
+                                          "decode_combine_kernel<bf16>"))}
+
+
 __all__ = ["flash_decode", "flash_decode_plain", "decode_partials",
-           "decode_partials_plain", "combine", "combine_plain", "num_splits",
-           "BLOCK_K", "PARTIALS", "COMBINE"]
+           "decode_partials_plain", "decode_partials_model", "combine",
+           "combine_plain", "num_splits", "uses_tensor_cores",
+           "kernel_attributes", "BLOCK_K", "GROUPS", "PARTIALS", "COMBINE"]

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -54,7 +54,7 @@ IDX_BITS = 20                 # documented default cap: tiles up to 2^20
 IDX_MASK = (1 << IDX_BITS) - 1
 MAX_BLOCK = 4096              # K8's output block (shared memory: 2 x 16 KB)
 
-MAX_BITONIC_TILE = 1 << 13   # K9a's tile in shared memory (32 KB)
+MAX_BITONIC_TILE = 1 << 13   # K9a's largest tile (16 words x 512 threads)
 
 K8 = _build.KERNELS["merge_level"]
 K9A = _build.KERNELS["bitonic_tile_sort"]
@@ -73,6 +73,68 @@ def tile_sort_plain(x: torch.Tensor, *, tile: int) -> torch.Tensor:
                 ).reshape(n)
 
 
+def k9a_shape(tile: int) -> Tuple[int, int]:
+    """K9a's (W, NT) for a tile: W words a thread, NT threads a CTA, a
+    block of W·NT words (csrc/merge_sort.cu ``bitonic_dispatch``).  32·W >=
+    NT, so every stage with j >= 32·W is a multiple of NT."""
+    if tile <= 1024:
+        return 8, 128
+    return {2048: (8, 256), 4096: (16, 256)}.get(tile, (16, 512))
+
+
+def tile_sort_model(x: torch.Tensor, *, tile: int) -> torch.Tensor:
+    """K9a's stage schedule in plain PyTorch, stage by stage: the block of
+    W·NT words held W consecutive words a thread (word t·W + e); stages
+    with j < W exchange slots e, e ^ j of one thread, W <= j < 32·W lanes
+    t, t ^ (j / W) of one warp, and j >= 32·W slots e, e ^ (j / NT) of
+    one thread in the strided layout (word t + NT·e) the block takes
+    through shared memory.  Pair (i, i ^ j): the lower index keeps the min
+    where the block is ascending (i & k == 0, or k the whole tile).  Pad
+    words past n are the sentinel.  Equals :func:`tile_sort_plain`."""
+    n = x.shape[0]
+    W, NT = k9a_shape(tile)
+    block = W * NT
+    nb = -(-n // block)
+    w = torch.full((nb * block,), SENTINEL, dtype=torch.int64,
+                   device=x.device)
+    w[:n] = _u64(x)
+    dev = x.device
+    t = torch.arange(NT, device=dev)[:, None]
+    e = torch.arange(W, device=dev)[None, :]
+
+    def exchange(v, partner, lower, i, k):
+        up = (i & k) == 0 if k < tile else torch.ones_like(lower)
+        return torch.where(lower == up, torch.minimum(v, partner),
+                           torch.maximum(v, partner))
+
+    v = w.reshape(nb, NT, W)                          # blocked: t·W + e
+    k = 2
+    while k <= tile:
+        if k > 32 * W:                                # via shared memory
+            s = v.reshape(nb, W, NT).transpose(1, 2)  # strided: t + NT·e
+            jj = W // 2
+            while jj >= 1:
+                if 32 * W <= jj * NT < k:
+                    s = exchange(s, s[:, :, e[0] ^ jj], (e & jj) == 0,
+                                 t + NT * e, k)
+                jj //= 2
+            v = s.transpose(1, 2).reshape(nb, NT, W)
+        j = min(k // 2, 16 * W)
+        while j >= W:                                 # warp shuffles
+            d = j // W
+            v = exchange(v, v[:, t[:, 0] ^ d, :], (t % 32 & d) == 0,
+                         t * W + e, k)
+            j //= 2
+        j = W // 2
+        while j >= 1:                                 # inside a thread
+            if j < k:
+                v = exchange(v, v[:, :, e[0] ^ j], (e & j) == 0, t * W + e,
+                             k)
+            j //= 2
+        k *= 2
+    return _u32(v.reshape(-1)[:n])
+
+
 def tile_sort(x: torch.Tensor, *, tile: int = 1024) -> torch.Tensor:
     """Sort each tile of a (n,) uint32 tensor locally with the bitonic
     network (K9a, the radix baseline).  n % tile == 0."""
@@ -85,11 +147,20 @@ def tile_sort(x: torch.Tensor, *, tile: int = 1024) -> torch.Tensor:
         return tile_sort_plain(x, tile=tile)
     _check_cuda("tile_sort", x, torch.uint32)
     if tile > MAX_BITONIC_TILE:
-        raise ValueError(f"tile_sort on the card holds a tile in shared "
-                         f"memory: tile <= {MAX_BITONIC_TILE}, got {tile}")
+        raise ValueError(f"tile_sort on the card holds a tile in registers "
+                         f"and shared memory: tile <= {MAX_BITONIC_TILE}, "
+                         f"got {tile}")
     out = torch.empty_like(x)
-    K9A(x.data_ptr(), out.data_ptr(), n // tile, tile, _stream(x))
+    K9A(x.data_ptr(), out.data_ptr(), n, tile, _stream(x))
     return out
+
+
+def kernel_attributes(tile: int) -> Dict[str, int]:
+    """Registers, spills, shared memory, CTAs an SM and threads a CTA of
+    K9a's kernel instance for ``tile``, as the compiled library and the
+    occupancy calculator report them."""
+    return _build.attributes("merge_sort", "bitonic_tile_sort_attrs", tile,
+                             extra=("threads",))
 
 
 def pack_plain(keys: torch.Tensor, *, n: int, idx_bits: int) -> torch.Tensor:
@@ -420,5 +491,6 @@ def argsort(keys: torch.Tensor, *, num_key_bits: int = 12, tile: int = 1024,
 
 __all__ = ["argsort", "sort_u32", "tile_sort", "merge_pair",
            "merge_level_plain", "tile_sort_plain", "pack_plain",
-           "unpack_plain", "IDX_BITS", "IDX_MASK", "MAX_BITONIC_TILE", "K8",
-           "K9A", "K9B", "K9C"]
+           "unpack_plain", "tile_sort_model", "k9a_shape",
+           "kernel_attributes", "IDX_BITS", "IDX_MASK", "MAX_BITONIC_TILE",
+           "K8", "K9A", "K9B", "K9C"]

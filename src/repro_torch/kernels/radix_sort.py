@@ -33,7 +33,6 @@ and changes nothing here.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -509,16 +508,8 @@ def kernel_attributes(tile: int) -> Dict[str, int]:
     K7a's kernel instance for ``tile`` (one a keys-per-thread count and CTA
     size), as the compiled library and the occupancy calculator report
     them."""
-    lib = ctypes.CDLL(str(_build.build("radix_sort")))
-    lib.radix_tile_sort_attrs.argtypes = [ctypes.c_int,
-                                          ctypes.POINTER(ctypes.c_int)]
-    lib.radix_tile_sort_attrs.restype = ctypes.c_int
-    vals = (ctypes.c_int * 6)()
-    err = lib.radix_tile_sort_attrs(tile, vals)
-    if err:
-        raise RuntimeError(f"radix_tile_sort_attrs({tile}): cudaError {err}")
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "ctas_per_sm", "threads"), vals))
+    return _build.attributes("radix_sort", "radix_tile_sort_attrs", tile,
+                             extra=("threads",))
 
 
 __all__ = ["radix_tile_sort", "radix_tile_sort_packed",

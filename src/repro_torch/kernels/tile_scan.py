@@ -45,7 +45,6 @@ checked for the reference's signature and change nothing else.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -394,17 +393,9 @@ def kernel_attributes(words: int, radix: int) -> Dict[str, int]:
     ``radix`` (1 for the 1-D scan), the largest cluster the card places and
     how many of those fit at once, and the cluster the rule takes for a
     call of ``words`` words."""
-    lib = ctypes.CDLL(str(_build.build("tile_scan")))
-    lib.tile_scan_add_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
-                                        ctypes.POINTER(ctypes.c_int)]
-    lib.tile_scan_add_attrs.restype = ctypes.c_int
-    vals = (ctypes.c_int * 8)()
-    err = lib.tile_scan_add_attrs(words, radix, vals)
-    if err:
-        raise RuntimeError(f"tile_scan_add_attrs: cudaError {err}")
-    return dict(zip(("registers", "spill_bytes", "static_smem",
-                     "dynamic_smem", "ctas_per_sm", "max_cluster",
-                     "active_clusters", "rule_cluster"), vals))
+    return _build.attributes("tile_scan", "tile_scan_add_attrs", words,
+                             radix, extra=("max_cluster", "active_clusters",
+                                           "rule_cluster"))
 
 
 __all__ = ["tile_scan", "histogram_offsets", "scan_plain",

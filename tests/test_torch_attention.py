@@ -395,3 +395,80 @@ def test_merge_and_forced_routes_raise_off_the_card():
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, tfa.merge_plain(*parts, torch.bfloat16))
     assert set(_build.launches().values()) == {0}
+
+
+# --------------------------------------------------------------------------
+# K2 v2 on the card (bf16) reads each split once: warp w takes the 32-row
+# sub-tiles SUB·(w + 4i) of the split, keeps an online softmax over them
+# with the G query heads of a kv head as the rows of one tensor-core tile,
+# and the 4 warps merge in order.  Its fp32 decomposition
+# (``decode_partials_model``) is held here against the twin, the jnp
+# decode path and the Pallas kernel in interpret mode, on the same numpy
+# inputs, fp32, atol = rtol = 1e-5 (summation order only).
+
+DECODE_KV = 2
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 8, 16])
+@pytest.mark.parametrize("S,block_k", [(256, 128), (200, 128), (256, 256),
+                                       (192, 48)])
+def test_decode_partials_model_matches_twin_and_pallas(G, S, block_k):
+    """Lengths 0 (the mean of V), 1, 127, 128, 129, S and one at random;
+    S ragged against block_k (200), one split of two sub-tiles a warp
+    (256), splits below a sub-tile a warp (48); splits past a length give
+    (-1e30, 0, 0)."""
+    r = np.random.RandomState(70 + G)
+    H = G * DECODE_KV
+    lens = np.array([0, 1, 127, 128, 129, S, r.randint(1, S + 1)], np.int32)
+    B = lens.size
+    q = r.randn(B, H, hd).astype(np.float32)
+    kc = r.randn(B, S, DECODE_KV, hd).astype(np.float32)
+    vc = r.randn(B, S, DECODE_KV, hd).astype(np.float32)
+    got = tfd.decode_partials_model(*_t(q, kc, vc, lens), block_k=block_k)
+    for g, w in zip(got, tfd.decode_partials_plain(*_t(q, kc, vc, lens),
+                                                   block_k=block_k)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+    _close(tfd.combine_plain(*got, torch.float32),
+           _jit(ja.decode_attention, *_j(q, kc, vc, lens)))
+    nk = tfd.num_splits(S, block_k)
+    start = np.arange(nk) * block_k
+    dead = (start[None, :] >= lens[:, None]) & (lens[:, None] > 0)
+    dead = np.broadcast_to(dead[:, None, :], got[0].shape)
+    assert (got[0].numpy()[dead] == -1e30).all()
+    assert (got[1].numpy()[dead] == 0).all() and (got[2].numpy()[dead] == 0
+                                                  ).all()
+    if S % block_k:
+        return                         # the Pallas kernel asserts S % bk
+    jm, jl, jacc = _jit(decode_partials, *_j(q, kc, vc, lens),
+                        block_k=block_k, interpret=True)
+    for t, j in ((got[0], jm), (got[1], jl)):
+        np.testing.assert_allclose(t.numpy()[~dead], np.asarray(j)[~dead],
+                                   **TOL)
+    np.testing.assert_allclose(got[2].numpy()[~dead],
+                               np.asarray(jacc)[~dead], **TOL)
+
+
+def test_decode_route_by_dtype_and_head_dim():
+    """v2 takes bf16 with head dims that are multiples of 16; fp32 (exact
+    goldens) and other bf16 head dims stay on v1.  Both take every group
+    of GROUPS, 3 (minitron-4b's 24 / 8) included.  Off the card every route
+    is refused, forced or not; on the CPU the twin runs whatever is
+    forced; no launch counts."""
+    assert tfd.uses_tensor_cores(torch.bfloat16, 128)
+    assert tfd.uses_tensor_cores(torch.bfloat16, 48)
+    assert not tfd.uses_tensor_cores(torch.bfloat16, 72)
+    assert not tfd.uses_tensor_cores(torch.float32, 128)
+    assert 3 in tfd.GROUPS and max(tfd.GROUPS) <= 16
+    _build.reset_launches()
+    q, k, v = _t(*_qkv(1, 8, 40, seed=11))
+    lens = torch.tensor([29], dtype=torch.int32)
+    meta = lambda t: t.to("meta")                    # noqa: E731
+    for tc in (None, True, False):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfd.decode_partials(meta(q[:, 0]), meta(k), meta(v), meta(lens),
+                                tensor_cores=tc)
+        for got, want in zip(
+                tfd.decode_partials(q[:, 0], k, v, lens, tensor_cores=tc),
+                tfd.decode_partials_plain(q[:, 0], k, v, lens)):
+            assert torch.equal(got, want)
+    assert set(_build.launches().values()) == {0}

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
@@ -355,6 +356,36 @@ def test_tile_sort_matches_reference(n, tile):
     x[1::3] = x[::3][:len(x[1::3])]              # repeated words
     _same(ms.tile_sort(_t(x), tile=tile),
           jms.tile_sort(jnp.asarray(x), tile=tile, interpret=True))
+
+
+@pytest.mark.parametrize("tile", [1 << i for i in range(14)])
+def test_tile_sort_register_schedule_matches_reference(tile):
+    """K9a v2's stage schedule (``tile_sort_model``: W words a thread,
+    in-thread, warp-shuffle and strided shared-memory stages) bit for bit
+    against the Pallas ``tile_sort`` in interpret mode, on random words with
+    ties, sorted and reverse-sorted words; three tiles (one at 8192), so
+    blocks of several small tiles and a padded last block occur."""
+    n = tile * (3 if tile < 8192 else 1)
+    ref = jax.jit(functools.partial(jms.tile_sort, tile=tile, interpret=True))
+    ties = _words(n, tile)
+    ties[1::2] = ties[::2][:len(ties[1::2])]
+    srt = np.sort(_words(n, tile + 1))
+    for x in (ties, srt, srt[::-1].copy()):
+        want = ref(jnp.asarray(x))
+        _same(ms.tile_sort_model(_t(x), tile=tile), want)
+        _same(ms.tile_sort(_t(x), tile=tile), want)
+
+
+def test_tile_sort_blocks_keep_wide_stages_in_thread():
+    """K9a's (W, NT) rule: a block of W·NT words holds whole tiles, W words
+    load as 16-byte vectors, and 32·W >= NT, so every stage with j >= 32·W
+    is a multiple of NT (in-thread in the strided layout)."""
+    for tile in (1 << i for i in range(14)):
+        W, NT = ms.k9a_shape(tile)
+        assert W % 4 == 0 and NT % 32 == 0 and 32 * W >= NT
+        assert W * NT >= tile and (W * NT) % tile == 0
+    assert ms.k9a_shape(1024) == (8, 128)
+    assert ms.k9a_shape(ms.MAX_BITONIC_TILE) == (16, 512)
 
 
 @pytest.mark.parametrize("m,n,idx_bits,key_bits", [
