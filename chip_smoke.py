@@ -24,7 +24,14 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    shared memory and CTAs an SM printed; 2b. the same for
    the MoE dispatch K3 ``moe_dispatch`` (a decode step's 8 rows, a
    256-token chunk, ``Model.prefill``'s 8192 rows at d_model 5120; ragged,
-   top-k 2, 256 experts; 300 experts raise) and the comparison sort's K9a
+   top-k 2, 256 experts; T·K of 1, 32, 33 and 512, deepseek-v2-lite's
+   decode step (T 8, K 6, E 64), all-equal and tied ids, rows of 4- and
+   2-byte words; one-tile inputs also through the PR 15 design; two
+   launches bit-identical; 300 experts raise; its kernels' registers,
+   spills, shared memory, CTAs an SM and one-tile grid, the grid equal to
+   ``k3_grid``; the one-tile path timed in turns with the PR 15 design,
+   beside the smallest launch the harness times) and the comparison
+   sort's K9a
    ``bitonic_tile_sort``, K9b ``pack_keys`` and K9c ``unpack_order`` at
    2^20 keys, timed beside ``torch.argsort`` + ``index_select`` and the
    per-row ``torch.sort``; K9a (v2, the network in registers and warp
@@ -50,21 +57,25 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    kernel, with its split-KV merge: GQA groups 1, 4 and 5, chunks of 1 to
    256 at offsets 0 to 1792, forced split counts, two launches bit-identical;
    fp32 through v2; v3 timed beside v2 in turns, unsplit, and over split
-   counts), K2 (bf16 through v2, the tensor-core kernel, at every GQA
-   group of ``GROUPS`` and lengths 0, 1, 127, 128, 129, S and ragged, each
-   row equal to a B = 1 call and two launches bit-identical, bit for bit;
-   fp32 and forced bf16 through v1, with a zero-length row; v2 timed beside
-   v1 in turns; both kernels' registers, spills, shared memory and CTAs an
-   SM printed), K4 ``logspace`` (mLSTM carry, with extreme gates) and K4
+   counts), K2 (bf16 through v2, the tensor-core kernel, with the merge
+   fused into its launch, at every GQA group of ``GROUPS`` and lengths 0,
+   1, 127, 128, 129, S and ragged: the fused launch equal to v2 partials +
+   the standalone combine, each row equal to a B = 1 call and two launches
+   bit-identical, bit for bit, all within 2e-2 of the fp32 twin; fp32 and
+   forced bf16 through v1, with a zero-length row; v2 partials timed beside
+   v1, and the fused launch beside partials + combine, in turns; both
+   kernels' registers, spills, shared memory and CTAs an SM printed), K4
+   ``logspace`` (mLSTM carry, with extreme gates) and K4
    ``affine`` (Mamba);
 5. the dense path: llama3-8b at full width and full depth (32 layers,
    bf16, seeded random weights) serves 16 requests through
    ``ContinuousEngine`` and 4 through the sync ``Engine``; every attention
    call must have launched a kernel (launch counters = layers x chunks /
-   decode steps);
+   decode steps; bf16 decode is one launch, so the standalone combine 0);
 6. fp32 checks at full width, 2 layers: the card's logits against the CPU
    plain path on the same weights, and continuous-batching tokens against
-   one-at-a-time tokens;
+   one-at-a-time tokens; the fp32 engine's decode launches K2 v1's
+   partials and the standalone combine once each a layer a step;
 7. the SSM path: xlstm-1.3b at full width and depth (48 blocks, bf16,
    ``scan_impl="pallas"``): ``Model.prefill`` of 4 x 2048 tokens (K4 once
    per mLSTM layer) and 32 decode steps, then 16 requests through
@@ -80,7 +91,8 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    layers (bf16, seeded random weights, ``moe_strategy="sort"``,
    ``moe_sort_fn="pallas"``): 16 requests through ``ContinuousEngine``
    and 4 through ``Engine``, K3 launched by every MoE layer of every
-   prefill chunk and decode step; the sync Engine's requests routed by
+   prefill chunk and decode step (one launch each), K2 one launch a layer
+   a decode step; the sync Engine's requests routed by
    ``torch.argsort`` give identical tokens, and a second continuous run
    holds every K3 call bit for bit against argsort + gathers on the same
    inputs (the continuous schedule follows wall-clock telemetry, so two
@@ -394,6 +406,7 @@ def main() -> None:
                 vc = randn(B, S, KV, hd, dtype=bf)
                 parts = fd.decode_partials(q, kc, vc, lens)
                 out = fd.combine(*parts, bf)
+                fused = fd.flash_decode(q, kc, vc, lens)
                 ref = fd.flash_decode_plain(q.float(), kc.float(),
                                             vc.float(), lens)
                 torch.cuda.synchronize()
@@ -401,16 +414,24 @@ def main() -> None:
                              B=B, S=S, H=Hq, lengths=lens.tolist())
                 record("flash_decode (partials+combine)", bf, err(out, ref),
                        B=B, S=S, H=Hq, version="v2", lengths=lens.tolist())
+                record("flash_decode (fused)", bf, err(fused, ref), B=B, S=S,
+                       H=Hq, version="v2", lengths=lens.tolist())
                 mean_v = vc[0].float().mean(0).repeat_interleave(G, 0)
                 record("flash_decode zero-length row", bf,
-                       err(out[0], mean_v), B=B, S=S, H=Hq, version="v2")
-                rows_ok = all(torch.equal(out[i:i + 1], fd.flash_decode(
+                       err(fused[0], mean_v), B=B, S=S, H=Hq, version="v2")
+                # the fused launch is v2 partials + the standalone combine
+                fused_ok = torch.equal(fused, out)
+                rows_ok = all(torch.equal(fused[i:i + 1], fd.flash_decode(
                     q[i:i + 1], kc[i:i + 1], vc[i:i + 1], lens[i:i + 1]))
                     for i in range(B))
                 again = fd.decode_partials(q, kc, vc, lens)
                 twice = all(torch.equal(a, b) for a, b in zip(parts, again))
                 twice = twice and torch.equal(out, fd.combine(*again, bf))
-                same.append(rows_ok and twice)
+                twice = twice and torch.equal(
+                    fused, fd.flash_decode(q, kc, vc, lens))
+                same.append(fused_ok and rows_ok and twice)
+                check(fused_ok, f"K2 v2 G={G} S={S}: the fused launch "
+                      f"differs from partials + combine")
                 check(rows_ok, f"K2 v2 G={G} S={S}: a row's output differs "
                       f"between the B={B} call and a B=1 call")
                 check(twice, f"K2 v2 G={G} S={S}: two launches differ")
@@ -428,8 +449,9 @@ def main() -> None:
             record("flash_decode_partials", torch.float32,
                    max(err(m, rm), err(l, rl), err(acc, racc)), B=4, S=1100,
                    H=3 * KV, input_dtype=str(dtype), version="v1")
-        say(f"K2 v2: every row equal to its B=1 call and two launches "
-            f"bit-identical in {sum(same)} of {len(same)} cases (G "
+        say(f"K2 v2: the fused launch equal to partials + combine, every "
+            f"row equal to its B=1 call and two launches bit-identical in "
+            f"{sum(same)} of {len(same)} cases (G "
             f"{', '.join(map(str, fd.GROUPS))}; S 2048 and 1100)")
         report["k2_bit_identical"] = same
 
@@ -477,7 +499,8 @@ def main() -> None:
             e2e = err(fd.flash_decode(q, kc, vc, lens),
                       fd.flash_decode_plain(q.float(), kc.float(),
                                             vc.float(), lens))
-            record("flash_decode (partials+combine)", dtype, e2e, B=B, S=S)
+            record("flash_decode (fused)" if bf16 else
+                   "flash_decode (partials+combine)", dtype, e2e, B=B, S=S)
         # a row with no valid position: the reference's all-masked softmax
         # is uniform, the mean of V over the whole cache
         q = randn(4, H, hd, dtype=dtype)
@@ -516,7 +539,8 @@ def main() -> None:
         out = fd.flash_decode(q, kc, vc, lens)
         ref = fd.flash_decode_plain(q.float(), kc.float(), vc.float(), lens)
         torch.cuda.synchronize()
-        record("flash_decode (partials+combine)", dtype, err(out, ref), B=8,
+        record("flash_decode (fused)" if dtype == torch.bfloat16 else
+               "flash_decode (partials+combine)", dtype, err(out, ref), B=8,
                S=2048, H=40)
         del k, v, q, kc, vc
 
@@ -680,17 +704,31 @@ def main() -> None:
         def v1():
             return fd.decode_partials(q, kc, vc, lens, tensor_cores=False)
         turns = [device_ms(f, cold=True) for f in (v2, v1, v2, v1)]
+
+        def fused():
+            return fd.flash_decode(q, kc, vc, lens)
+
+        def pair():
+            return fd.combine(*fd.decode_partials(q, kc, vc, lens), bf)
+        # the one launch against PR 20's two, in turns
+        fturns = [device_ms(f, cold=True) for f in (fused, pair, fused, pair)]
+        # the whole decode: q, the valid K/V rows and the output, once
+        f_bytes = 2.0 * (2 * B * H * hd + 2 * tot * KV * hd)
         part = dict(
-            ms=(turns[0] + turns[2]) / 2, v1_ms=(turns[1] + turns[3]) / 2,
-            turns_ms=turns,
-            plain_ms=device_ms(lambda: fd.decode_partials_plain(
+            ms=(fturns[0] + fturns[2]) / 2,
+            pair_ms=(fturns[1] + fturns[3]) / 2, fused_turns_ms=fturns,
+            partials_ms=(turns[0] + turns[2]) / 2,
+            v1_ms=(turns[1] + turns[3]) / 2, turns_ms=turns,
+            plain_ms=device_ms(lambda: fd.flash_decode_plain(
                 q, kc, vc, lens), cold=True),
             library_ms=library,
-            library_computes="the whole decode attention (partials+combine)",
+            library_computes="the same decode attention",
             bound_ms=max(p_flops / PEAK_FLOPS["bfloat16"],
-                         p_bytes / PEAK_BYTES) * 1e3,
-            bound_by="bytes" if p_bytes / PEAK_BYTES
+                         f_bytes / PEAK_BYTES) * 1e3,
+            bound_by="bytes" if f_bytes / PEAK_BYTES
             > p_flops / PEAK_FLOPS["bfloat16"] else "operations",
+            partials_bound_ms=max(p_flops / PEAK_FLOPS["bfloat16"],
+                                  p_bytes / PEAK_BYTES) * 1e3,
             shape=shape)
         comb = dict(
             ms=device_ms(lambda: fd.combine(m, l, acc, bf), cold=False),
@@ -741,12 +779,20 @@ def main() -> None:
         tag = f"B=8 S={S} mean_len={part['shape']['mean_length']:.0f}"
         report["timings"][f"flash_decode_partials {tag}"] = part
         report["timings"][f"flash_decode_combine {tag}"] = comb
-        say(f"K2 {tag} bf16: partials v2 {part['ms']:.4f} ms (v1 "
-            f"{part['v1_ms']:.4f} in turns, plain "
-            f"{part['plain_ms']:.4f}, bound {part['bound_ms']:.4f} "
-            f"{part['bound_by']}), combine {comb['ms']:.4f} ms (plain "
-            f"{comb['plain_ms']:.4f}, bound {comb['bound_ms']:.4f}), "
-            f"sdpa decode {part['library_ms']:.4f} ms [{card}]")
+        say(f"K2 {tag} bf16: fused {part['ms']:.4f} ms against v2 "
+            f"partials + combine {part['pair_ms']:.4f} in turns (bound "
+            f"{part['bound_ms']:.4f} {part['bound_by']}, plain "
+            f"{part['plain_ms']:.4f}); partials alone v2 "
+            f"{part['partials_ms']:.4f} (v1 {part['v1_ms']:.4f} in turns, "
+            f"bound {part['partials_bound_ms']:.4f}), combine "
+            f"{comb['ms']:.4f} ms (plain {comb['plain_ms']:.4f}, bound "
+            f"{comb['bound_ms']:.4f}), sdpa decode "
+            f"{part['library_ms']:.4f} ms [{card}]")
+
+    # every complete fused launch leaves its arrival counters at 0
+    arrivals = fd._arrival_counters[torch.cuda.current_device()]
+    check(int(arrivals.count_nonzero()) == 0, "K2 fused: arrival counters "
+          "left non-zero after the checks and timings")
 
     def k4_row(kernel_fn, plain_fn, nbytes, ops, shape):
         bb, bo = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["float32"]
@@ -895,19 +941,22 @@ def main() -> None:
           f"admission cap counter {ce._admission.counter.value} != 1")
     check(ce.telemetry.retired == 16 and all(s is None for s in ce.slots),
           "slots not all retired")
+    # bf16 decode is one launch: the merge is fused into the partials, and
+    # the standalone combine (v1's) never runs on this path
     expect = {"flash_attention_fwd": L * calls["prefill_chunk"],
               "flash_decode_partials": L * calls["decode_step"],
-              "flash_decode_combine": L * calls["decode_step"]}
+              "flash_decode_combine": 0}
     check(calls["prefill"] == 0, "the engines ran a non-chunked prefill")
     got = {k: n for k, n in launches.items() if k in expect}
     check(got == expect, f"launch counts {got} != layers x "
-          f"(prefill chunks, decode steps) {expect}")
+          f"(prefill chunks, decode steps), no combine {expect}")
     # K1's merge runs once for each attention call that split its keys:
     # a whole number of layers, at most one per K1 launch
     n_merge = launches["flash_attention_merge"]
     check(n_merge % L == 0 and n_merge <= launches["flash_attention_fwd"],
           f"K1 merge launches {n_merge}: not layers x split chunks")
-    check(all(n > 0 for n in launches.values()),
+    check(all(n > 0 for k, n in launches.items()
+              if k != "flash_decode_combine"),
           f"a kernel of the path never launched: {launches}")
     check(launches_cont["flash_attention_fwd"]
           == L * calls_cont["prefill_chunk"]
@@ -959,6 +1008,7 @@ def main() -> None:
                  else "tile_scan_affine" if "affine_scan_kernel" in name
                  else "moe_dispatch" if "moe_hist_kernel" in name
                  or "moe_scatter_kernel" in name
+                 or "moe_onetile_kernel" in name
                  else "matmul" if any(s in name.lower() for s in (
                      "gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk"))
                  else "other")
@@ -1035,11 +1085,25 @@ def main() -> None:
         eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new))
         (d,) = eng.step()
         ref[r.rid] = np.asarray(d.result)
+    _build.reset_launches()
+    model.calls = dict.fromkeys(model.calls, 0)
     ce = ContinuousEngine(model, params, EngineConfig(
         max_batch=3, eos_id=7, max_seq=1024, decode_tick=4))
     for r in reqs6:
         ce.submit(Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new))
     got = {rid: np.asarray(r.result) for rid, r in drain(ce).items()}
+    # fp32 decode takes v1: two launches a layer a step, partials then the
+    # standalone combine
+    fp32_launches = path_launches()
+    n_dec = cfg32.num_layers * model.calls["decode_step"]
+    check(fp32_launches["flash_decode_partials"] == n_dec
+          == fp32_launches["flash_decode_combine"] > 0,
+          f"fp32 ContinuousEngine: K2 launches {fp32_launches} != layers x "
+          f"{model.calls['decode_step']} decode steps, each partials and "
+          f"combine")
+    say(f"fp32 ContinuousEngine (v1 route): K2 partials and combine "
+        f"{n_dec} launches each = {cfg32.num_layers} layers x "
+        f"{model.calls['decode_step']} decode steps")
     ties = 0
     for r in reqs6:
         a, b = got[r.rid], ref[r.rid]
@@ -1059,7 +1123,8 @@ def main() -> None:
         ties += 1
     say(f"fp32 ContinuousEngine == one-at-a-time Engine tokens for "
         f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties)")
-    report["fp32"] = dict(max_logit_err=worst_logit, near_ties=ties)
+    report["fp32"] = dict(max_logit_err=worst_logit, near_ties=ties,
+                          launches=fp32_launches)
     del ce, params, model
     free_card(torch)
 
@@ -1358,9 +1423,12 @@ def main() -> None:
     moe_fp32(np, torch, args.seed, report, drain)
 
     # --------------------------------------------------------- 12. report
+    # the standalone combine serves v1 only: its launches are the fp32
+    # dense engine's (phase 6)
     path_launches_by_kernel = {
         **launches, "tile_scan_logspace": ssm_launches["tile_scan_logspace"],
-        "tile_scan_affine": mamba_launches["tile_scan_affine"]}
+        "tile_scan_affine": mamba_launches["tile_scan_affine"],
+        "flash_decode_combine": fp32_launches["flash_decode_combine"]}
     kernels = []
     meta = {
         "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1384,7 +1452,10 @@ def main() -> None:
                     "max_rel_err": w["rel"], "tol": K4_TOL,
                     "tol_kind": "relative", "max_abs_err_fp32": w["abs"]}
         else:
-            w = worst[name]
+            w = dict(worst[name])
+            if name == "flash_decode_partials":   # its launch is the fused one
+                w["bfloat16"] = max(w["bfloat16"],
+                                    worst["flash_decode (fused)"]["bfloat16"])
             main_dtype = "bfloat16"
             errs = {"max_abs_err": w[main_dtype], "max_err": w[main_dtype],
                     "tol": TOL[main_dtype],
@@ -1398,9 +1469,11 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_computes": row.get("library_computes"),
             "shape": row["shape"],
-            **({"v2_ms": row["v2_ms"], "unsplit_ms": row["unsplit_ms"]}
-               if "v2_ms" in row else {}),
-            **({"v1_ms": row["v1_ms"]} if "v1_ms" in row else {})})
+            **{k: row[k] for k in ("v2_ms", "unsplit_ms", "v1_ms",
+                                   "pair_ms", "partials_ms",
+                                   "partials_bound_ms") if k in row},
+            **({"launches_from": "fp32 dense ContinuousEngine (v1 route)"}
+               if name == "flash_decode_combine" else {})})
     kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
     kernels += moe_kernel_entries(moe_rows, moe_errs, moe_launches)
     report["kernels"] = kernels
@@ -2014,7 +2087,9 @@ def sort_kernel_entries(rows, errs, launches):
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "library_computes": r["library_computes"], "shape": r["shape"]})
+            "library_computes": r["library_computes"], "shape": r["shape"],
+            **({"other_shapes": r["other_shapes"]} if "other_shapes" in r
+               else {})})
     return out
 
 
@@ -2090,14 +2165,61 @@ def moe_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     k3_cases = [(8, 1, 16, "decode step"), (256, 1, 16, "prefill chunk"),
                 (8192, 1, 16, "Model.prefill 4 x 2048"),
                 (1001, 1, 16, "ragged"), (1001, 2, 16, "top-k 2"),
-                (4096, 1, 256, "256 experts, 9-bit digit")]
+                (4096, 1, 256, "256 experts, 9-bit digit"),
+                (1, 1, 16, "one row"), (32, 1, 16, "a warp of rows"),
+                (33, 1, 16, "a warp and one"), (512, 1, 16, "a full tile"),
+                (8, 6, 64, "deepseek-v2-lite decode step")]
     inputs = {}
+    k3_same = []
     for T, K, E, what in k3_cases:
         x, e, p = routed(T, K, E, D)
         got = rs.moe_dispatch_sort(x, e, p, num_experts=E)
         want = rs.moe_dispatch_sort_plain(x, e, p, num_experts=E)
         same("moe_dispatch", got, want, T=T, K=K, E=E, D=D, what=what)
+        if T * K <= 512:      # one tile: the PR 15 design on the same input
+            same("moe_dispatch", rs.moe_dispatch_sort(
+                x, e, p, num_experts=E, counting=False), want, T=T, K=K,
+                E=E, D=D, what=what, design="rank_pass scatter")
+        again = rs.moe_dispatch_sort(x, e, p, num_experts=E)
+        k3_same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
+        check(k3_same[-1], f"K3 {what}: two launches differ")
         inputs[(T, K, E)] = (x, e, p)
+    # one tile, all ids equal and three tied ids; rows of 4- and 2-byte
+    # words (no 16-byte vector)
+    x, _, p = routed(512, 1, 16, D)
+    for kind, e in (("all-equal", torch.full((512, 1), 15, device=dev,
+                                             dtype=torch.int32)),
+                    ("ties", torch.tensor([0, 8, 15], device=dev,
+                                          dtype=torch.int32)[torch.randint(
+                        0, 3, (512, 1), generator=gen, device=dev)])):
+        same("moe_dispatch", rs.moe_dispatch_sort(x, e, p, num_experts=16),
+             rs.moe_dispatch_sort_plain(x, e, p, num_experts=16), T=512,
+             K=1, E=16, D=D, what=kind)
+    for Dw, what in ((2562, "4-byte words"), (2561, "2-byte words")):
+        x, e, p = routed(33, 2, 16, Dw)
+        same("moe_dispatch", rs.moe_dispatch_sort(x, e, p, num_experts=16),
+             rs.moe_dispatch_sort_plain(x, e, p, num_experts=16), T=33, K=2,
+             E=16, D=Dw, what=what)
+    say(f"K3: two launches bit-identical in {sum(k3_same)} of "
+        f"{len(k3_same)} cases; one-tile inputs equal under both designs")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k3_attrs = {}
+    for T in (8, 256):
+        a = rs.moe_dispatch_attributes(T, D * 2)
+        k3_attrs[f"T={T}"] = a
+        grid = rs.k3_grid(T, D * 2, 16, sms)
+        one = a["moe_onetile_kernel<uint4>"]
+        check((one["copy_ctas"], one["words_per_thread"]) == grid,
+              f"K3 T={T}: the kernel's grid {one['copy_ctas']} CTAs x "
+              f"{one['words_per_thread']} words != k3_grid {grid}")
+        for kname, a1 in a.items():
+            say(f"  K3 {kname} (T={T}): {a1['registers']} registers, "
+                f"{a1['spill_bytes']} spill bytes, "
+                f"{a1['static_smem'] + a1['dynamic_smem']} bytes of shared "
+                f"memory, {a1['ctas_per_sm']} CTAs an SM; one-tile grid "
+                f"{a1['copy_ctas']} + 1 CTAs x {a1['words_per_thread']} "
+                f"words a thread")
+    report["k3_kernel_attributes"] = k3_attrs
     x, e, p = inputs[(8, 1, 16)]
     try:
         rs.moe_dispatch_sort(x, e, p, num_experts=300)
@@ -2164,13 +2286,29 @@ def moe_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         return nbytes / PEAK_BYTES * 1e3
 
     rows, k3_times = {}, {}
+    # the smallest launch this harness times: a one-element fill
+    tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch_ms = device_ms(lambda: tiny.fill_(1), cold=True)
+    report["timings"]["smallest launch (one-element fill)"] = launch_ms
     for T, K, E, what in k3_cases[:3]:
         x, e, p = inputs[(T, K, E)]
         flat = e.reshape(-1)
         es = x.element_size()
+
+        def new():
+            return rs.moe_dispatch_sort(x, e, p, num_experts=E)
+
+        def old():
+            return rs.moe_dispatch_sort(x, e, p, num_experts=E,
+                                        counting=False)
+        # one tile: counting (new) and the rank_pass scatter (PR 15) in
+        # turns; several tiles take one path whatever counting says
+        turns = [device_ms(f, cold=True) for f in (
+            (new, old, new, old) if T * K <= 512 else (new,))]
         r = dict(
-            ms=device_ms(lambda: rs.moe_dispatch_sort(
-                x, e, p, num_experts=E), cold=True),
+            ms=(turns[0] + turns[2]) / 2 if len(turns) > 1 else turns[0],
+            old_design_ms=(turns[1] + turns[3]) / 2 if len(turns) > 1
+            else None, turns_ms=turns, launch_floor_ms=launch_ms,
             plain_ms=device_ms(lambda: rs.moe_dispatch_sort_plain(
                 x, e, p, num_experts=E), cold=True),
             library_ms=device_ms(lambda: x.index_select(
@@ -2183,11 +2321,21 @@ def moe_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             shape=dict(T=T, K=K, E=E, D=D, dtype="bfloat16", what=what))
         k3_times[what] = r
         report["timings"][f"moe_dispatch T={T} K={K} E={E} D={D}"] = r
+        old_txt = "" if r["old_design_ms"] is None else \
+            f" (rank_pass scatter {r['old_design_ms']:.4f} in turns)"
         say(f"K3 moe_dispatch {what} (T={T}, K={K}, E={E}, D={D}, bf16): "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"argsort + index_select {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms (bytes) [{card}]")
-    rows["moe_dispatch"] = k3_times["Model.prefill 4 x 2048"]
+            f"kernel {r['ms']:.4f} ms{old_txt}, plain {r['plain_ms']:.4f} "
+            f"ms, argsort + index_select {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms (bytes), smallest launch "
+            f"{launch_ms:.4f} ms [{card}]")
+    # the kernels line keeps the 8192-row shape; the one-tile shapes ride
+    # along beside it
+    rows["moe_dispatch"] = dict(
+        k3_times["Model.prefill 4 x 2048"], other_shapes={
+            what: {k: k3_times[what][k] for k in (
+                "ms", "old_design_ms", "plain_ms", "bound_ms", "library_ms",
+                "launch_floor_ms", "shape")}
+            for what in ("decode step", "prefill chunk")})
     fw = _flip(torch, w).reshape(n // tile, tile)
     rows["bitonic_tile_sort"] = dict(
         ms=device_ms(lambda: ms.tile_sort(w, tile=tile), cold=True),
@@ -2324,13 +2472,13 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
                                        + calls["decode_step"]),
               "flash_attention_fwd": L * calls["prefill_chunk"],
               "flash_decode_partials": L * calls["decode_step"],
-              "flash_decode_combine": L * calls["decode_step"]}
+              "flash_decode_combine": 0}          # fused into the partials
     got = {k: launches[k] for k in path}
     check(calls["prefill"] == 0, "the engines ran a non-chunked prefill")
     check(got == expect, f"MoE path launches {got} != MoE layers x "
-          f"(prefill chunks + decode steps) {expect}")
-    check(all(v > 0 for v in got.values()), f"a kernel of the MoE path "
-          f"never launched: {got}")
+          f"(prefill chunks + decode steps), no combine {expect}")
+    check(all(v > 0 for k, v in got.items() if k != "flash_decode_combine"),
+          f"a kernel of the MoE path never launched: {got}")
     n_merge = launches["flash_attention_merge"]
     check(n_merge % L == 0 and n_merge <= launches["flash_attention_fwd"],
           f"MoE path: K1 merge launches {n_merge}: not layers x split "
@@ -2574,7 +2722,9 @@ def moe_kernel_entries(rows, errs, launches):
             "tol_kind": "bit for bit", "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "library_computes": r["library_computes"], "shape": r["shape"]})
+            "library_computes": r["library_computes"], "shape": r["shape"],
+            **({"other_shapes": r["other_shapes"]} if "other_shapes" in r
+               else {})})
     return out
 
 

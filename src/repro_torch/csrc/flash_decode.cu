@@ -1,5 +1,6 @@
 // K2: split-KV flash decode for Hopper (sm_90a): per-split softmax partials
-// plus one combine launch.
+// and their merge.  bf16 (v2): one launch, the merge fused into the
+// partials kernel.  fp32 (v1): the partials, then a combine launch.
 //
 // Replaces: repro/kernels/flash_decode.py::decode_partials (body
 // _decode_kernel) together with combine_partials and the plan-tree reduce
@@ -61,10 +62,39 @@
 // a function of S alone, never of B or lengths, and a CTA reads only its
 // own row, so batched and one-at-a-time decode give the same bits.
 //
-// Design, combine (flash_decode_combine): one CTA per (head, batch row);
-// each thread owns one output dim and does the LSE merge over all splits
-// against their common max, then acc / max(l, 1e-30), cast to the cache
-// dtype.
+// The merge (merge_quad, one routine for both routes).  What bounds it:
+// a decode step's partials are 2 MB (B 8, 32 heads, 16 splits), 0.0007 ms
+// of bytes, so a launch of its own is all latency: a host launch a layer a
+// step, a device launch gap, and a dependent pass over the splits for the
+// max before the pass that sums.  A thread owns 4 dims of one (row, head):
+// it loads every split's m, l and 4 acc values at once (16 splits a
+// batch), takes the max, then folds the splits in split order, w =
+// expf(m_s - max), l and acc by fmaf, and writes acc / max(l, 1e-30) in
+// the cache dtype.  The arithmetic of a dim is the same whichever kernel
+// runs it, so the two routes give the same bits.
+//
+// Fused (v2, out != null): the merge runs in the CTA that finishes last
+// among the live splits of its (batch row, kv head), those that hold a
+// position below lengths[b] (all S positions for lengths[b] <= 0).  A
+// live CTA writes its partials, then its thread 0 counts its arrival on
+// the (row, kv head) counter with one atom.acq_rel.gpu.inc modulo the live
+// count, after a CTA barrier (the release covers every thread's partials,
+// the acquire the reads that follow), so the CTA that reads live - 1 is
+// the last, sees every live split's partials (read through L2) and leaves
+// the counter at 0 for the next launch: no memset.  A split wholly past
+// lengths[b] writes its (-1e30, 0, 0) and exits without arriving: waiting
+// on the atomic cost such CTAs more than the rest of their work.  The live
+// splits are a prefix of the split order, and the fold's terms of an empty
+// split are 0 * w = +0, which only turn a sum of -0 into +0: merge_quad
+// folds the live prefix and then adds +0 once, so the fused output equals
+// partials + the standalone combine over all splits bit for bit.  A launch
+// that faults leaves the context unusable, so no later launch reads a
+// counter it left dirty.  One counter buffer serves one stream at a time
+// (two launches in flight on it would share counters); the Python wrapper
+// allocates it once per device, outside any capture.
+//
+// Standalone (flash_decode_combine, v1 and the card checks): a grid of
+// (H * hd / 4 / 128, B) CTAs, a thread a (head, 4 dims) of a batch row.
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -229,6 +259,93 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------ the merge
+
+constexpr int MERGE_BATCH = 16;  // splits whose loads are in flight at once
+
+// loads through L2 (ld.global.cg), volatile and with a memory clobber so
+// that the compiler keeps them after the arrival barrier
+__device__ __forceinline__ float ld_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cg4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The LSE merge of the nsplit partials of one (row, head) for its dims
+// d0 .. d0 + 3: m and l point at its nsplit values, acc at its [nsplit][hd]
+// block, out at its hd outputs.  Splits from nlive on are empty (-1e30,
+// 0, 0): they add +0 each, once for all (see the note at the top).  Loads
+// go through L2 (ld_cg): in the fused route other CTAs wrote them during
+// this launch.  acc + d0 is 16-byte aligned (hd % 4 == 0, checked by the
+// callers).
+template <typename T>
+__device__ __forceinline__ void merge_quad(const float* __restrict__ m,
+                                           const float* __restrict__ l,
+                                           const float* __restrict__ acc,
+                                           T* __restrict__ out, int hd,
+                                           int nsplit, int nlive, int d0) {
+  float mx = NEG_INF;
+  if (nlive > MERGE_BATCH)
+    for (int s = 0; s < nlive; ++s) mx = fmaxf(mx, ld_cg(m + s));
+  float lsum = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < nlive; s0 += MERGE_BATCH) {
+    float mv[MERGE_BATCH], lv[MERGE_BATCH];
+    float4 av[MERGE_BATCH];
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u)
+      if (s0 + u < nlive) {
+        mv[u] = ld_cg(m + s0 + u);
+        lv[u] = ld_cg(l + s0 + u);
+        av[u] = ld_cg4(acc + (size_t)(s0 + u) * hd + d0);
+      }
+    if (nlive <= MERGE_BATCH) {
+#pragma unroll
+      for (int u = 0; u < MERGE_BATCH; ++u)
+        if (u < nlive) mx = fmaxf(mx, mv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u)
+      if (s0 + u < nlive) {
+        const float w = expf(mv[u] - mx);
+        lsum = fmaf(lv[u], w, lsum);
+        a[0] = fmaf(av[u].x, w, a[0]);
+        a[1] = fmaf(av[u].y, w, a[1]);
+        a[2] = fmaf(av[u].z, w, a[2]);
+        a[3] = fmaf(av[u].w, w, a[3]);
+      }
+  }
+  if (nlive < nsplit) {              // the empty splits' +0 (lsum >= +0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = __fadd_rn(a[i], 0.f);
+  }
+  const float den = fmaxf(lsum, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) store(out + d0 + i, a[i] / den);
+}
+
+// This CTA's split has arrived at its (row, kv head) counter, which counts
+// modulo `live`: true in the CTA that arrives last (see the note at the
+// top).
+__device__ __forceinline__ bool last_to_arrive(unsigned* counter, int live) {
+  __shared__ unsigned arrived;
+  __syncthreads();                   // every thread's partials are written
+  if (threadIdx.x == 0)
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
+                 : "=r"(arrived)
+                 : "l"(counter), "r"((unsigned)live - 1u)
+                 : "memory");
+  __syncthreads();
+  return arrived == (unsigned)live - 1u;
+}
+
 // ------------------------------------------ v2: bf16 tensor-core kernel
 
 template <int HD>
@@ -246,7 +363,9 @@ decode_partials_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const int* __restrict__ lengths,
                           float* __restrict__ m_out, float* __restrict__ l_out,
                           float* __restrict__ acc_out, int S, int H, int KV,
-                          int block_k, int nsplit, float scale_log2) {
+                          int block_k, int nsplit, float scale_log2,
+                          __nv_bfloat16* __restrict__ out,
+                          unsigned* __restrict__ arrive) {
   constexpr int LDS = HD + 8;        // bf16 row stride: +16 bytes
   constexpr int nd8 = HD / 8;        // 16-byte chunks of a row; n8 tiles
   constexpr int ndk = HD / 16;       // k steps of Q K^T, 16-wide dim pairs
@@ -262,6 +381,21 @@ decode_partials_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int s0 = split * block_k;
   const int n = min(s0 + block_k, len) - s0;   // valid positions here
   const size_t out0 = ((size_t)b * H + (size_t)kvh * G) * nsplit + split;
+  // fused: the last live CTA of the (row, kv head) merges its G heads
+  auto finish = [&]() {
+    const int live = (len + block_k - 1) / block_k;   // splits with n > 0
+    if (out == nullptr ||
+        !last_to_arrive(arrive + (size_t)b * KV + kvh, live))
+      return;
+    const size_t row0 = (size_t)b * H + (size_t)kvh * G;
+    for (int i = tid; i < G * (HD / 4); i += THREADS) {
+      const int g = i / (HD / 4), d0 = (i - g * (HD / 4)) * 4;
+      const size_t r = row0 + g;
+      merge_quad(m_out + r * nsplit, l_out + r * nsplit,
+                 acc_out + r * nsplit * HD, out + r * HD, HD, nsplit, live,
+                 d0);
+    }
+  };
 
   if (n <= 0) {                      // wholly past lengths[b]: no cache read
     for (int g = 0; g < G; ++g) {
@@ -272,7 +406,7 @@ decode_partials_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int d = tid; d < HD; d += THREADS)
         acc_out[(out0 + (size_t)g * nsplit) * HD + d] = 0.f;
     }
-    return;
+    return;                          // and does not arrive
   }
 
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw) +
@@ -472,26 +606,22 @@ decode_partials_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l_out[o] = lsum;
     }
   }
+  finish();
 }
 
+// a thread a (head, 4 dims) of batch row blockIdx.y
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
                       const float* __restrict__ acc, T* __restrict__ out,
                       int H, int hd, int nsplit) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t base = ((size_t)b * H + h) * nsplit;
-  float mx = NEG_INF;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, m[base + s]);
-  for (int d = threadIdx.x; d < hd; d += THREADS) {
-    float lsum = 0.f, a = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float w = expf(m[base + s] - mx);
-      lsum = fmaf(l[base + s], w, lsum);
-      a = fmaf(acc[(base + s) * hd + d], w, a);
-    }
-    store(out + ((size_t)b * H + h) * hd + d, a / fmaxf(lsum, 1e-30f));
-  }
+  const int quads = hd / 4;
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= H * quads) return;
+  const int h = i / quads, d0 = (i - h * quads) * 4;
+  const size_t r = (size_t)blockIdx.y * H + h;
+  merge_quad(m + r * nsplit, l + r * nsplit, acc + r * nsplit * hd,
+             out + r * hd, hd, nsplit, nsplit, d0);
 }
 
 template <typename T, int G>
@@ -545,8 +675,9 @@ cudaError_t opt_in_tc() {
 template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const int* lengths, float* m, float* l, float* acc,
-                      int B, int S, int H, int KV, int block_k, int nsplit,
-                      float scale, cudaStream_t stream) {
+                      __nv_bfloat16* out, unsigned* arrive, int B, int S,
+                      int H, int KV, int block_k, int nsplit, float scale,
+                      cudaStream_t stream) {
   const cudaError_t err = opt_in_tc<HD>();
   if (err != cudaSuccess) return err;
   dim3 grid(nsplit, KV, B);
@@ -555,19 +686,20 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lengths, m, l, acc, S, H, KV,
-      block_k, nsplit, scale * LOG2E);
+      block_k, nsplit, scale * LOG2E, out, arrive);
   return cudaGetLastError();
 }
 
 // the head dim as a template argument: every fragment loop unrolls
 cudaError_t launch_tc_hd(const void* q, const void* k, const void* v,
                          const int* lengths, float* m, float* l, float* acc,
-                         int B, int S, int H, int KV, int hd, int block_k,
-                         int nsplit, float scale, cudaStream_t stream) {
+                         __nv_bfloat16* out, unsigned* arrive, int B, int S,
+                         int H, int KV, int hd, int block_k, int nsplit,
+                         float scale, cudaStream_t stream) {
 #define REPRO_TC_CASE(D)                                                    \
   case D:                                                                   \
-    return launch_tc<D>(q, k, v, lengths, m, l, acc, B, S, H, KV, block_k,  \
-                        nsplit, scale, stream);
+    return launch_tc<D>(q, k, v, lengths, m, l, acc, out, arrive, B, S, H,  \
+                        KV, block_k, nsplit, scale, stream);
   switch (hd) {
     REPRO_TC_CASE(16)
     REPRO_TC_CASE(32)
@@ -586,15 +718,20 @@ cudaError_t launch_tc_hd(const void* q, const void* k, const void* v,
 }  // namespace
 
 // tensor_cores = 1: v2 (bf16, hd % 16 == 0, H / KV <= 16); 0: v1 (bf16 or
-// fp32, H / KV one of the template's groups)
+// fp32, H / KV one of the template's groups).  out (B, H, hd) bf16 and
+// arrive (B * KV unsigned counters, zero between launches) non-null: v2
+// with the merge fused (one launch); null: the partials alone.
 extern "C" int flash_decode_partials(const void* q, const void* k,
                                      const void* v, const void* lengths,
-                                     void* m, void* l, void* acc, int B, int S,
-                                     int H, int KV, int hd, int block_k,
-                                     int nsplit, float scale, int is_bf16,
+                                     void* m, void* l, void* acc, void* out,
+                                     void* arrive, int B, int S, int H,
+                                     int KV, int hd, int block_k, int nsplit,
+                                     float scale, int is_bf16,
                                      int tensor_cores, void* stream) {
   if (hd > MAX_HD || hd % 4 != 0 || H % KV != 0 || block_k < 1 ||
-      block_k > MAX_BLOCK_K || (long long)nsplit * block_k < S)
+      block_k > MAX_BLOCK_K || (long long)nsplit * block_k < S ||
+      (out == nullptr) != (arrive == nullptr) ||
+      (out != nullptr && !tensor_cores))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
@@ -604,7 +741,9 @@ extern "C" int flash_decode_partials(const void* q, const void* k,
   if (tensor_cores) {
     if (!is_bf16 || hd % 16 != 0 || H / KV > TC_MAXG)
       return (int)cudaErrorInvalidValue;
-    return (int)launch_tc_hd(q, k, v, len, mf, lf, af, B, S, H, KV, hd,
+    return (int)launch_tc_hd(q, k, v, len, mf, lf, af,
+                             static_cast<__nv_bfloat16*>(out),
+                             static_cast<unsigned*>(arrive), B, S, H, KV, hd,
                              block_k, nsplit, scale, s);
   }
   cudaError_t err =
@@ -619,9 +758,9 @@ extern "C" int flash_decode_combine(const void* m, const void* l,
                                     const void* acc, void* out, int B, int H,
                                     int hd, int nsplit, int is_bf16,
                                     void* stream) {
-  if (nsplit < 1) return (int)cudaErrorInvalidValue;
+  if (nsplit < 1 || hd < 4 || hd % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(H, B);
+  dim3 grid((H * (hd / 4) + THREADS - 1) / THREADS, B);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
   const float* af = static_cast<const float*>(acc);
@@ -637,8 +776,8 @@ extern "C" int flash_decode_combine(const void* m, const void* l,
 // What the compiler and the occupancy calculator give each kernel:
 // out[0..4] = registers a thread, local (spill) bytes a thread, static
 // shared bytes, dynamic shared bytes a launch, CTAs an SM can hold.
-// which: 0 = v2 decode_partials_tc_kernel<128>, 1 = v1 bf16 at G = 4, 2 =
-// v1 fp32 at G = 4, 3 = combine (bf16 out).
+// which: 0 = v2 decode_partials_tc_kernel<128> (with the fused merge), 1 =
+// v1 bf16 at G = 4, 2 = v1 fp32 at G = 4, 3 = combine (bf16 out).
 extern "C" int flash_decode_attrs(int which, int* out) {
   switch (which) {
     case 0: {

@@ -44,10 +44,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "flash_attention_merge": [P, P, P, P, I, I, I, P],
     },
     "flash_decode": {
-        # q, k, v, lengths, m, l, acc, B, S, H, KV, hd, block_k, nsplit,
-        # scale, is_bf16, tensor_cores, stream
-        "flash_decode_partials": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                  F, I, I, P],
+        # q, k, v, lengths, m, l, acc, out and arrive (null: partials
+        # only), B, S, H, KV, hd, block_k, nsplit, scale, is_bf16,
+        # tensor_cores, stream
+        "flash_decode_partials": [P] * 9 + [I, I, I, I, I, I, I, F, I, I,
+                                            P],
         # m, l, acc, out, B, H, hd, nsplit, is_bf16, stream
         "flash_decode_combine": [P, P, P, P, I, I, I, I, I, P],
     },
@@ -84,8 +85,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "moe_dispatch": {
         # x, experts, probs, hist, xd, sorted_e, sorted_tok, sorted_p,
-        # counts, T, K, E, tile, bits, row_bytes, vec, p_size, stream
-        "moe_dispatch": [P] * 9 + [I, I, I, I, I, LL, I, I, P],
+        # counts, T, K, E, tile, bits, row_bytes, vec, p_size, counting,
+        # stream
+        "moe_dispatch": [P] * 9 + [I, I, I, I, I, LL, I, I, I, P],
     },
 }
 

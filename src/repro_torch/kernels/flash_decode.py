@@ -1,6 +1,5 @@
 """K2: split-KV flash decode — the hand-written Hopper kernels
-(``csrc/flash_decode.cu``: partials, then combine) and their plain PyTorch
-twins.
+(``csrc/flash_decode.cu``) and their plain PyTorch twins.
 
 Two kernels compute the partials, routed by :func:`uses_tensor_cores`: v2
 (bf16 with a head dim that is a multiple of 16: one pass a split, K/V
@@ -10,6 +9,15 @@ fp32 goldens run, and other bf16 head dims: FMAs).
 ``decode_partials(tensor_cores=)`` forces either on the card;
 :func:`decode_partials_model` is v2's decomposition in
 plain fp32.
+
+On the v2 route :func:`flash_decode` is ONE launch: of the splits of a
+(batch row, kv head) that hold a position below lengths[b], the CTA that
+finishes last merges them and writes the output (an arrival counter a
+(row, kv head), :func:`_arrivals`; a split wholly past the length does
+not arrive, and adds exactly +0 to the merge).  On the v1 route it is
+two, the partials then :func:`combine`.  Both merge with one routine
+(``merge_quad``), in split order (:func:`combine_model`), so the fused
+output equals v2 partials + :func:`combine` bit for bit.
 
 Replaces ``repro/kernels/flash_decode.py::decode_partials`` +
 ``combine_partials`` and the reduce in ``flash_decode``.  The KV range
@@ -46,6 +54,8 @@ MAX_BLOCK_K = 256
 SUB = 32                         # v2: cache rows a warp sub-tile
 WARPS = 4                        # v2: warps a CTA (one CTA a split)
 LOG2E = 1.4426950408889634
+ARRIVALS = 1 << 16               # fused v2: counters a device, B·KV at most
+_arrival_counters: Dict[int, torch.Tensor] = {}
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -181,6 +191,23 @@ def combine_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     return (a / torch.clamp(lsum, min=1e-30)[..., None]).to(dtype)
 
 
+def combine_model(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The merge routine both routes run on the card (``merge_quad``), in
+    plain fp32: the max over the splits, then a fold in split order, w =
+    exp(m_s - max), l and acc accumulated split by split, and
+    acc / max(l, 1e-30) in ``dtype``.  (The kernel fuses each multiply-add;
+    this model rounds the product and the sum apart.)"""
+    mx = m.amax(dim=-1)
+    lsum = torch.zeros_like(mx)
+    a = torch.zeros_like(acc[..., 0, :])
+    for s in range(m.shape[-1]):
+        w = torch.exp(m[..., s] - mx)
+        lsum = lsum + l[..., s] * w
+        a = a + acc[..., s, :] * w[..., None]
+    return (a / torch.clamp(lsum, min=1e-30)[..., None]).to(dtype)
+
+
 def flash_decode_plain(q, k_cache, v_cache, lengths, *,
                        block_k: int = BLOCK_K,
                        scale: Optional[float] = None) -> torch.Tensor:
@@ -229,34 +256,71 @@ def _check(q, k_cache, v_cache, lengths, block_k: int) -> None:
                              f"aligned (vector loads)")
 
 
+def _partials(q, k_cache, v_cache, lengths, block_k: int,
+              scale: Optional[float], tc: bool,
+              out: Optional[torch.Tensor] = None) -> Partials:
+    """One launch of the partials kernel on checked CUDA inputs; with
+    ``out`` (v2 only) the merge is fused and written there."""
+    B, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    nk = num_splits(S, block_k)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    m = torch.empty((B, H, nk), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((B, H, nk, hd), dtype=torch.float32, device=q.device)
+    arrive = None if out is None else _arrivals(q.device, B * KV)
+    PARTIALS(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+             None if out is None else out.data_ptr(),
+             None if arrive is None else arrive.data_ptr(),
+             B, S, H, KV, hd, block_k, nk, float(scale),
+             int(q.dtype == torch.bfloat16), int(tc),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    return m, l, acc
+
+
+def _arrivals(device: torch.device, need: int) -> torch.Tensor:
+    """The fused route's arrival counters on ``device``: one a (batch row,
+    kv head), counting its live splits modulo their number, allocated
+    zeroed at the first fused call and never freed; every complete launch
+    leaves them at 0.  One buffer serves one stream at a time: two fused
+    launches in flight at once on two streams would share counters.  The
+    first call must come before any CUDA graph capture (a warm-up call),
+    so the allocation is never captured."""
+    if need > ARRIVALS:
+        raise ValueError(f"flash_decode: B·KV = {need} rows of arrival "
+                         f"counters, at most {ARRIVALS}")
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    buf = _arrival_counters.get(idx)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode: the fused route's counters "
+                               "are allocated at its first call, which must "
+                               "come before a CUDA graph capture")
+        buf = torch.zeros(ARRIVALS, dtype=torch.int32,
+                          device=torch.device("cuda", idx))
+        _arrival_counters[idx] = buf
+    return buf
+
+
 def decode_partials(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
                     scale: Optional[float] = None,
                     tensor_cores: Optional[bool] = None) -> Partials:
-    """Partials kernel (one launch); plain twin for CPU tensors.
+    """Partials kernel alone (one launch); plain twin for CPU tensors.
     ``tensor_cores`` overrides :func:`uses_tensor_cores` (the card check
     times v1 beside v2); a forced v2 raises on what it does not take."""
     if q.device.type == "cpu":
         return decode_partials_plain(q, k_cache, v_cache, lengths,
                                      block_k=block_k, scale=scale)
     _check(q, k_cache, v_cache, lengths, block_k)
-    B, H, hd = q.shape
-    _, S, KV, _ = k_cache.shape
+    hd = q.shape[-1]
     tc = uses_tensor_cores(q.dtype, hd) if tensor_cores is None \
         else tensor_cores
     if tc and not uses_tensor_cores(q.dtype, hd):
         raise ValueError(f"flash_decode: the tensor-core kernel takes bf16 "
                          f"with head_dim % 16 == 0, got {q.dtype}, {hd}")
-    nk = num_splits(S, block_k)
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    m = torch.empty((B, H, nk), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    acc = torch.empty((B, H, nk, hd), dtype=torch.float32, device=q.device)
-    PARTIALS(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-             B, S, H, KV, hd, block_k, nk, float(scale),
-             int(q.dtype == torch.bfloat16), int(tc),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    return m, l, acc
+    return _partials(q, k_cache, v_cache, lengths, block_k, scale, tc)
 
 
 def combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
@@ -275,6 +339,9 @@ def combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     hd = acc.shape[-1]
     if l.shape != m.shape or acc.shape != (B, H, nk, hd):
         raise ValueError("flash_decode combine: partial shapes differ")
+    if hd % 4 or acc.data_ptr() % 16:
+        raise ValueError("flash_decode combine: acc rows must be 16-byte "
+                         "vectors (head_dim % 4 == 0, aligned)")
     out = torch.empty((B, H, hd), dtype=dtype, device=m.device)
     COMBINE(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
             B, H, hd, nk, int(dtype == torch.bfloat16),
@@ -285,10 +352,21 @@ def combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 def flash_decode(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
                  scale: Optional[float] = None) -> torch.Tensor:
     """One-token attention: q (B,H,hd), caches (B,S,KV,hd), lengths (B,)
-    int32 → (B,H,hd) in the cache dtype.  Two launches on CUDA."""
-    m, l, acc = decode_partials(q, k_cache, v_cache, lengths,
-                                block_k=block_k, scale=scale)
-    return combine(m, l, acc, v_cache.dtype)
+    int32 → (B,H,hd) in the cache dtype.  On CUDA: one launch on the v2
+    route (the merge fused into the partials kernel), two on v1 (partials,
+    then :func:`combine`).  The fused route's arrival counters serve one
+    stream at a time (:func:`_arrivals`)."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, lengths,
+                                  block_k=block_k, scale=scale)
+    _check(q, k_cache, v_cache, lengths, block_k)
+    if not uses_tensor_cores(q.dtype, q.shape[-1]):
+        m, l, acc = _partials(q, k_cache, v_cache, lengths, block_k, scale,
+                              False)
+        return combine(m, l, acc, v_cache.dtype)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _partials(q, k_cache, v_cache, lengths, block_k, scale, True, out=out)
+    return out
 
 
 def kernel_attributes() -> Dict[str, Dict[str, int]]:
@@ -304,5 +382,6 @@ def kernel_attributes() -> Dict[str, Dict[str, int]]:
 
 __all__ = ["flash_decode", "flash_decode_plain", "decode_partials",
            "decode_partials_plain", "decode_partials_model", "combine",
-           "combine_plain", "num_splits", "uses_tensor_cores",
-           "kernel_attributes", "BLOCK_K", "GROUPS", "PARTIALS", "COMBINE"]
+           "combine_plain", "combine_model", "num_splits",
+           "uses_tensor_cores", "kernel_attributes", "BLOCK_K", "GROUPS",
+           "PARTIALS", "COMBINE"]

@@ -59,6 +59,9 @@ K3 = _build.KERNELS["moe_dispatch"]
 
 _MAX_DISPATCH_EXPERTS = 256     # one digit of at most 9 bits (sentinel E)
 _MAX_DISPATCH_TILE = 2048       # K3's tile of composites in shared memory
+K3_THREADS = 128                # K3's one-tile kernel: threads a CTA
+K3_MAX_PER = 8                  # and words a thread at most
+NUM_SMS = 132                   # H100 SXM
 _ROW_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
@@ -439,9 +442,77 @@ def moe_dispatch_sort_plain(x: torch.Tensor, experts: torch.Tensor,
             sorted_tok.to(torch.int32), probs.reshape(T * K)[order], counts)
 
 
+def k3_grid(n: int, row_bytes: int, vec: int,
+            sm_count: int = NUM_SMS) -> Tuple[int, int]:
+    """K3's one-tile launch, as ``csrc/moe_dispatch.cu::onetile_grid``
+    sizes it: ``(copying CTAs, words a thread)`` for n assignment rows of
+    ``row_bytes`` bytes copied in ``vec``-byte words.  The words a thread
+    fill about two CTAs an SM, at most :data:`K3_MAX_PER`; one more CTA
+    writes the counts."""
+    total = n * (row_bytes // vec)
+    want = 2 * sm_count * K3_THREADS
+    per = min(K3_MAX_PER, max(1, -(-total // want)))
+    return -(-total // (K3_THREADS * per)), per
+
+
+def k3_cta_words(cta: int, n: int, nv: int, per: int) -> torch.Tensor:
+    """The flat word indices (row · nv + word) that copying CTA ``cta`` of
+    K3's one-tile launch moves, in load order: thread t takes the words
+    ``cta · 128 · per + t + 128 u``, u < per, below n · nv."""
+    v = (cta * K3_THREADS * per + torch.arange(K3_THREADS)[None]
+         + K3_THREADS * torch.arange(per)[:, None]).reshape(-1)
+    return v[v < n * nv]
+
+
+def moe_dispatch_model(x: torch.Tensor, experts: torch.Tensor,
+                       probs: torch.Tensor, *, num_experts: int,
+                       sm_count: int = NUM_SMS) -> Tuple[torch.Tensor, ...]:
+    """K3's one-tile kernel (rank by counting) in plain PyTorch, CTA by
+    CTA: each copying CTA of :func:`k3_grid` ranks every row its words
+    touch as ``#{i : e_i < e_j} + #{i < j : e_i == e_j}`` (ids masked to
+    the digit, as the kernel ranks them), copies its words of x's row
+    ``j // K`` to xd's row rank(j), and writes sorted_e, sorted_tok and
+    sorted_p for the rows whose word 0 it holds; the last CTA counts the
+    ids.  Returns what :func:`moe_dispatch_sort` returns."""
+    T, D = x.shape
+    K = experts.shape[-1]
+    n = T * K
+    bits = max(1, math.ceil(math.log2(num_experts + 1)))
+    ids = experts.reshape(n).to(torch.int64) & ((1 << bits) - 1)
+    row_bytes = D * x.element_size()
+    vec = next(v for v in (16, 4, 2) if row_bytes % v == 0)
+    nv = row_bytes // vec
+    src = x.contiguous().view(torch.uint8).reshape(T, nv, vec)
+    out = torch.zeros(n, nv, vec, dtype=torch.uint8)
+    sorted_e = torch.zeros(n, dtype=torch.int32)
+    sorted_tok = torch.zeros(n, dtype=torch.int32)
+    sorted_p = torch.zeros(n, dtype=probs.dtype)
+    flat_e, flat_p = experts.reshape(n), probs.reshape(n)
+    pos = torch.arange(n)
+    ctas, per = k3_grid(n, row_bytes, vec, sm_count)
+    for cta in range(ctas):
+        words = k3_cta_words(cta, n, nv, per)
+        v0 = cta * K3_THREADS * per
+        rows = torch.arange(int(words[0]) // nv, int(words[-1]) // nv + 1)
+        ej = ids[rows, None]
+        dest = ((ids[None] < ej) | ((ids[None] == ej)
+                                    & (pos[None] < rows[:, None]))).sum(1)
+        j, c = words // nv, words % nv
+        out[dest[j - rows[0]], c] = src[j // K, c]
+        own = rows * nv >= v0
+        sorted_e[dest[own]] = flat_e[rows[own]].to(torch.int32)
+        sorted_tok[dest[own]] = (rows[own] // K).to(torch.int32)
+        sorted_p[dest[own]] = flat_p[rows[own]]
+    counts = torch.bincount(ids[ids < num_experts],
+                            minlength=num_experts).to(torch.int32)
+    xd = out.reshape(n, row_bytes).view(x.dtype).reshape(n, D)
+    return xd, sorted_e, sorted_tok, sorted_p, counts
+
+
 def moe_dispatch_sort(x: torch.Tensor, experts: torch.Tensor,
                       probs: torch.Tensor, *, num_experts: int,
-                      tile: int = 512) -> Tuple[torch.Tensor, ...]:
+                      tile: int = 512, counting: bool = True
+                      ) -> Tuple[torch.Tensor, ...]:
     """MoE routing in one kernel entry (K3): the stable sort of the (T·K,)
     expert assignments, with the activation rows carried along.
 
@@ -452,8 +523,11 @@ def moe_dispatch_sort(x: torch.Tensor, experts: torch.Tensor,
     own dtype), and the (E,) int32 count of every expert, which bounds the
     grouped expert matmuls.  Requires ``num_experts <= 256`` (one digit of
     ``ceil(log2(E + 1))`` bits, as the reference's).  On the card one tile
-    (T·K <= tile) is one launch, more tiles a histogram launch then the
-    scatter (``csrc/moe_dispatch.cu``)."""
+    (T·K <= tile: every decode step and prefill chunk) is one launch that
+    ranks by counting (:func:`moe_dispatch_model`), more tiles a histogram
+    launch then the scatter (``csrc/moe_dispatch.cu``).  ``counting=False``
+    sends one tile through the scatter kernel instead (PR 15's design, which
+    the card check times in turns); the outputs are the same."""
     T, D = x.shape
     K = experts.shape[-1]
     E = num_experts
@@ -486,9 +560,10 @@ def moe_dispatch_sort(x: torch.Tensor, experts: torch.Tensor,
     sorted_e = torch.empty(n, dtype=torch.int32, device=dev)
     sorted_tok = torch.empty(n, dtype=torch.int32, device=dev)
     sorted_p = torch.empty(n, dtype=probs.dtype, device=dev)
-    counts = torch.zeros(E, dtype=torch.int32, device=dev)
     if n == 0 or D == 0:
-        return xd, sorted_e, sorted_tok, sorted_p, counts
+        return (xd, sorted_e, sorted_tok, sorted_p,
+                torch.zeros(E, dtype=torch.int32, device=dev))
+    counts = torch.empty(E, dtype=torch.int32, device=dev)  # all E written
     nt = -(-n // tile)
     hist = torch.empty(nt << bits if nt > 1 else 0, dtype=torch.int32,
                        device=dev)
@@ -499,8 +574,22 @@ def moe_dispatch_sort(x: torch.Tensor, experts: torch.Tensor,
        hist.data_ptr() if nt > 1 else None, xd.data_ptr(),
        sorted_e.data_ptr(), sorted_tok.data_ptr(), sorted_p.data_ptr(),
        counts.data_ptr(), T, K, E, tile, bits, row_bytes, vec,
-       probs.element_size(), _stream(x))
+       probs.element_size(), int(counting), _stream(x))
     return xd, sorted_e, sorted_tok, sorted_p, counts
+
+
+def moe_dispatch_attributes(n: int, row_bytes: int,
+                            vec: int = 16) -> Dict[str, Dict[str, int]]:
+    """Registers, spills, shared memory and CTAs an SM of K3's kernels, as
+    the compiled library and the occupancy calculator report them, with
+    the one-tile launch's grid for n rows of ``row_bytes`` bytes (copying
+    CTAs and words a thread, which :func:`k3_grid` mirrors)."""
+    return {name: _build.attributes("moe_dispatch", "moe_dispatch_attrs",
+                                    which, n, row_bytes, vec,
+                                    extra=("copy_ctas", "words_per_thread"))
+            for which, name in enumerate(("moe_onetile_kernel<uint4>",
+                                          "moe_scatter_kernel (tile 512)",
+                                          "moe_hist_kernel"))}
 
 
 def kernel_attributes(tile: int) -> Dict[str, int]:
@@ -517,4 +606,5 @@ __all__ = ["radix_tile_sort", "radix_tile_sort_packed",
            "radix_tile_sort_model", "k7a_threads", "kernel_attributes",
            "radix_tile_sort_packed_plain", "mt_local_plain",
            "mt_scatter_plain", "moe_dispatch_sort", "moe_dispatch_sort_plain",
-           "SENTINEL", "K3", "K6A", "K6B", "K7A", "K7B"]
+           "moe_dispatch_model", "moe_dispatch_attributes", "k3_grid",
+           "k3_cta_words", "SENTINEL", "K3", "K6A", "K6B", "K7A", "K7B"]

@@ -472,3 +472,57 @@ def test_decode_route_by_dtype_and_head_dim():
                 tfd.decode_partials_plain(q[:, 0], k, v, lens)):
             assert torch.equal(got, want)
     assert set(_build.launches().values()) == {0}
+
+
+# --------------------------------------------------------------------------
+# On the card, bf16 decode is one launch: the CTA that finishes last for a
+# (batch row, kv head) merges the splits with the routine the standalone
+# combine runs (max, then a fold in split order: ``combine_model``).
+
+def test_fused_decode_takes_the_twin_on_cpu_and_raises_elsewhere():
+    """flash_decode on the fused route (bf16, head dim 16) and on v1
+    (fp32): the plain twin for CPU tensors, bit for bit; refused on a meta
+    tensor; no launch counts either way."""
+    _build.reset_launches()
+    q, k, v = _t(*_qkv(2, 1, 40, seed=13))
+    lens = torch.tensor([29, 0], dtype=torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (t.to(dtype) for t in (q[:, 0], k, v))
+        got = tfd.flash_decode(qd, kd, vd, lens)
+        assert got.dtype == dtype
+        assert torch.equal(got, tfd.flash_decode_plain(qd, kd, vd, lens))
+        meta = lambda t: t.to("meta")                # noqa: E731
+        with pytest.raises(ValueError, match="CUDA"):
+            tfd.flash_decode(meta(qd), meta(kd), meta(vd), meta(lens))
+    assert tfd.uses_tensor_cores(torch.bfloat16, hd)
+    assert set(_build.launches().values()) == {0}
+
+
+@pytest.mark.parametrize("G", [4, 5])
+@pytest.mark.parametrize("S,block_k", [(256, 32), (200, 16)])
+def test_split_order_merge_matches_jax_combine(G, S, block_k):
+    """The merge of both routes (max, then the splits folded in order)
+    equals the JAX package's ``combine_partials`` folded over the same
+    partials, and the twin's ``combine_plain``, with lengths 0, 1, 127,
+    128, 129 and S (splits past a length merge with weight 0); 8 and 13
+    splits."""
+    r = np.random.RandomState(90 + G)
+    H = G * DECODE_KV
+    lens = np.array([0, 1, 127, 128, 129, S], np.int32)
+    q = r.randn(lens.size, H, hd).astype(np.float32)
+    kc = r.randn(lens.size, S, DECODE_KV, hd).astype(np.float32)
+    vc = r.randn(lens.size, S, DECODE_KV, hd).astype(np.float32)
+    m, l, acc = tfd.decode_partials_plain(*_t(q, kc, vc, lens),
+                                          block_k=block_k)
+    nk = tfd.num_splits(S, block_k)
+    mF, lF, aF = _j(m[..., 0].numpy(), l[..., 0].numpy(),
+                    acc[..., 0, :].numpy())
+    for s in range(1, nk):
+        mF, lF, aF = combine_partials((mF, lF, aF), tuple(_j(
+            m[..., s].numpy(), l[..., s].numpy(), acc[..., s, :].numpy())))
+    got = tfd.combine_model(m, l, acc, torch.float32)
+    _close(got, aF / jnp.maximum(lF, 1e-30)[..., None])
+    np.testing.assert_allclose(
+        got.numpy(), tfd.combine_plain(m, l, acc, torch.float32).numpy(),
+        **TOL)
+    _close(got, _jit(ja.decode_attention, *_j(q, kc, vc, lens)))

@@ -31,6 +31,7 @@ from repro.serve import engine as je
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import merge_sort as ms
+from repro_torch.kernels import radix_sort as rs
 from repro_torch.kernels.radix_sort import (moe_dispatch_sort,
                                             moe_dispatch_sort_plain)
 from repro_torch.models import moe
@@ -226,6 +227,77 @@ def test_moe_dispatch_sort_refuses_over_256_experts_and_meta_tensors():
         moe_dispatch_sort(x.to("meta"), e.to("meta"), p.to("meta"),
                           num_experts=16)
     assert _build.launches()["moe_dispatch"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K3 on the card ranks a one-tile input by counting: the rank of row j is
+# #{i : e_i < e_j} + #{i < j : e_i == e_j}, and each CTA of k3_grid copies
+# a run of 16-byte words (4 or 2 where the row allows no 16).  Its plain
+# model (``moe_dispatch_model``, CTA by CTA) is held here bit for bit
+# against the twin and the JAX kernel in interpret mode.
+
+def _k3_ids(kind, T, K, E, r):
+    if kind == "all-equal":
+        return np.full((T, K), E - 1, np.int32)
+    if kind == "ties":                  # three ids, long runs of each
+        return r.choice(np.array([0, E // 2, E - 1]), (T, K)).astype(np.int32)
+    return r.randint(0, E, (T, K)).astype(np.int32)
+
+
+@pytest.mark.parametrize("T,K,E", [(1, 1, 16), (8, 1, 16), (31, 1, 16),
+                                   (32, 1, 16), (33, 1, 16), (8, 6, 64),
+                                   (256, 1, 16), (512, 1, 16)])
+@pytest.mark.parametrize("kind", ["random", "all-equal", "ties"])
+def test_k3_counting_model_matches_twin_and_reference(T, K, E, kind):
+    """n = T·K of 1 to 512 (T=8, K=6, E=64 is deepseek-v2-lite's decode
+    step): the CTA-by-CTA model at the card's 132 SMs and at 1 (more words
+    a thread, runs that straddle rows), at 16-, 4- and 2-byte words, equals
+    argsort + gathers and the JAX kernel bit for bit."""
+    r = np.random.RandomState(T * K + E + len(kind))
+    e = _k3_ids(kind, T, K, E, r)
+    p = r.rand(T, K).astype(np.float32)
+    for D, dtype in ((24, torch.float32), (6, torch.float32),
+                     (40, torch.bfloat16), (5, torch.bfloat16)):
+        x = torch.from_numpy(r.randn(T, D).astype(np.float32)).to(dtype)
+        twin = moe_dispatch_sort_plain(x, _t(e), _t(p), num_experts=E)
+        for sms in (rs.NUM_SMS, 1):
+            got = rs.moe_dispatch_model(x, _t(e), _t(p), num_experts=E,
+                                        sm_count=sms)
+            for a, b in zip(got, twin):
+                assert a.dtype == b.dtype and torch.equal(a, b), (D, sms)
+    x = r.randn(T, 24).astype(np.float32)
+    want = jax_dispatch(jnp.asarray(x), jnp.asarray(e), jnp.asarray(p),
+                        num_experts=E, jit=False)
+    got = rs.moe_dispatch_model(_t(x), _t(e), _t(p), num_experts=E)
+    for g, w in zip(got[:4], want):
+        _eq(g, w)
+    _eq(got[4], np.bincount(e.reshape(-1), minlength=E).astype(np.int32))
+
+
+@pytest.mark.parametrize("n,row_bytes,vec,sms", [
+    (1, 10240, 16, 132), (8, 10240, 16, 132), (256, 10240, 16, 132),
+    (512, 10240, 16, 132), (2048, 10240, 16, 132), (48, 4096, 16, 132),
+    (33, 96, 16, 132), (512, 16, 16, 132), (31, 10, 2, 132),
+    (100, 24, 4, 1), (2048, 2, 2, 132), (7, 10240, 16, 1)])
+def test_k3_grid_covers_every_word_once(n, row_bytes, vec, sms):
+    """The CTAs of K3's one-tile grid copy every word of every row exactly
+    once, at most K3_MAX_PER words a thread, no CTA idle, and no CTA's run
+    touches more rows than the kernel's shared table holds; at the MoE
+    path's shapes (D 5120 bf16) a decode step is 40 CTAs of one 16-byte
+    word a thread and a 256-token chunk 256 CTAs of five."""
+    nv = row_bytes // vec
+    ctas, per = rs.k3_grid(n, row_bytes, vec, sms)
+    assert 1 <= per <= rs.K3_MAX_PER
+    words = [rs.k3_cta_words(c, n, nv, per) for c in range(ctas)]
+    assert all(w.numel() > 0 for w in words)
+    flat = torch.cat(words)
+    assert flat.numel() == n * nv
+    assert torch.equal(flat.sort().values, torch.arange(n * nv))
+    rows = max(int(w[-1]) // nv - int(w[0]) // nv + 1 for w in words)
+    assert rows <= rs.K3_THREADS * rs.K3_MAX_PER + 2
+    if (row_bytes, sms) == (10240, 132):
+        assert (ctas, per) == {1: (5, 1), 8: (40, 1), 256: (256, 5),
+                               512: (320, 8), 2048: (1280, 8)}[n]
 
 
 @pytest.mark.parametrize("strategy,route", [("sort", "argsort"),
