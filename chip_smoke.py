@@ -21,7 +21,14 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    cluster sizes; K7a (8-bit digits in registers) at tiles 1 to 8192 over
    every bit range and digit width and on equal, sorted and reverse-sorted
    words; both bit-identical across two launches, their registers, spills,
-   shared memory and CTAs an SM printed; 2b. the same for
+   shared memory and CTAs an SM printed; K8 (v2: blocks of its own size,
+   a co-rank search a warp a diagonal, W words a thread merged in
+   registers) also at run 2^14, on all-equal, sorted, reversed and
+   sentinel-padded runs and the four 8192-word levels of the MoE argsort,
+   v1 (the first design) on the same words, two launches bit-identical,
+   v2's registers, spills and CTAs an SM printed, and v2 timed in turns
+   against v1 at runs 1024, 2^14, 2^19 (with the unpack) and the four MoE
+   levels; 2b. the same for
    the MoE dispatch K3 ``moe_dispatch`` (a decode step's 8 rows, a
    256-token chunk, ``Model.prefill``'s 8192 rows at d_model 5120; ragged,
    top-k 2, 256 experts; T·K of 1, 32, 33 and 512, deepseek-v2-lite's
@@ -56,8 +63,13 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    none exists for the K4 scans): K1 (bf16 through v3, the tensor-core
    kernel, with its split-KV merge: GQA groups 1, 4 and 5, chunks of 1 to
    256 at offsets 0 to 1792, forced split counts, two launches bit-identical;
-   fp32 through v2; v3 timed beside v2 in turns, unsplit, and over split
-   counts), K2 (bf16 through v2, the tensor-core kernel, with the merge
+   the fused merge (one launch whose last CTA a row tile merges, the
+   route up to 2 splits) equal bit for bit to split partials + the
+   standalone merge and to a second fused launch in every split case,
+   forced ones included, the arrival counters back at 0; fp32 through v2;
+   v3 timed beside v2 in turns, unsplit, and over split counts, and the
+   fused launch in turns against the two at every split shape), K2 (bf16
+   through v2, the tensor-core kernel, with the merge
    fused into its launch, at every GQA group of ``GROUPS`` and lengths 0,
    1, 127, 128, 129, S and ragged: the fused launch equal to v2 partials +
    the standalone combine, each row equal to a B = 1 call and two launches
@@ -71,7 +83,9 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    bf16, seeded random weights) serves 16 requests through
    ``ContinuousEngine`` and 4 through the sync ``Engine``; every attention
    call must have launched a kernel (launch counters = layers x chunks /
-   decode steps; bf16 decode is one launch, so the standalone combine 0);
+   decode steps; bf16 decode is one launch, so the standalone combine 0;
+   a split prefill chunk is one launch up to 2 splits, the merge fused,
+   else two, and both kinds occur);
 6. fp32 checks at full width, 2 layers: the card's logits against the CPU
    plain path on the same weights, and continuous-batching tokens against
    one-at-a-time tokens; the fp32 engine's decode launches K2 v1's
@@ -288,6 +302,25 @@ def main() -> None:
 
     worst = {}               # kernel → {dtype: max abs err}
 
+    fused_same = []          # K1 split cases: fused == two launches
+
+    def k1_fused_check(q, k, v, off, ns, out, **case):
+        """At every split count the fused launch (the tile's last CTA
+        merges) equals the two launches (split partials + the standalone
+        merge), a second fused launch and the wrapper's own route, bit for
+        bit."""
+        if ns < 2:
+            return
+        pair = fa.merge(*fa.split_partials(q, k, v, ns, causal=True,
+                                           q_offset=off))
+        fused = [fa.flash_attention(q, k, v, causal=True, q_offset=off,
+                                    splits=ns, fused=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        fused_same.append(bool(torch.equal(out, pair) and all(
+            torch.equal(f, pair) for f in fused)))
+        check(fused_same[-1], f"K1 fused split merge {case} splits={ns}: "
+              f"not merge(split_partials) or not repeatable bit for bit")
+
     def k1_bf16_checks():
         """v3 beyond llama3-8b's head layout: GQA group 1 (8/8 heads) and
         5 (40/8, llama4-scout's) at every chunk, offset and Sk of the
@@ -309,10 +342,11 @@ def main() -> None:
                             q.float(), k.float(), v.float(), causal=True,
                             q_offset=off)
                         torch.cuda.synchronize()
+                        ns = fa.num_splits(1, c, Hq, KV, Sk, q_offset=off)
                         record("flash_attention_fwd", bf, err(out, ref),
-                               c=c, q_offset=off, Sk=Sk, H=Hq,
-                               splits=fa.num_splits(1, c, Hq, KV, Sk,
-                                                    q_offset=off))
+                               c=c, q_offset=off, Sk=Sk, H=Hq, splits=ns)
+                        k1_fused_check(q, k, v, off, ns, out, c=c, H=Hq,
+                                       q_offset=off, Sk=Sk)
         for Hq, c, off, Sk in ((8, 1, 1792, 2048), (8, 17, 96, 2048),
                                (8, 64, 736, 2048), (8, 256, 0, 1100),
                                (40, 1, 96, 1100), (40, 17, 1792, 2048),
@@ -328,6 +362,9 @@ def main() -> None:
                 torch.cuda.synchronize()
                 record("flash_attention_fwd", bf, err(out, ref), c=c,
                        q_offset=off, Sk=Sk, H=Hq, splits=sp or "rule")
+                k1_fused_check(q, k, v, off, sp or fa.num_splits(
+                    1, c, Hq, KV, Sk, q_offset=off), out, c=c, H=Hq,
+                    q_offset=off, Sk=Sk)
         k1_same = []
         for Hq, c, off in ((32, 256, 736), (32, 32, 1792), (40, 256, 736),
                            (40, 64, 1792), (32, 1, 1792)):
@@ -353,6 +390,15 @@ def main() -> None:
         say(f"K1 v3: two launches bit-identical in {sum(k1_same)} of "
             f"{len(k1_same)} cases (split and unsplit, G 4 and 5)")
         report["k1_bit_identical"] = k1_same
+        counters = fd._arrival_counters[torch.cuda.current_device()]
+        check(int(counters.count_nonzero()) == 0, "K1 fused: arrival "
+              "counters left non-zero after the split checks")
+        say(f"K1 v3 fused split merge: one launch equal to split partials "
+            f"+ the standalone merge, to a second launch and to the rule's "
+            f"route, bit for bit, in {sum(fused_same)} of {len(fused_same)} "
+            f"split cases (G 1, 4, 5; rule and forced 2, 5, 16, 40 splits); "
+            f"arrival counters back at 0")
+        report["k1_fused_bit_identical"] = fused_same
 
     def record(kernel, dtype, e, **case):
         tol = TOL[str(dtype).split(".")[-1]]
@@ -469,10 +515,12 @@ def main() -> None:
                                                    v.float(), causal=True,
                                                    q_offset=off)
                     torch.cuda.synchronize()
+                    ns = fa.num_splits(1, c, H, KV, Sk, q_offset=off) \
+                        if bf16 else 1
                     record("flash_attention_fwd", dtype, err(out, ref),
-                           c=c, q_offset=off, Sk=Sk, splits=fa.num_splits(
-                               1, c, H, KV, Sk, q_offset=off) if bf16
-                           else 1)
+                           c=c, q_offset=off, Sk=Sk, splits=ns)
+                    k1_fused_check(q, k, v, off, ns, out, c=c, H=H,
+                                   q_offset=off, Sk=Sk)
         for S in (2048, 1100):
             B = 8
             q = randn(B, H, hd, dtype=dtype)
@@ -641,9 +689,25 @@ def main() -> None:
             return fa.flash_attention(q, k, v, causal=True, q_offset=off,
                                       tensor_cores=False)
         turns = [device_ms(f, cold=True) for f in (v3, v2, v3, v2)]
+        ns = fa.num_splits(B, c, Hq, KV, Sk, q_offset=off)
+        pair = {}
+        if ns > 1:
+            # the fused launch against the two launches, in turns
+            def one():
+                return fa.flash_attention(q, k, v, causal=True, q_offset=off,
+                                          fused=True)
+
+            def two():
+                return fa.flash_attention(q, k, v, causal=True, q_offset=off,
+                                          fused=False)
+            fturns = [device_ms(f, cold=True) for f in (one, two, one, two)]
+            pair = dict(fused_ms=(fturns[0] + fturns[2]) / 2,
+                        pair_ms=(fturns[1] + fturns[3]) / 2,
+                        fused_turns_ms=fturns, route="fused"
+                        if fa.fused_merge(ns) else "two launches")
         return dict(
             ms=(turns[0] + turns[2]) / 2, v2_ms=(turns[1] + turns[3]) / 2,
-            turns_ms=turns,
+            turns_ms=turns, **pair,
             unsplit_ms=device_ms(lambda: fa.flash_attention(
                 q, k, v, causal=True, q_offset=off, splits=1), cold=True),
             plain_ms=device_ms(lambda: fa.flash_attention_plain(
@@ -746,8 +810,11 @@ def main() -> None:
         r = k1_case(c, off, 2048, Hq=Hq)
         tag = f"c={c} off={off}" + ("" if Hq == H else f" H={Hq}")
         report["timings"][f"flash_attention_fwd {tag}"] = r
+        fused = "" if "pair_ms" not in r else (
+            f"; fused {r['fused_ms']:.4f} against split partials + merge "
+            f"{r['pair_ms']:.4f} in turns, route {r['route']}")
         say(f"K1 {tag} Sk=2048 bf16: v3 {r['ms']:.4f} ms "
-            f"({r['shape']['splits']} splits; unsplit "
+            f"({r['shape']['splits']} splits{fused}; unsplit "
             f"{r['unsplit_ms']:.4f}), v2 {r['v2_ms']:.4f} ms"
             f", plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
@@ -950,11 +1017,18 @@ def main() -> None:
     got = {k: n for k, n in launches.items() if k in expect}
     check(got == expect, f"launch counts {got} != layers x "
           f"(prefill chunks, decode steps), no combine {expect}")
-    # K1's merge runs once for each attention call that split its keys:
-    # a whole number of layers, at most one per K1 launch
+    # a split K1 call is one launch whose last CTA a row tile merges
+    # (tagged "fused" by the wrapper) up to fa.FUSED_UP_TO splits, else
+    # two (the partials, then the standalone merge): each a whole number
+    # of layers, together at most one per K1 launch; the 256-token chunks
+    # split in 2, so the path has fused ones
     n_merge = launches["flash_attention_merge"]
-    check(n_merge % L == 0 and n_merge <= launches["flash_attention_fwd"],
-          f"K1 merge launches {n_merge}: not layers x split chunks")
+    n_fused = _build.KERNELS["flash_attention_fwd"].tags.get("fused", 0)
+    n_split = n_fused + n_merge
+    check(n_fused > 0 and n_fused % L == 0 and n_merge % L == 0 and
+          n_split <= launches["flash_attention_fwd"],
+          f"K1 split chunks: {n_fused} fused launches and {n_merge} merge "
+          f"launches are not layers x split chunks")
     check(all(n > 0 for k, n in launches.items()
               if k != "flash_decode_combine"),
           f"a kernel of the path never launched: {launches}")
@@ -965,14 +1039,16 @@ def main() -> None:
     gen_cont = sum(len(r.result) for r in done.values())
     gen_sync = sum(len(r.result) for r in sync_done.values())
     say(f"dense path: launches {launches} = {L} layers x "
-        f"{calls['prefill_chunk']} prefill chunks ({n_merge // L} of them "
-        f"split) / {calls['decode_step']} decode steps")
+        f"{calls['prefill_chunk']} prefill chunks ({n_split // L} of them "
+        f"split: {n_fused // L} in one launch, the merge fused, "
+        f"{n_merge // L} in two) / {calls['decode_step']} decode steps")
     say(f"ContinuousEngine: 16 requests, {gen_cont} tokens in {t_cont:.2f} s"
         f" = {gen_cont / t_cont:.1f} tok/s; Engine: 4 requests, {gen_sync} "
         f"tokens in {t_sync:.2f} s = {gen_sync / t_sync:.1f} tok/s; peak "
         f"memory {peak / 2**30:.2f} GiB [{card}]")
     report["main_path"] = dict(
-        launches=launches, calls=calls, continuous_s=t_cont,
+        launches=launches, fused_split_launches=n_fused, calls=calls,
+        continuous_s=t_cont,
         continuous_tokens=gen_cont, sync_s=t_sync, sync_tokens=gen_sync,
         peak_bytes=peak, telemetry=ce.telemetry.snapshot())
     del ce, se
@@ -1470,10 +1546,12 @@ def main() -> None:
             "library_computes": row.get("library_computes"),
             "shape": row["shape"],
             **{k: row[k] for k in ("v2_ms", "unsplit_ms", "v1_ms",
-                                   "pair_ms", "partials_ms",
+                                   "pair_ms", "fused_ms", "partials_ms",
                                    "partials_bound_ms") if k in row},
             **({"launches_from": "fp32 dense ContinuousEngine (v1 route)"}
-               if name == "flash_decode_combine" else {})})
+               if name == "flash_decode_combine" else {}),
+            **({"fused_split_launches": n_fused}
+               if name == "flash_attention_fwd" else {})})
     kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
     kernels += moe_kernel_entries(moe_rows, moe_errs, moe_launches)
     report["kernels"] = kernels
@@ -1690,6 +1768,56 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
          ms.merge_level_plain(halves, run=n // 2, unpack_mask=mask),
          what="last level", run=n // 2, unpack=True)
 
+    # K8 v2 (the route above) beyond those: v1 (kept as the route v2 is
+    # timed against) on the same words, run 2^14, all-equal, sorted and
+    # reversed pairs, sentinel-padded runs, the four 8192-word levels of
+    # the MoE path's argsort, and two launches bit-identical
+    def runs_of(words, run):
+        srt = torch.sort(_flip(torch, words).reshape(-1, run), dim=1).values
+        return _flip(torch, srt).view(torch.uint32).reshape(-1)
+
+    same("merge_level", ms._merge_level(packed, run=tile, tile=tile,
+                                        v1=True),
+         ms.merge_level_plain(packed, run=tile), what="v1", run=tile)
+    runs14 = runs_of(w, 1 << 14)
+    same("merge_level", ms._merge_level(runs14, run=1 << 14, tile=tile),
+         ms.merge_level_plain(runs14, run=1 << 14), run=1 << 14)
+    moe_keys = (torch.as_tensor(rng.randint(0, 16, 8192), device=dev)
+                << 13) | torch.arange(8192, device=dev)
+    moe_words = moe_keys.to(torch.int32).view(torch.uint32)
+
+    def k8_case(kind, words, r_):
+        """Words in sorted runs of r_: all equal, the whole input sorted,
+        each run above the next (the most skewed split), or a third of the
+        words the pad sentinel (sorted to each run's tail)."""
+        if kind == "all-equal":
+            return torch.full_like(words, 0x9E3779B9)
+        if kind == "sorted":
+            return runs_of(words, words.numel())
+        if kind == "reversed":
+            return runs_of(words, words.numel()).reshape(-1, r_).flip(
+                0).reshape(-1)
+        third = torch.arange(words.numel(), device=dev) % 3 == 0
+        signed = torch.where(third, -1, words.view(torch.int32))
+        return runs_of(signed.view(torch.uint32), r_)
+
+    kinds = ("all-equal", "sorted", "reversed", "sentinel-padded")
+    k8_inputs = [(kind, k8_case(kind, w, tile), tile) for kind in kinds]
+    k8_inputs += [(f"MoE level run {r_}", runs_of(moe_words, r_), r_)
+                  for r_ in (512, 1024, 2048, 4096)]
+    k8_inputs += [(f"MoE level run {r_}, {kind}", k8_case(kind, moe_words,
+                                                          r_), r_)
+                  for r_ in (512, 4096) for kind in kinds]
+    for what, x8, r_ in k8_inputs:
+        for v1 in (False, True):
+            same("merge_level", ms._merge_level(x8, run=r_, tile=min(r_, 512),
+                                                v1=v1),
+                 ms.merge_level_plain(x8, run=r_), what=what, run=r_,
+                 n=x8.numel(), v1=v1)
+    check(torch.equal(ms._merge_level(runs14, run=1 << 14, tile=tile),
+                      ms._merge_level(runs14, run=1 << 14, tile=tile)),
+          "K8 v2: two launches on the same input differ")
+
     # timing (CUDA graphs, inputs read after an L2 flush) at the path's
     # shapes; bound = each input read once, each output written once
     def row(kernel_fn, plain_fn, library_fn, nbytes, shape, computes=None):
@@ -1741,19 +1869,39 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             4.0 * 2 * n, dict(n=n, tile=tile, total_bits=32, passes=4,
                               digit_bits=8),
             "per-tile stable sort of the words (top bit flipped, int32)"),
-        "merge_level": row(
-            lambda: ms._merge_level(packed, run=tile, tile=tile),
-            lambda: ms.merge_level_plain(packed, run=tile),
-            lambda: torch.sort(fp.reshape(n // (2 * tile), 2 * tile), dim=1),
-            4.0 * 2 * n, dict(n=n, run=tile, block=tile),
-            "sort of each 2-run row (top bit flipped, int32)"),
     }
-    last = row(lambda: ms._merge_level(halves, run=n // 2, tile=tile,
-                                       unpack_mask=mask),
-               lambda: ms.merge_level_plain(halves, run=n // 2,
-                                            unpack_mask=mask),
-               None, 4.0 * 2 * n, dict(n=n, run=n // 2, unpack=True))
+
+    def k8_row(x8, run, um, computes=None, library_fn=None, t8=tile):
+        """K8 v2 against v1 (blocks of the path's tile t8) in turns (v2,
+        v1, v2, v1: each the mean of its two), the twin and, where given,
+        the library call."""
+        turns = [device_ms(lambda: ms._merge_level(
+            x8, run=run, tile=t8, unpack_mask=um, v1=v1),
+            cold=True) for v1 in (False, True, False, True)]
+        return dict(
+            ms=(turns[0] + turns[2]) / 2, v1_ms=(turns[1] + turns[3]) / 2,
+            turns_ms=turns, plain_ms=device_ms(lambda: ms.merge_level_plain(
+                x8, run=run, unpack_mask=um), cold=True),
+            library_ms=None if library_fn is None
+            else device_ms(library_fn, cold=True),
+            library_computes=computes,
+            bound_ms=4.0 * 2 * x8.numel() / PEAK_BYTES * 1e3,
+            bound_by="bytes",
+            shape=dict(n=x8.numel(), run=run, unpack=um is not None,
+                       block=ms.k8_block(x8.numel(), run),
+                       v1_block=min(t8, ms.MAX_BLOCK)))
+
+    rows["merge_level"] = k8_row(
+        packed, tile, None, "sort of each 2-run row (top bit flipped, int32)",
+        lambda: torch.sort(fp.reshape(n // (2 * tile), 2 * tile), dim=1))
+    last = k8_row(halves, n // 2, mask)
     report["timings"]["merge_level last level run=2^19"] = last
+    rows["merge_level"]["other_shapes"] = other = {
+        "run 2^19, unpack (the last level)": last,
+        "run 2^14": k8_row(runs14, 1 << 14, None)}
+    for r_ in (512, 1024, 2048, 4096):
+        other[f"MoE level, 8192 words, run {r_}"] = k8_row(
+            runs_of(moe_words, r_), r_, None, t8=512)
     hist_c_dm = hist_c.t().contiguous().reshape(-1)
     hc = row(lambda: ts.histogram_offsets(hist_c),
              lambda: ts.histogram_offsets_plain(hist_c),
@@ -1787,7 +1935,9 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                                                  (256, hist8.numel()),
                                                  (1, 1_000_003))},
         "radix_tile_sort": {f"tile {t7}": rs.kernel_attributes(t7)
-                            for t7 in (1, 256, 1024, 8192)}}
+                            for t7 in (1, 256, 1024, 8192)},
+        "merge_level": {f"v2 block {b_}": ms.merge_level_attributes(b_)
+                        for b_ in (256, 512, 1024, 2048, 4096)}}
     for kname, per in attrs.items():
         for what, a in per.items():
             extra = (f", largest cluster {a['max_cluster']} "
@@ -1806,6 +1956,11 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         say(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms (bytes) [{card}]")
+    for what, r in [("run 1024", rows["merge_level"]), *other.items()]:
+        say(f"merge_level v2 {what} (n {r['shape']['n']}, block "
+            f"{r['shape']['block']}): {r['ms']:.4f} ms against v1 "
+            f"{r['v1_ms']:.4f} in turns, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms (bytes) [{card}]")
     say(f"merge_level last level (run 2^19, unpack): kernel "
         f"{last['ms']:.4f} ms, plain {last['plain_ms']:.4f} ms, bound "
         f"{last['bound_ms']:.4f} ms; histogram_offsets at 16384 x 16: kernel "
@@ -2031,7 +2186,7 @@ def sort_path(np, torch, dev, seed, card, report):
              ("mt_local_kernel", "radix_mt_local"),
              ("mt_scatter_kernel", "radix_mt_scatter"),
              ("cluster_scan_kernel", "tile_scan_add"),
-             ("merge_level_kernel", "merge_level"))
+             ("merge_level", "merge_level"))     # v1 and v2
     breakdown = {}
 
     def argsort_call(keys, bits, strategy):
@@ -2088,6 +2243,7 @@ def sort_kernel_entries(rows, errs, launches):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_computes": r["library_computes"], "shape": r["shape"],
+            **({"v1_ms": r["v1_ms"]} if "v1_ms" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r
                else {})})
     return out
@@ -2464,6 +2620,8 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
                   f"or out of range")
         return dict(tokens=toks, calls=dict(m.calls), calls_cont=calls_cont,
                     launches=_build.launches(), launches_cont=launches_cont,
+                    fused=_build.KERNELS["flash_attention_fwd"].tags.get(
+                        "fused", 0),
                     continuous_s=t_cont, sync_s=t_sync, telemetry=telemetry)
 
     k3 = serve(model)
@@ -2480,9 +2638,11 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
     check(all(v > 0 for k, v in got.items() if k != "flash_decode_combine"),
           f"a kernel of the MoE path never launched: {got}")
     n_merge = launches["flash_attention_merge"]
-    check(n_merge % L == 0 and n_merge <= launches["flash_attention_fwd"],
-          f"MoE path: K1 merge launches {n_merge}: not layers x split "
-          f"chunks")
+    n_fused = k3["fused"]
+    check(n_fused % L == 0 and n_merge % L == 0 and
+          n_fused + n_merge <= launches["flash_attention_fwd"],
+          f"MoE path: K1 {n_fused} fused split launches and {n_merge} merge "
+          f"launches are not layers x split chunks")
     check(k3["launches_cont"]["moe_dispatch"] == n_moe * (
         k3["calls_cont"]["prefill_chunk"] + k3["calls_cont"]["decode_step"]),
         "continuous-engine K3 launches")
@@ -2493,8 +2653,9 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
     gen_sync = sum(len(v) for k, v in k3["tokens"].items() if k >= 100)
     say(f"MoE path: launches {got} = {n_moe} MoE layers x "
         f"({calls['prefill_chunk']} prefill chunks + {calls['decode_step']} "
-        f"decode steps); K1 merge {n_merge} = {L} layers x "
-        f"{n_merge // L} split chunks")
+        f"decode steps); K1 split chunks {L} layers x "
+        f"{(n_fused + n_merge) // L} ({n_fused // L} fused, "
+        f"{n_merge // L} with the standalone merge)")
     say(f"MoE ContinuousEngine: 16 requests, {gen_cont} tokens in "
         f"{k3['continuous_s']:.2f} s = {gen_cont / k3['continuous_s']:.1f} "
         f"tok/s; Engine: 4 requests, {gen_sync} tokens in "
@@ -2615,7 +2776,8 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
     peak = torch.cuda.max_memory_allocated()
     say(f"MoE path: peak memory {peak / 2**30:.2f} GiB [{card}]")
     report["moe_path"] = dict(
-        layers=L, launches=got, merge_launches=n_merge, calls=calls,
+        layers=L, launches=got, merge_launches=n_merge,
+        fused_split_launches=n_fused, calls=calls,
         continuous_s=k3["continuous_s"],
         continuous_tokens=gen_cont, sync_s=k3["sync_s"], sync_tokens=gen_sync,
         argsort_route_sync_s=t_ref, shadow_k3_calls=shadow["calls"],

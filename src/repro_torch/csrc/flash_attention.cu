@@ -37,16 +37,36 @@
 // in fp32, this one rounds q only once (to bf16, as given) and rounds P
 // to bf16: both are roundings within the bf16 tolerance.  When the row
 // tiles leave SMs idle (short chunks, late offsets), the wrapper splits
-// each tile's key range over nsplit CTAs: each writes fp32 partials (m,
-// l, acc) and flash_fwd_merge_kernel merges them in split order -- no
-// atomics, so one input gives bit-identical outputs on every run.  A
-// split that lies past a row's causal window gives that row m = -1e30,
-// l = 0, acc = 0, weight 0 in the merge; key 0 is visible to every row,
-// so no row is empty.  What holds v3 back now: every warp reads the whole
-// K and V tile from shared memory through ldmatrix (128 KB a tile a CTA),
-// and with one or two warps a scheduler little of its latency is hidden;
-// a deeper ring (3 or 4 stages) was tried and was no faster.  wgmma,
-// which reads B from shared memory once per warpgroup, is the next step.
+// each tile's key range over nsplit CTAs, each of which writes fp32
+// partials (m, l, acc) of its keys.  The splits of a tile with a tile of
+// keys are its live ones, the first ceil(n_t / per) (n_t kv tiles, per a
+// split).  Fused (arrive != null; the wrapper's route up to 2 splits): a
+// split past the live ones exits at once, writing nothing; a live CTA
+// writes its partials into the tile's own scratch (tile-major: a CTA's
+// rows are contiguous, so the merger reads whole sectors in order) and
+// counts its arrival on the (batch row, kv head, row tile) counter
+// (arrival.cuh), and the CTA that arrives last merges the tile's rows and
+// writes the bf16 output: one launch, no memset, no atomics on the data,
+// so one input gives bit-identical outputs on every run.  The merge
+// (merge_rows) is bound by the latency of its reads from L2 and of its
+// own instructions (one warp a scheduler), so it issues its reads early:
+// the weights expf(m_s - max) and 1 / max(l, 1e-30) from one round trip
+// of m and l, and acc as a cp.async stream 8 chunks deep through the K/V
+// ring (free by then), folded a = fmaf(acc_s, w_s, a) in split order.
+// One SM a tile pulls live x 32 KB, which is why the wrapper fuses only
+// up to 2 splits: past that the standalone merge (flash_fwd_merge_kernel),
+// which spreads the same reads over the card, is the faster route.  It
+// folds every split with the same arithmetic; an empty split adds +0
+// there (weight 0, l 0, acc 0), which the fused merge adds once, so the
+// two routes give the same bits.  A split that lies past a row's causal
+// window gives that row m = -1e30, l = 0, acc = 0, weight 0 in the merge;
+// key 0 is visible to every row and lies in split 0, so no row is empty
+// and the max is always a live split's.  What holds v3 back now: every
+// warp reads the whole K and V tile from shared memory through ldmatrix
+// (128 KB a tile a CTA), and with one or two warps a scheduler little of
+// its latency is hidden; a deeper ring (3 or 4 stages) was tried and was
+// no faster.  wgmma, which reads B from shared memory once per
+// warpgroup, is the next step.
 //
 // v2, flash_fwd_kernel (fp32, and bf16 head dims that are not a multiple
 // of 16): fp32 FMAs from shared memory, no tensor cores (tensor cores in
@@ -69,6 +89,7 @@
 // past the edge are zero-filled and their logits masked), not asserted
 // away.  The kernels allocate nothing: the wrapper passes the output and
 // the partials.
+#include "arrival.cuh"
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -250,10 +271,153 @@ constexpr int TC_THREADS = 128;
 constexpr int MERGE_THREADS = 256;
 
 // K and V rings; Q is staged in the last K stage before the loop fills it
-constexpr size_t tc_smem_bytes() {
+__host__ __device__ constexpr size_t tc_smem_bytes() {
   return sizeof(__nv_bfloat16) * TC_LDS * 2 * TC_STAGES * TC_BN;
 }
 static_assert(TC_BM == TC_BN, "Q is staged in a K stage");
+// the fused merge's m, l and weights: static shared memory for this many
+// splits (20 KB; with the 68 KB ring, 2 CTAs still share an SM)
+constexpr int TC_MAX_FUSED = 40;
+
+// ------------------------------------------------- the split merge
+
+constexpr int MERGE_STAGES = 8;     // fused merge: acc chunks in flight
+constexpr int MERGE_BATCH = 16;     // fused merge: m, l loads in flight
+
+// one split's term of the merge of 4 dims: a = fmaf(acc_s, w_s, a)
+__device__ __forceinline__ void fold4(float (&a)[4], float4 x, float w) {
+  a[0] = fmaf(x.x, w, a[0]);
+  a[1] = fmaf(x.y, w, a[1]);
+  a[2] = fmaf(x.z, w, a[2]);
+  a[3] = fmaf(x.w, w, a[3]);
+}
+
+// a * inv, inv = 1 / max(l, 1e-30), 4 dims as bf16 (out 8-byte aligned:
+// hd % 4 == 0)
+__device__ __forceinline__ void store_quad(__nv_bfloat16* out,
+                                           const float (&a)[4], float inv) {
+  *reinterpret_cast<__nv_bfloat162*>(out) =
+      __floats2bfloat162_rn(a[0] * inv, a[1] * inv);
+  *reinterpret_cast<__nv_bfloat162*>(out + 2) =
+      __floats2bfloat162_rn(a[2] * inv, a[3] * inv);
+}
+
+// The fused merge, by the CTA of a row tile that arrived last: the tile's
+// nrows packed rows (R = r0 + r: query R / G, head kvh G + R % G, output
+// row row0 + (R / G) H + R % G) from the first `live` of nsplit splits'
+// partials, in the tile's scratch (split s, row r at s TC_BM + r; acc
+// rows of HD), all read through L2.
+//  1. a thread a row loads its m and l of MERGE_BATCH splits at once and
+//     keeps them in shared memory, takes the max, then the weights
+//     expf(m_s - max) and the denominator, in split order;
+//  2. acc streams through the scratch in order, in chunks of 16 rows of
+//     one split (8 KB at HD 128): each thread copies by cp.async the
+//     16-byte items (4 dims of a row) it will fold into its own slots of
+//     the K/V ring (free by now), MERGE_STAGES chunks ahead, and folds
+//     them a = fmaf(acc_s, w_s, a), so each item sums in split order.  A
+//     thread reads only what it copied, so the stream needs no barrier;
+//     the slots interleave the threads, so copies and reads meet no bank
+//     conflict.  (Streaming a tile's rows split by split, group by group
+//     was 3x slower: one 8 KB chunk a round trip.)
+template <int HD>
+__device__ __forceinline__ void merge_rows(
+    const float* pm, const float* pl, const float* pacc,
+    __nv_bfloat16* __restrict__ o, float4* ring, int r0, int nrows, int G,
+    size_t row0, int H, int nsplit, int live) {
+  constexpr int Q = HD / 4;                     // 4-dim items of a row
+  constexpr int RG = 16;                        // rows a chunk
+  constexpr int GROUPS = TC_BM / RG;
+  constexpr int ITEMS = RG * Q;                 // items a chunk
+  constexpr int IPT = (ITEMS + TC_THREADS - 1) / TC_THREADS;   // a thread
+  static_assert(sizeof(float4) * MERGE_STAGES * IPT * TC_THREADS <=
+                tc_smem_bytes(), "the stream fits the ring");
+  __shared__ float sM[TC_MAX_FUSED][TC_BM];     // m, then the weights
+  __shared__ float sL[TC_MAX_FUSED][TC_BM];
+  __shared__ float sInv[TC_BM];                 // 1 / max(l, 1e-30)
+  __shared__ size_t sOut[TC_BM];                // output row offsets
+  const int tid = threadIdx.x;
+  if (tid < nrows) {                            // 1. a thread a row
+    float mx = NEG_INF;
+    for (int s0 = 0; s0 < live; s0 += MERGE_BATCH) {
+      float mv[MERGE_BATCH], lv[MERGE_BATCH];
+#pragma unroll
+      for (int u = 0; u < MERGE_BATCH; ++u) {
+        const int s = min(s0 + u, live - 1);    // loads without branches
+        mv[u] = ld_cg(pm + s * TC_BM + tid);
+        lv[u] = ld_cg(pl + s * TC_BM + tid);
+      }
+#pragma unroll
+      for (int u = 0; u < MERGE_BATCH; ++u)
+        if (s0 + u < live) {
+          sM[s0 + u][tid] = mv[u];
+          sL[s0 + u][tid] = lv[u];
+          mx = fmaxf(mx, mv[u]);
+        }
+    }
+    float L = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float w = expf(sM[s][tid] - mx);
+      sM[s][tid] = w;
+      L = fmaf(sL[s][tid], w, L);
+    }
+    if (live < nsplit) L = __fadd_rn(L, 0.f);   // the empty splits' +0
+    sInv[tid] = 1.f / fmaxf(L, 1e-30f);
+    const int R = r0 + tid, i = R / G;
+    sOut[tid] = (row0 + (size_t)i * H + (R - i * G)) * HD;
+  }
+  // chunk c: split c / GROUPS, rows 16 (c % GROUPS) .. + 15 of the
+  // tile, at pacc + c 16 HD: the stream reads the scratch in order
+  const int nchunks = GROUPS * live;
+  auto issue = [&](int c) {                     // one commit group a chunk
+    if (c < nchunks) {
+      const int g = c % GROUPS;
+      const float* chunk = pacc + (size_t)c * RG * HD;
+#pragma unroll
+      for (int k = 0; k < IPT; ++k) {
+        const int item = tid + k * TC_THREADS;
+        const bool ok = item < ITEMS && g * RG + item / Q < nrows;
+        cp_async16(smem_addr(ring + ((c % MERGE_STAGES) * IPT + k) *
+                                        TC_THREADS + tid),
+                   ok ? chunk + item * 4 : pacc, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < MERGE_STAGES - 1; ++c) issue(c);
+  __syncthreads();                              // the weights are in
+
+  float a[GROUPS][IPT][4] = {};                 // 2. the stream
+  for (int s = 0; s < live; ++s) {
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+      const int c = s * GROUPS + g;
+      issue(c + MERGE_STAGES - 1);
+      cp_async_wait<MERGE_STAGES - 1>();        // chunk c is in
+#pragma unroll
+      for (int k = 0; k < IPT; ++k) {
+        const int item = tid + k * TC_THREADS, r = g * RG + item / Q;
+        if (item < ITEMS && r < nrows)
+          fold4(a[g][k],
+                ring[((c % MERGE_STAGES) * IPT + k) * TC_THREADS + tid],
+                sM[s][r]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g)
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int item = tid + k * TC_THREADS, r = g * RG + item / Q;
+      if (item >= ITEMS || r >= nrows) continue;
+      if (live < nsplit) {                      // the empty splits' +0
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[g][k][e] = __fadd_rn(a[g][k][e], 0.f);
+      }
+      store_quad(o + sOut[r] + (item % Q) * 4, a[g][k], sInv[r]);
+    }
+}
 
 // Fragment layouts: tensor_core.cuh.  Two S accumulator tiles side by side
 // are the A fragment of P V, so P needs no shuffle.
@@ -263,9 +427,10 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ pm,
-                    float* __restrict__ pl, float* __restrict__ pacc, int Sq,
-                    int Sk, int H, int KV, int causal,
-                    float scale_log2, int q_offset, int nsplit) {
+                    float* __restrict__ pl, float* __restrict__ pacc,
+                    unsigned* __restrict__ arrive, int Sq, int Sk, int H,
+                    int KV, int causal, float scale_log2, int q_offset,
+                    int nsplit) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sV = sK + TC_STAGES * TC_BN * TC_LDS;   // [stage][key][d]
@@ -285,6 +450,11 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_t = (k_hi + TC_BN - 1) / TC_BN;
   const int per = (n_t + nsplit - 1) / nsplit;
   const int t_begin = split * per, t_end = min(n_t, t_begin + per);
+  const int live = (n_t + per - 1) / per;        // splits with a kv tile
+  if (arrive != nullptr && split >= live) return;   // fused: not live
+  // fused: the tile's scratch rows, nsplit x TC_BM of them
+  const size_t tile_base =
+      (((size_t)b * KV + kvh) * gridDim.x + tile) * nsplit * TC_BM;
   constexpr int nd8 = HD / 8;                    // 16-byte chunks of a row
   constexpr int ndk = HD / 16;                   // 16-wide steps over HD
   const size_t kv_row = (size_t)KV * HD;
@@ -477,7 +647,12 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) = x;
       }
     } else {
-      const size_t prow = (size_t)split * B * Sq * H + row;
+      // fused: tile-major scratch, this CTA's TC_BM rows contiguous (the
+      // merger reads whole sectors in long runs); else (nsplit, B, Sq, H)
+      const size_t prow =
+          arrive != nullptr
+              ? (tile_base + (size_t)split * TC_BM) + (R - r0)
+              : (size_t)split * B * Sq * H + row;
       if (t4 == 0) {
         pm[prow] = m_r[h] == NEG_INF ? NEG_INF : m_r[h] * LN2;
         pl[prow] = l_r[h];
@@ -491,11 +666,19 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
+  if (arrive == nullptr || nsplit == 1 ||
+      !last_to_arrive(arrive + ((size_t)b * KV + kvh) * gridDim.x + tile,
+                      live))
+    return;
+  merge_rows<HD>(pm + tile_base, pl + tile_base, pacc + tile_base * HD, o,
+                 reinterpret_cast<float4*>(smem_raw), r0, min(TC_BM, M - r0),
+                 G, ((size_t)b * Sq) * H + (size_t)kvh * G, H, nsplit, live);
 }
 
-// Merge the splits of each (b, query, head) row in split order: m = max
-// m_s, o = sum_s e^(m_s - m) acc_s / max(sum_s e^(m_s - m) l_s, 1e-30).
-// One thread per 4 output dims.
+// The standalone merge of the splits of each (b, query, head) row in
+// split order: m = max m_s, w_s = e^(m_s - m), o = sum_s w_s acc_s *
+// (1 / max(sum_s w_s l_s, 1e-30)), each sum a chain of fmaf in split
+// order, as the fused merge (merge_rows) computes it.  One thread per 4 output dims.
 __global__ void flash_fwd_merge_kernel(const float* __restrict__ pm,
                                        const float* __restrict__ pl,
                                        const float* __restrict__ pacc,
@@ -511,19 +694,10 @@ __global__ void flash_fwd_merge_kernel(const float* __restrict__ pm,
   for (int s = 0; s < nsplit; ++s) {
     const size_t pr = (size_t)s * rows + row;
     const float w = expf(pm[pr] - mx);
-    L += w * pl[pr];
-    const float4 x = *reinterpret_cast<const float4*>(pacc + pr * hd + d);
-    a[0] += w * x.x;
-    a[1] += w * x.y;
-    a[2] += w * x.z;
-    a[3] += w * x.w;
+    L = fmaf(pl[pr], w, L);
+    fold4(a, *reinterpret_cast<const float4*>(pacc + pr * hd + d), w);
   }
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-  __nv_bfloat16* out = o + (size_t)row * hd + d;
-  *reinterpret_cast<__nv_bfloat162*>(out) =
-      __floats2bfloat162_rn(a[0] * inv, a[1] * inv);
-  *reinterpret_cast<__nv_bfloat162*>(out + 2) =
-      __floats2bfloat162_rn(a[2] * inv, a[3] * inv);
+  store_quad(o + (size_t)row * hd + d, a, 1.f / fmaxf(L, 1e-30f));
 }
 
 // above 48 KB of shared memory only after opting in; once per process and
@@ -559,9 +733,9 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
 
 template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      void* m, void* l, void* acc, int B, int Sq, int Sk,
-                      int H, int KV, int causal, float scale, int q_offset,
-                      int nsplit, cudaStream_t stream) {
+                      void* m, void* l, void* acc, void* arrive, int B,
+                      int Sq, int Sk, int H, int KV, int causal, float scale,
+                      int q_offset, int nsplit, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes();
   cudaError_t err = opt_in(flash_fwd_tc_kernel<HD>, smem,
                            opted_in_tc[HD / 16]);
@@ -573,21 +747,22 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
-      Sq, Sk, H, KV, causal, scale * LOG2E, q_offset, nsplit);
+      static_cast<unsigned*>(arrive), Sq, Sk, H, KV, causal, scale * LOG2E,
+      q_offset, nsplit);
   return cudaGetLastError();
 }
 
 // the head dim as a template argument: every fragment loop unrolls and
 // the copy's index arithmetic is shifts
 cudaError_t launch_tc_hd(const void* q, const void* k, const void* v,
-                         void* o, void* m, void* l, void* acc, int B, int Sq,
-                         int Sk, int H, int KV, int hd, int causal,
-                         float scale, int q_offset, int nsplit,
+                         void* o, void* m, void* l, void* acc, void* arrive,
+                         int B, int Sq, int Sk, int H, int KV, int hd,
+                         int causal, float scale, int q_offset, int nsplit,
                          cudaStream_t stream) {
 #define REPRO_TC_CASE(D)                                                      \
   case D:                                                                     \
-    return launch_tc<D>(q, k, v, o, m, l, acc, B, Sq, Sk, H, KV, causal,      \
-                        scale, q_offset, nsplit, stream);
+    return launch_tc<D>(q, k, v, o, m, l, acc, arrive, B, Sq, Sk, H, KV,      \
+                        causal, scale, q_offset, nsplit, stream);
   switch (hd) {
     REPRO_TC_CASE(16)
     REPRO_TC_CASE(32)
@@ -614,26 +789,32 @@ cudaError_t attrs(K kernel, int threads, size_t smem, bool* opted, int* out) {
 }  // namespace
 
 // tensor_cores = 0: v2 (fp32 or bf16, nsplit 1, o written).  tensor_cores
-// = 1: v3 (bf16, hd % 16 == 0); nsplit == 1 writes o, nsplit > 1 writes
-// the fp32 partials m, l (nsplit, B, Sq, H) and acc (nsplit, B, Sq, H, hd)
-// for flash_attention_merge.
+// = 1: v3 (bf16, hd % 16 == 0); nsplit == 1 writes o.  nsplit > 1 with
+// arrive (B * KV * row tiles counters, zero between launches; at most
+// TC_MAX_FUSED splits): m, l and acc are scratch of B * KV * row tiles *
+// nsplit * TC_BM rows (tile-major), and the merge into o is fused.
+// nsplit > 1 without arrive: every split's partials m, l (nsplit, B, Sq,
+// H) and acc (nsplit, B, Sq, H, hd) for flash_attention_merge; o is not
+// touched.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, void* m, void* l, void* acc, int B,
-                                   int Sq, int Sk, int H, int KV, int hd,
-                                   int causal, float scale, int q_offset,
-                                   int is_bf16, int tensor_cores, int nsplit,
+                                   void* o, void* m, void* l, void* acc,
+                                   void* arrive, int B, int Sq, int Sk, int H,
+                                   int KV, int hd, int causal, float scale,
+                                   int q_offset, int is_bf16,
+                                   int tensor_cores, int nsplit,
                                    void* stream) {
   if (hd > MAX_HD || hd % 4 != 0 || H % KV != 0 || nsplit < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_cores) {
     if (!is_bf16 || hd % 16 != 0 || hd > TC_MAXD || B * nsplit > 65535 ||
-        (nsplit > 1 && (m == nullptr || l == nullptr || acc == nullptr)))
+        (nsplit > 1 && (m == nullptr || l == nullptr || acc == nullptr)) ||
+        (arrive != nullptr && (o == nullptr || nsplit > TC_MAX_FUSED)))
       return (int)cudaErrorInvalidValue;
-    return (int)launch_tc_hd(q, k, v, o, m, l, acc, B, Sq, Sk, H, KV, hd,
-                             causal, scale, q_offset, nsplit, s);
+    return (int)launch_tc_hd(q, k, v, o, m, l, acc, arrive, B, Sq, Sk, H, KV,
+                             hd, causal, scale, q_offset, nsplit, s);
   }
-  if (nsplit != 1) return (int)cudaErrorInvalidValue;
+  if (nsplit != 1 || arrive != nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       is_bf16 ? launch_fma<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd,
                                           causal, scale, q_offset, s)

@@ -95,6 +95,7 @@
 //
 // Standalone (flash_decode_combine, v1 and the card checks): a grid of
 // (H * hd / 4 / 128, B) CTAs, a thread a (head, 4 dims) of a batch row.
+#include "arrival.cuh"
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -263,22 +264,6 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int MERGE_BATCH = 16;  // splits whose loads are in flight at once
 
-// loads through L2 (ld.global.cg), volatile and with a memory clobber so
-// that the compiler keeps them after the arrival barrier
-__device__ __forceinline__ float ld_cg(const float* p) {
-  float v;
-  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ float4 ld_cg4(const float* p) {
-  float4 v;
-  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
 // The LSE merge of the nsplit partials of one (row, head) for its dims
 // d0 .. d0 + 3: m and l point at its nsplit values, acc at its [nsplit][hd]
 // block, out at its hd outputs.  Splits from nlive on are empty (-1e30,
@@ -329,21 +314,6 @@ __device__ __forceinline__ void merge_quad(const float* __restrict__ m,
   const float den = fmaxf(lsum, 1e-30f);
 #pragma unroll
   for (int i = 0; i < 4; ++i) store(out + d0 + i, a[i] / den);
-}
-
-// This CTA's split has arrived at its (row, kv head) counter, which counts
-// modulo `live`: true in the CTA that arrives last (see the note at the
-// top).
-__device__ __forceinline__ bool last_to_arrive(unsigned* counter, int live) {
-  __shared__ unsigned arrived;
-  __syncthreads();                   // every thread's partials are written
-  if (threadIdx.x == 0)
-    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
-                 : "=r"(arrived)
-                 : "l"(counter), "r"((unsigned)live - 1u)
-                 : "memory");
-  __syncthreads();
-  return arrived == (unsigned)live - 1u;
 }
 
 // ------------------------------------------ v2: bf16 tensor-core kernel

@@ -9,24 +9,49 @@
 // around the call.
 //
 // What bounds it on this card: bytes.  A level reads every word once and
-// writes it once (8 bytes a word: 8 MB, 2.5 us at 2^20 words); the
-// co-rank searches add log2(run) dependent loads per CTA and thread, and
-// the merge a compare per output word.
+// writes it once (8 bytes a word: 8 MB, 2.5 us at 2^20 words).  What the
+// bytes leave room for is latency: a CTA's chain of dependent steps (the
+// co-rank search in device memory, the window load, the merge, the store)
+// and, on the MoE path's 8192-word levels, the launch itself.
 //
-// Design.  One CTA per output block of `block` words of one pair (the
-// sort's tile, at most MAX_BLOCK).  Threads 0 and 1 binary-search the
-// merge path at the block's two diagonals in device memory: the smallest
-// ia with A[ia] > B[d - 1 - ia], so ties go to A (a_mid <= b_val in
-// merge_sort.py:235) and the merge is stable.  The CTA loads its la words
-// of A and block - la words of B into shared memory (the reference's two
-// windows, never materialised in device memory here), each thread
-// searches its own sub-diagonal there and merges its share sequentially,
-// and the block leaves through shared memory in coalesced stores.  The
-// reference merges a sentinel-masked bitonic concat(A, reverse(B)) instead,
-// a network the TPU needs because it has no 1-D gathers.  Packed words
-// are unique apart from the pad sentinels, so any correct stable merge
-// gives the reference's words bit for bit.  The last level of an argsort
-// fuses the & idx_mask unpack into the store.
+// Design, v2 (merge_level_v2_kernel<W>, the route): one CTA of 256
+// threads per output block of `block` words of one pair, W words a thread
+// (block <= 256 W).  The wrapper picks the block from n and run
+// (kernels/merge_sort.py k8_block): the largest of 256 x 1, 2, 4, 8, 16
+// words that leaves two CTAs an SM, at most 2 run, so a 2^20-word level
+// merges 8 words a thread in 512 CTAs and an 8192-word level 1 word a
+// thread in 32.  Steps:
+//  1. the co-ranks of the block's two diagonals d (the smallest ia with
+//     A[ia] > B[d - 1 - ia], so ties go to A and the merge is stable) by
+//     a 32-ary search, one warp a diagonal: in each round the 32 lanes
+//     load one probe A[p] and B[d - 1 - p] each, one ballot counts the
+//     probes at or before the answer, and the warp narrows its interval
+//     to the gap between two probes, with no CTA barrier.
+//     ceil(log_33(run + 1)) rounds: 2 at run 1024, 3 at 2^14, 4 at 2^19;
+//     none where the block is the whole pair (block = 2 run).  (128
+//     probes a diagonal, 256 threads, took one round fewer but 3x the L2
+//     requests, and at 512 CTAs the requests, not the rounds, bound it.)
+//  2. the two windows into shared memory as 16-byte cp.async copies over
+//     each window's aligned interior (each window placed at the phase its
+//     first word has in device memory), the up to 3 words at each edge by
+//     scalar loads: nothing outside the window is read.
+//  3. each thread finds its sub-diagonal t * per in the windows by binary
+//     search in shared memory and merges its per words into registers.
+//  4. the words leave through shared memory (index i at i + i / 32, so
+//     neither the threads' writes of W consecutive words nor the 4-word
+//     reads meet a bank conflict) as 16-byte coalesced stores; the last
+//     level of an argsort fuses the & idx_mask unpack into them.
+// The reference merges a sentinel-masked bitonic concat(A, reverse(B))
+// instead, a network the TPU needs because it has no 1-D gathers.  Packed
+// words are unique apart from the pad sentinels, so any correct stable
+// merge gives the reference's words bit for bit.
+//
+// v1 (merge_level_kernel, kept as the route v2 is timed against): one CTA
+// of 256 threads per block of the sort's tile (at most MAX_BLOCK); threads
+// 0 and 1 binary-search the two co-ranks in device memory while the rest
+// wait, the windows load 4 bytes a thread, each thread merges 4 words into
+// shared memory at a stride of 4 (bank conflicts) and the block leaves 4
+// bytes a thread.
 //
 // K9a, K9b, K9c: the comparison pipeline of method="bitonic" and
 // fused=False, kept as the baseline beside the radix kernels.
@@ -68,6 +93,7 @@
 // Design, K9b and K9c: grid-stride elementwise passes in 16-byte vectors
 // where both pointers allow, scalar words otherwise.
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 #include <algorithm>
 
@@ -130,6 +156,164 @@ merge_level_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ out,
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// ------------------------------------------------------------- K8 v2
+
+constexpr int M2_THREADS = 256;
+constexpr int M2_PROBES = 32;                 // probes a round: a warp
+constexpr int M2_MAX_W = 16;
+constexpr int M2_MAX_BLOCK = M2_MAX_W * M2_THREADS;
+
+// shared words of a v2 CTA: the two windows (each at most 3 words off its
+// phase, and rounded to 4) or the padded output block, whichever is larger
+constexpr size_t m2_smem_words(int block) {
+  return (size_t)block + block / 32 + 16;
+}
+__device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
+
+// word phase of a global address within its 16-byte chunk
+__device__ __forceinline__ int phase4(const unsigned* p) {
+  return (int)((reinterpret_cast<size_t>(p) >> 2) & 3);
+}
+
+// a window of len words at src into shared memory at dst, where dst has
+// the phase of src: 16-byte cp.async copies for the aligned interior,
+// scalar words at the edges (no word outside the window is read)
+__device__ __forceinline__ void load_window(unsigned* dst,
+                                           const unsigned* src, int len) {
+  const int head = min(len, (4 - phase4(src)) & 3);
+  const int chunks = (len - head) >> 2;
+  const int tail0 = head + 4 * chunks;
+  for (int c = threadIdx.x; c < chunks; c += M2_THREADS)
+    cp_async16(smem_addr(dst + head + 4 * c), src + head + 4 * c, true);
+  const int t = threadIdx.x;         // threads 0-2 the head, 3-5 the tail
+  if (t < head) dst[t] = __ldg(src + t);
+  if (t >= 3 && t < 3 + len - tail0)
+    dst[tail0 + t - 3] = __ldg(src + tail0 + t - 3);
+}
+
+// the co-rank of diagonal d of the pair (A, B) of runs of `run` words,
+// searched by one warp: the answer lies in [lo, hi]; each round the 32
+// lanes probe p = lo + lane * step (p < hi), the ballot counts the probes
+// with A[p] <= B[d - 1 - p] (ties to A: they lie before the answer), and
+// [lo, hi] narrows to the gap after the last true probe
+__device__ __forceinline__ int warp_corank(const unsigned* A,
+                                           const unsigned* B, int run,
+                                           int d) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(0, d - run), hi = min(d, run);
+  while (lo < hi) {
+    const int L = hi - lo, step = (L + M2_PROBES - 1) / M2_PROBES;
+    const int p = lo + lane * step;
+    const bool f = p < hi && __ldg(A + p) <= __ldg(B + d - 1 - p);
+    const int c = __popc(__ballot_sync(0xffffffffu, f));
+    const int np = (L + step - 1) / step;         // probes below hi
+    const int base = lo;
+    if (c > 0) lo = base + (c - 1) * step + 1;
+    if (c < np) hi = base + c * step;
+  }
+  return lo;
+}
+
+template <int W>
+__global__ void __launch_bounds__(M2_THREADS)
+merge_level_v2_kernel(const unsigned* __restrict__ x,
+                      unsigned* __restrict__ out, int run, int block, int nb,
+                      unsigned unpack_mask, int unpack) {
+  extern __shared__ __align__(16) unsigned sm[];
+  __shared__ int co[2];               // the block's two co-ranks
+  const int t = threadIdx.x, warp = t >> 5;
+  const int pair = blockIdx.x / nb, b = blockIdx.x - pair * nb;
+  const size_t pair_off = (size_t)pair * 2 * run;
+  const unsigned* A = x + pair_off;
+  const unsigned* B = A + run;
+  const int d0 = b * block, d1 = min(d0 + block, 2 * run), len = d1 - d0;
+
+  // 1. co-ranks: warp 0 searches d0, warp 1 d1
+  if (warp < 2) {
+    const int c = warp_corank(A, B, run, warp ? d1 : d0);
+    if ((t & 31) == 0) co[warp] = c;
+  }
+  __syncthreads();
+  const int a0 = co[0], la = co[1] - co[0];
+  const int b0 = d0 - a0, lb = len - la;
+
+  // 2. the windows, each at its own phase
+  unsigned* wa = sm + phase4(A + a0);
+  unsigned* wb = sm + ((phase4(A + a0) + la + 3) & ~3) + phase4(B + b0);
+  load_window(wa, A + a0, la);
+  load_window(wb, B + b0, lb);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 3. my sub-diagonal, merged into registers
+  const int per = (len + M2_THREADS - 1) / M2_THREADS;   // <= W
+  const int dd = min(len, t * per), de = min(len, dd + per);
+  int ia = corank(wa, la, wb, lb, dd), ib = dd - ia;
+  unsigned v[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    if (dd + e < de) {
+      const bool take_a = ia < la && (ib >= lb || wa[ia] <= wb[ib]);
+      v[e] = take_a ? wa[ia++] : wb[ib++];
+    }
+  }
+
+  // 4. through shared memory (padded) into 16-byte coalesced stores
+  __syncthreads();                   // every window read is done
+#pragma unroll
+  for (int e = 0; e < W; ++e)
+    if (dd + e < de) sm[pad32(dd + e)] = v[e];
+  __syncthreads();
+  const unsigned mask = unpack ? unpack_mask : 0xffffffffu;
+  unsigned* o = out + pair_off + d0;
+  if (aligned16(o) && (len & 3) == 0) {
+    for (int c = t; c < (len >> 2); c += M2_THREADS) {
+      const int i = pad32(4 * c);    // 4 words of one 32-word row
+      reinterpret_cast<uint4*>(o)[c] =
+          make_uint4(sm[i] & mask, sm[i + 1] & mask, sm[i + 2] & mask,
+                     sm[i + 3] & mask);
+    }
+  } else {
+    for (int i = t; i < len; i += M2_THREADS) o[i] = sm[pad32(i)] & mask;
+  }
+}
+
+template <int W>
+int merge_v2_launch(const void* x, void* out, int run, int block, int nb,
+                    long long grid, unsigned unpack_mask, int unpack,
+                    cudaStream_t st, int* attrs) {
+  const size_t smem = sizeof(unsigned) * m2_smem_words(block);  // < 48 KB
+  if (attrs != nullptr) {
+    attrs[5] = M2_THREADS;
+    return (int)kernel_attrs(merge_level_v2_kernel<W>, M2_THREADS, smem,
+                             attrs);
+  }
+  merge_level_v2_kernel<W><<<(unsigned)grid, M2_THREADS, smem, st>>>(
+      static_cast<const unsigned*>(x), static_cast<unsigned*>(out), run,
+      block, nb, unpack_mask, unpack);
+  return (int)cudaGetLastError();
+}
+
+// v2's instance for a block: W = the words a thread merges, rounded up to
+// a power of two
+int merge_v2_dispatch(const void* x, void* out, int run, int block, int nb,
+                      long long grid, unsigned unpack_mask, int unpack,
+                      cudaStream_t st, int* attrs) {
+  const int per = (block + M2_THREADS - 1) / M2_THREADS;
+#define REPRO_M2_CASE(W)                                                      \
+  if (per <= W)                                                               \
+    return merge_v2_launch<W>(x, out, run, block, nb, grid, unpack_mask,      \
+                              unpack, st, attrs);
+  REPRO_M2_CASE(1)
+  REPRO_M2_CASE(2)
+  REPRO_M2_CASE(4)
+  REPRO_M2_CASE(8)
+  REPRO_M2_CASE(16)
+#undef REPRO_M2_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // one compare-exchange: a gets the min and b the max if up, else the reverse
@@ -319,21 +503,34 @@ int bitonic_dispatch(const void* x, void* out, int n, int tile,
 
 }  // namespace
 
+// v2 = 1: merge_level_v2_kernel (the route; block <= M2_MAX_BLOCK, from
+// k8_block), v2 = 0: v1 merge_level_kernel (block <= MAX_BLOCK)
 extern "C" int merge_level(const void* x, void* out, int n, int run,
                            int block, unsigned unpack_mask, int unpack,
-                           void* stream) {
+                           int v2, void* stream) {
   if (run < 1 || run > n / 2 || n % (2 * run) != 0 || block < 1 ||
-      block > MAX_BLOCK)
+      block > (v2 ? M2_MAX_BLOCK : MAX_BLOCK))
     return (int)cudaErrorInvalidValue;
   const int nb = (2 * run + block - 1) / block;   // output blocks a pair
   const long long grid = (long long)(n / (2 * run)) * nb;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (v2)
+    return merge_v2_dispatch(x, out, run, block, nb, grid, unpack_mask,
+                             unpack, st, nullptr);
   const size_t smem = 2 * sizeof(unsigned) * (size_t)block;
-  merge_level_kernel<<<(unsigned)grid, THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  merge_level_kernel<<<(unsigned)grid, THREADS, smem, st>>>(
       static_cast<const unsigned*>(x), static_cast<unsigned*>(out), run,
       block, nb, unpack_mask, unpack);
   return (int)cudaGetLastError();
+}
+
+// What the compiler and the occupancy calculator give K8 v2's instance for
+// `block`: out[0..5] as bitonic_tile_sort_attrs gives them.
+extern "C" int merge_level_attrs(int block, int* out) {
+  if (block < 1 || block > M2_MAX_BLOCK) return (int)cudaErrorInvalidValue;
+  return merge_v2_dispatch(nullptr, nullptr, 0, block, 0, 0, 0, 0, nullptr,
+                           out);
 }
 
 extern "C" int bitonic_tile_sort(const void* x, void* out, int n, int tile,

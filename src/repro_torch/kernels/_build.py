@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,9 +37,10 @@ LL = ctypes.c_longlong
 # C signature of every entry point: (source stem, function) → argtypes
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_attention": {
-        # q, k, v, o, m, l, acc (null unless split), B, Sq, Sk, H, KV, hd,
-        # causal, scale, q_offset, is_bf16, tensor_cores, nsplit, stream
-        "flash_attention_fwd": [P] * 7 + [I] * 7 + [F, I, I, I, I, P],
+        # q, k, v, o, m, l, acc (null unless split), arrive (null unless
+        # the merge is fused), B, Sq, Sk, H, KV, hd, causal, scale,
+        # q_offset, is_bf16, tensor_cores, nsplit, stream
+        "flash_attention_fwd": [P] * 8 + [I] * 7 + [F, I, I, I, I, P],
         # m, l, acc, o, rows, hd, nsplit, stream
         "flash_attention_merge": [P, P, P, P, I, I, I, P],
     },
@@ -74,8 +75,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "radix_mt_scatter": [P, P, P, P, I, I, I, U, I, P],
     },
     "merge_sort": {
-        # x, out, n, run, block, unpack_mask, unpack, stream
-        "merge_level": [P, P, I, I, I, U, I, P],
+        # x, out, n, run, block, unpack_mask, unpack, v2, stream
+        "merge_level": [P, P, I, I, I, U, I, I, P],
         # x, out, n, tile, stream
         "bitonic_tile_sort": [P, P, I, I, P],
         # keys, out, m, n, idx_bits, stream
@@ -94,14 +95,17 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
 
 class Kernel:
     """One C entry point plus its launch counter.  ``launches`` counts the
-    calls that launched the kernel on the card, and nothing else."""
+    calls that launched the kernel on the card, and nothing else;
+    ``tags`` counts the launches a wrapper tagged (K1's fused split
+    launches), among them."""
 
     def __init__(self, source: str, func: str):
         self.source, self.func = source, func
         self.launches = 0
+        self.tags: Dict[str, int] = {}
         self._lib = self._fn = None
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, tag: Optional[str] = None) -> None:
         if self._fn is None:
             lib = ctypes.CDLL(str(build(self.source)))
             fn = getattr(lib, self.func)
@@ -116,6 +120,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.func} launch failed: cudaError {err} ({name})")
         self.launches += 1
+        if tag is not None:
+            self.tags[tag] = self.tags.get(tag, 0) + 1
 
 
 KERNELS: Dict[str, Kernel] = {
@@ -126,6 +132,7 @@ KERNELS: Dict[str, Kernel] = {
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.tags.clear()
 
 
 def launches() -> Dict[str, int]:

@@ -9,16 +9,24 @@ cache), ragged ``Sq``/``Sk`` and causal pruning of the kv loop.
 Two kernels compute it, chosen by :func:`uses_tensor_cores` from the dtype
 and the head dim alone: v3 (bf16, head dim a multiple of 16) on the tensor
 cores, with GQA row packing and, for short chunks, the key range split
-over CTAs (:func:`num_splits`) and merged by a second launch; v2 (fp32,
-and other bf16 head dims) with fp32 FMAs.  The split decomposition, in plain
-PyTorch: the per-split partials (:func:`split_partials_plain`) over the
-packed rows (:func:`packed_rows`, :func:`split_key_ranges`) and their
-fixed-order merge (:func:`merge_plain`).
+over CTAs (:func:`num_splits`); v2 (fp32, and other bf16 head dims) with
+fp32 FMAs.  A split v3 call with few splits (:func:`fused_merge`) is ONE
+launch: the live splits of a row tile (:func:`live_splits`, those with a
+kv tile) write fp32 partials, and the CTA that arrives last on the tile's
+counter merges them into the output (arrival counters shared with K2,
+``flash_decode._arrivals``); with more splits it is two, the partials
+then the standalone merge, which spreads the merge over the card.  The split
+decomposition, in plain PyTorch: the per-split partials
+(:func:`split_partials_plain`) over the packed rows (:func:`packed_rows`,
+:func:`split_key_ranges`), their fixed-order merge (:func:`merge_plain`),
+and the fused merge as one tile's last CTA runs it
+(:func:`fused_merge_model`).
 
-:func:`flash_attention` (and :func:`split_partials`, :func:`merge`, the
-two launches of a split) launches a kernel for CUDA tensors and raises on
-what the kernels do not take; each runs its plain twin only for tensors
-on the CPU.
+:func:`flash_attention` (and :func:`split_partials` + :func:`merge`, the
+two launches the fused route replaces, kept as the route the card check
+times it against) launches a kernel for CUDA tensors and raises on what
+the kernels do not take; each runs its plain twin only for tensors on the
+CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from .flash_decode import _arrivals
 
 NEG_INF = -1e30
 KERNEL = _build.KERNELS["flash_attention_fwd"]
@@ -40,6 +49,8 @@ NUM_SMS = 132         # H100 SXM
 CTAS_PER_SM = 2       # v3's occupancy (registers: 200 a thread)
 MIN_TILES_PER_SPLIT = 3
 MAX_SPLITS = 16
+MAX_FUSED_SPLITS = 40    # fused merge: its m, l, weights in shared memory
+FUSED_UP_TO = 2          # the rule's route: fused up to this many splits
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,12 +100,34 @@ def num_splits(B: int, Sq: int, H: int, KV: int, Sk: int, *,
                       CTAS_PER_SM * NUM_SMS // ctas))
 
 
+def fused_merge(nsplit: int) -> bool:
+    """The route of a split v3 call: one launch whose last CTA a row tile
+    merges (up to :data:`FUSED_UP_TO` splits), or split partials then the
+    standalone merge.  Measured on an H100 (``PERF.md`` §6): the
+    fused launch ties or beats the two at 2 splits, and loses at 4 to 9,
+    where one SM a tile merges what the standalone merge spreads over the
+    card."""
+    return 1 < nsplit <= FUSED_UP_TO
+
+
 def packed_rows(Sq: int, G: int) -> torch.Tensor:
     """(Sq·G, 2) int64: packed row R of a kv head's CTAs holds query
     R // G and q head R % G of the group (query-major, so a 64-row tile
     covers 64 / G consecutive queries and G need not divide 64)."""
     R = torch.arange(Sq * G)
     return torch.stack([R // G, R % G], dim=1)
+
+
+def _tile_kv_tiles(Sq: int, G: int, Sk: int, causal: bool,
+                   q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k_hi, n_t), each (row tiles,): the keys a v3 row tile reads (below
+    its last query + 1 if causal, at most Sk) and their kv tiles."""
+    M = Sq * G
+    first = torch.arange(0, M, BLOCK_M)
+    q_last = (torch.clamp(first + BLOCK_M, max=M) - 1) // G
+    k_hi = (torch.clamp(q_offset + q_last + 1, max=Sk) if causal
+            else torch.full_like(q_last, Sk))
+    return k_hi, -(-k_hi // BLOCK_N)
 
 
 def split_key_ranges(Sq: int, G: int, Sk: int, nsplit: int, *,
@@ -106,18 +139,24 @@ def split_key_ranges(Sq: int, G: int, Sk: int, nsplit: int, *,
     tiles of BLOCK_N; split s takes tiles [s·per, (s+1)·per) of them, per =
     ceil(n_t / nsplit).  A split may be empty (lo = hi = k_hi) or lie past
     a row's causal window."""
-    M = Sq * G
-    first = torch.arange(0, M, BLOCK_M)
-    q_last = (torch.clamp(first + BLOCK_M, max=M) - 1) // G
-    k_hi = (torch.clamp(q_offset + q_last + 1, max=Sk) if causal
-            else torch.full_like(q_last, Sk))
-    n_t = -(-k_hi // BLOCK_N)
+    k_hi, n_t = _tile_kv_tiles(Sq, G, Sk, causal, q_offset)
     per = -(-n_t // nsplit)
     s = torch.arange(nsplit)[:, None]
     lo = torch.minimum(torch.minimum(s * per, n_t) * BLOCK_N, k_hi)
     hi = torch.minimum(torch.minimum((s + 1) * per, n_t) * BLOCK_N, k_hi)
-    tile = torch.arange(M) // BLOCK_M
+    tile = torch.arange(Sq * G) // BLOCK_M
     return lo[:, tile], hi[:, tile]
+
+
+def live_splits(Sq: int, G: int, Sk: int, nsplit: int, *,
+                causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """(row tiles,) int64: each v3 row tile's live splits, those that hold
+    a kv tile: ceil(n_t / per), per = ceil(n_t / nsplit), a prefix of the
+    split order.  The kernel computes the same count; the fused route's
+    splits past it exit at once and do not arrive."""
+    _, n_t = _tile_kv_tiles(Sq, G, Sk, causal, q_offset)
+    per = -(-n_t // nsplit)
+    return -(-n_t // per)
 
 
 def split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,6 +211,44 @@ def merge_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     return (o / torch.clamp(L, min=1e-30)[..., None]).to(dtype)
 
 
+def fused_merge_model(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                      live: int, dtype: torch.dtype, *,
+                      arrivals: Optional[Tuple[int, ...]] = None
+                      ) -> Tuple[torch.Tensor, int, int]:
+    """The fused route's merge of one row tile, in plain form.  m, l
+    (nsplit, rows) and acc (nsplit, rows, hd): the tile's rows' partials,
+    of which only the first ``live`` splits were written (the rest are
+    never read).  The live splits' CTAs count their arrival in the order
+    ``arrivals`` (default: split order) on a counter that counts modulo
+    live (``atom.inc``); the one that reads live − 1 merges: the max over
+    the live splits, then in split order w_s = e^(m_s − max), l and acc
+    folded split by split, +0 once where live < nsplit (what the empty
+    splits add to :func:`merge_plain`), and acc / max(l, 1e-30) in
+    ``dtype``.  Returns (output, the merging split, the counter after):
+    the output does not depend on which split merges."""
+    n = m.shape[0]
+    order = tuple(range(live)) if arrivals is None else tuple(arrivals)
+    if sorted(order) != list(range(live)):
+        raise ValueError(f"arrivals {order} are not the {live} live splits")
+    counter, merger = 0, None
+    for s in order:
+        old = counter
+        counter = 0 if old >= live - 1 else old + 1
+        if old == live - 1:
+            merger = s
+    mx = m[:live].amax(0)
+    L = torch.zeros_like(l[0])
+    o = torch.zeros_like(acc[0])
+    for s in range(live):
+        w = torch.exp(m[s] - mx)
+        L = L + w * l[s]
+        o = o + w[..., None] * acc[s]
+    if live < n:
+        L, o = L + 0.0, o + 0.0
+    return ((o / torch.clamp(L, min=1e-30)[..., None]).to(dtype), merger,
+            counter)
+
+
 # ------------------------------------------------------------- the kernels
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,15 +298,30 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"head_dim % 16 == 0 and >= 2 splits, got "
                          f"{q.dtype}, {hd}, {nsplit}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    m = torch.empty((nsplit, B, Sq, H), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    acc = torch.empty((nsplit, B, Sq, H, hd), dtype=torch.float32,
-                      device=q.device)
+    m, l, acc = _partials(nsplit, B, Sq, H, hd, q.device)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, m.data_ptr(),
-           l.data_ptr(), acc.data_ptr(), B, Sq, Sk, H, KV, hd, int(causal),
-           float(scale), q_offset, 1, 1, nsplit,
+           l.data_ptr(), acc.data_ptr(), None, B, Sq, Sk, H, KV, hd,
+           int(causal), float(scale), q_offset, 1, 1, nsplit,
            torch.cuda.current_stream(q.device).cuda_stream)
     return m, l, acc
+
+
+def _scratch(rows: int, hd: int, device: torch.device
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """m, l (rows,) and acc (rows, hd), fp32 views of one allocation (acc
+    first, so its rows are 16-byte aligned)."""
+    buf = torch.empty(rows * (hd + 2), dtype=torch.float32, device=device)
+    return (buf[rows * hd:rows * (hd + 1)], buf[rows * (hd + 1):],
+            buf[:rows * hd].view(rows, hd))
+
+
+def _partials(nsplit: int, B: int, Sq: int, H: int, hd: int,
+              device: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`split_partials`' m, l (nsplit,B,Sq,H) and acc (…, hd)."""
+    m, l, acc = _scratch(nsplit * B * Sq * H, hd, device)
+    return (m.view(nsplit, B, Sq, H), l.view(nsplit, B, Sq, H),
+            acc.view(nsplit, B, Sq, H, hd))
 
 
 def merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
@@ -262,14 +354,19 @@ def merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     q_offset=0, tensor_cores: Optional[bool] = None,
-                    splits: Optional[int] = None) -> torch.Tensor:
+                    splits: Optional[int] = None,
+                    fused: Optional[bool] = None) -> torch.Tensor:
     """q: (B,Sq,H,hd)  k,v: (B,Sk,KV,hd) → (B,Sq,H,hd).
 
     ``q_offset`` may be an int or a 0-d tensor (read on the host).
     ``tensor_cores`` and ``splits`` override :func:`uses_tensor_cores` and
     :func:`num_splits` (the card check compares v2 with v3 and forces
     split counts); v2 takes no split, and a forced v3 raises on what it
-    does not take."""
+    does not take.  A split call takes :func:`fused_merge`'s route, or
+    the one ``fused`` forces: one launch with the merge fused (counted
+    under ``KERNEL.tags["fused"]`` too; its counters serve one stream at a
+    time, ``flash_decode._arrivals``), or :func:`split_partials` then
+    :func:`merge`."""
     q_offset = int(q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -288,15 +385,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if nsplit < 1 or (nsplit > 1 and not tc):
         raise ValueError(f"flash_attention: {nsplit} splits need the "
                          f"tensor-core kernel and >= 1")
-    if nsplit > 1:
+    fuse = fused_merge(nsplit) if fused is None else fused and nsplit > 1
+    if nsplit > 1 and not fuse:
         return merge(*split_partials(q, k, v, nsplit, causal=causal,
                                      scale=scale, q_offset=q_offset))
+    if nsplit > MAX_FUSED_SPLITS:
+        raise ValueError(f"flash_attention: {nsplit} splits, the fused "
+                         f"merge takes at most {MAX_FUSED_SPLITS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
+    m = l = acc = arrive = None
+    if nsplit > 1:                   # one launch: the last CTA merges
+        tiles = B * KV * -(-Sq * (H // KV) // BLOCK_M)
+        # scratch of the live splits, tile-major: each CTA's rows together
+        m, l, acc = _scratch(tiles * nsplit * BLOCK_M, hd, q.device)
+        arrive = _arrivals(q.device, tiles, "flash_attention")
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           None, None, None, B, Sq, Sk, H, KV, hd, int(causal),
-           float(scale), q_offset, int(q.dtype == torch.bfloat16), int(tc), 1,
-           torch.cuda.current_stream(q.device).cuda_stream)
+           *(None if t is None else t.data_ptr() for t in (m, l, acc, arrive)),
+           B, Sq, Sk, H, KV, hd, int(causal), float(scale), q_offset,
+           int(q.dtype == torch.bfloat16), int(tc), nsplit,
+           torch.cuda.current_stream(q.device).cuda_stream,
+           tag="fused" if nsplit > 1 else None)
     return out
 
 
@@ -312,6 +421,8 @@ def kernel_attributes() -> Dict[str, Dict[str, int]]:
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "uses_tensor_cores",
-           "num_splits", "packed_rows", "split_key_ranges",
-           "split_partials_plain", "merge_plain", "split_partials", "merge",
+           "num_splits", "fused_merge", "packed_rows", "split_key_ranges",
+           "live_splits",
+           "split_partials_plain", "merge_plain", "fused_merge_model",
+           "split_partials", "merge",
            "kernel_attributes", "KERNEL", "MERGE"]

@@ -54,7 +54,7 @@ MAX_BLOCK_K = 256
 SUB = 32                         # v2: cache rows a warp sub-tile
 WARPS = 4                        # v2: warps a CTA (one CTA a split)
 LOG2E = 1.4426950408889634
-ARRIVALS = 1 << 16               # fused v2: counters a device, B·KV at most
+ARRIVALS = 1 << 16               # fused K2 v2 and K1 v3: counters a device
 _arrival_counters: Dict[int, torch.Tensor] = {}
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -279,24 +279,28 @@ def _partials(q, k_cache, v_cache, lengths, block_k: int,
     return m, l, acc
 
 
-def _arrivals(device: torch.device, need: int) -> torch.Tensor:
-    """The fused route's arrival counters on ``device``: one a (batch row,
-    kv head), counting its live splits modulo their number, allocated
-    zeroed at the first fused call and never freed; every complete launch
-    leaves them at 0.  One buffer serves one stream at a time: two fused
+def _arrivals(device: torch.device, need: int,
+              who: str = "flash_decode") -> torch.Tensor:
+    """The fused routes' arrival counters on ``device``: K2's one a (batch
+    row, kv head) counting its live splits, and K1's split merge
+    (``flash_attention``) one a (batch row, kv head, row tile), each
+    counting modulo its number of live splits.  One buffer a device,
+    allocated zeroed at the first fused call and never freed; every
+    complete launch leaves its counters at 0, so the two kernels share it
+    launch after launch.  It serves one stream at a time: two fused
     launches in flight at once on two streams would share counters.  The
     first call must come before any CUDA graph capture (a warm-up call),
     so the allocation is never captured."""
     if need > ARRIVALS:
-        raise ValueError(f"flash_decode: B·KV = {need} rows of arrival "
-                         f"counters, at most {ARRIVALS}")
+        raise ValueError(f"{who}: {need} arrival counters needed, at most "
+                         f"{ARRIVALS}")
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     buf = _arrival_counters.get(idx)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("flash_decode: the fused route's counters "
-                               "are allocated at its first call, which must "
+            raise RuntimeError(f"{who}: the fused route's counters are "
+                               "allocated at its first call, which must "
                                "come before a CUDA graph capture")
         buf = torch.zeros(ARRIVALS, dtype=torch.int32,
                           device=torch.device("cuda", idx))

@@ -12,7 +12,11 @@ Structure, as in the reference:
   2. each tile is sorted by the in-kernel LSD radix sort
      (``radix_sort.py``, K7);
   3. sorted runs are merged pairwise, one launch per merge level (K8), the
-     co-rank search inside the kernel.
+     co-rank search inside the kernel.  K8 v2 cuts each level into blocks
+     of its own (:func:`k8_block`), finds a block's co-ranks by a 32-ary
+     search, a warp a diagonal (:func:`kary_coranks`) and merges W words a thread in
+     registers; :func:`merge_level_model` is that partition in plain
+     PyTorch.
 
 ``strategy="multi_tile"`` (the default for keys of at most 16 bits)
 replaces 2–3 by global digit passes (K6a, K5, K6b) whose launch count is
@@ -45,14 +49,17 @@ import torch
 
 from ..core import SeqWork, bound_depth, build_plan, even_levels
 from . import _build
-from .radix_sort import (SENTINEL, _u32, _u64, _i32,  # noqa: F401 — SENTINEL
-                         _check_cuda, _stream,
+from .radix_sort import (SENTINEL, NUM_SMS,  # noqa: F401 — SENTINEL
+                         _u32, _u64, _i32, _check_cuda, _stream,
                          multi_tile_argsort_packed,   # re-export
                          radix_tile_sort, radix_tile_sort_packed)
 
 IDX_BITS = 20                 # documented default cap: tiles up to 2^20
 IDX_MASK = (1 << IDX_BITS) - 1
-MAX_BLOCK = 4096              # K8's output block (shared memory: 2 x 16 KB)
+MAX_BLOCK = 4096              # K8 v1's output block (shared memory: 2 x 16 KB)
+K8_THREADS = 256              # K8 v2: threads a CTA
+K8_PROBES = 32                # K8 v2: probes a search round (a warp)
+K8_MAX_WORDS = 16             # K8 v2: words a thread merges, at most
 
 MAX_BITONIC_TILE = 1 << 13   # K9a's largest tile (16 words x 512 threads)
 
@@ -163,6 +170,12 @@ def kernel_attributes(tile: int) -> Dict[str, int]:
                              extra=("threads",))
 
 
+def merge_level_attributes(block: int) -> Dict[str, int]:
+    """The same for K8 v2's kernel instance for an output ``block``."""
+    return _build.attributes("merge_sort", "merge_level_attrs", block,
+                             extra=("threads",))
+
+
 def pack_plain(keys: torch.Tensor, *, n: int, idx_bits: int) -> torch.Tensor:
     """Twin of K9b: ``key << idx_bits | index``, pad slots (index ≥ n) to
     the sentinel."""
@@ -239,6 +252,130 @@ def _merge_path_starts(ab: torch.Tensor, run: int, tile: int):
             la.to(torch.int32))
 
 
+def k8_block(n: int, run: int) -> int:
+    """K8 v2's output block (words a CTA) for a level of ``n`` words in
+    sorted runs of ``run``: :data:`K8_THREADS` × W words, W the largest
+    power of two up to :data:`K8_MAX_WORDS` that leaves at least two CTAs
+    an SM (W = 1 below that), and never more than the pair, 2·run.  2^20
+    words: 2048 (8 words a thread, 512 CTAs); 8192 words: 256 (32
+    CTAs)."""
+    w = K8_MAX_WORDS
+    while w > 1 and n // (K8_THREADS * w) < 2 * NUM_SMS:
+        w //= 2
+    return min(K8_THREADS * w, 2 * run)
+
+
+def kary_coranks(ab: torch.Tensor, run: int, block: int, *,
+                 probes: int = K8_PROBES):
+    """K8 v2's co-rank search, round by round: the answer of each block
+    diagonal ``d = b·block`` lies in [lo, hi] (lo = max(0, d − run), hi =
+    min(d, run)); each round probes p = lo + j·step (j < probes, step =
+    ceil((hi − lo) / probes), p < hi), counts the probes with A[p] <=
+    B[d−1−p] (ties to A: all of them lie before the answer) and narrows
+    [lo, hi] to the gap after the last true probe.  ab: (num_pairs, 2,
+    run) sorted runs.  Returns ``(a_start, b_start, la, rounds)``: the
+    first three as :func:`_merge_path_starts` gives them for tile =
+    ``block``, and the rounds the search took (ceil(log_{probes+1}(run
+    + 1)) at most; 0 when the block is the pair)."""
+    num_pairs = ab.shape[0]
+    nb = (2 * run) // block
+    w = _u64(ab)
+    a_run, b_run = w[:, 0, :], w[:, 1, :]
+    d = torch.arange(nb + 1, dtype=torch.int64, device=ab.device) * block
+    lo = torch.clamp(d - run, min=0).expand(num_pairs, nb + 1).clone()
+    hi = torch.clamp(d, max=run).expand(num_pairs, nb + 1).clone()
+    j = torch.arange(probes, dtype=torch.int64, device=ab.device)
+    rounds = 0
+    while bool((lo < hi).any()):
+        L = hi - lo
+        step = torch.clamp(-(-L // probes), min=1)
+        p = lo[..., None] + j * step[..., None]        # (pairs, nb+1, P)
+        valid = p < hi[..., None]
+        pa = torch.gather(a_run, 1, p.clamp(0, run - 1).reshape(
+            num_pairs, -1)).reshape(p.shape)
+        pb = torch.gather(b_run, 1, (d[None, :, None] - 1 - p).clamp(
+            0, run - 1).reshape(num_pairs, -1)).reshape(p.shape)
+        c = (valid & (pa <= pb)).sum(-1)
+        np_ = -(-L // step)
+        live = L > 0
+        lo, hi = (torch.where(live & (c > 0), lo + (c - 1) * step + 1, lo),
+                  torch.where(live & (c < np_), lo + c * step, hi))
+        rounds += 1
+    a_start = lo[:, :-1]
+    return (a_start.to(torch.int32), (d[None, :-1] - a_start).to(torch.int32),
+            (lo[:, 1:] - a_start).to(torch.int32), rounds)
+
+
+def _windows_corank(A, a0, la, B, b0, lb, dd, steps: int):
+    """Binary search of each thread's sub-diagonal ``dd`` in its CTA's
+    windows A[a0, a0+la) and B[b0, b0+lb) (ties to A), vectorized: all
+    index tensors broadcast to (pairs, nb, threads)."""
+    lo = torch.clamp(dd - lb, min=0)
+    hi = torch.minimum(dd, la)
+    run = A.shape[-1]
+    for _ in range(steps):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        am = _gather_runs(A, (a0 + mid).clamp(0, run - 1))
+        bm = _gather_runs(B, (b0 + dd - 1 - mid).clamp(0, run - 1))
+        right = am <= bm
+        lo = torch.where(active & right, mid + 1, lo)
+        hi = torch.where(active & ~right, mid, hi)
+    return lo
+
+
+def _gather_runs(runs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """runs: (pairs, run); idx: (pairs, ...) → runs[pair, idx]."""
+    flat = idx.reshape(idx.shape[0], -1)
+    return torch.gather(runs, 1, flat).reshape(idx.shape)
+
+
+def merge_level_model(x: torch.Tensor, *, run: int,
+                      block: Optional[int] = None,
+                      unpack_mask: Optional[int] = None) -> torch.Tensor:
+    """K8 v2's partition in plain PyTorch, step by step: blocks of
+    ``block`` words (default :func:`k8_block`), their co-ranks by the
+    k-ary search (:func:`kary_coranks`), each of the CTA's
+    :data:`K8_THREADS` threads its sub-diagonal t·per (per =
+    ceil(block / K8_THREADS)) by binary search in the windows, then its
+    per words merged in order, ties to A.  Equals
+    :func:`merge_level_plain`."""
+    n = x.shape[0]
+    block = k8_block(n, run) if block is None else block
+    if n % (2 * run) or (2 * run) % block:
+        raise ValueError(f"merge_level_model: n={n}, run={run}, "
+                         f"block={block}")
+    pairs, nb = n // (2 * run), (2 * run) // block
+    ab = x.reshape(pairs, 2, run)
+    w = _u64(ab)
+    A, B = w[:, 0, :].contiguous(), w[:, 1, :].contiguous()
+    a0, b0, la, _ = kary_coranks(ab, run, block)
+    a0, b0, la = (v.to(torch.int64)[..., None] for v in (a0, b0, la))
+    lb = block - la
+    per = -(-block // K8_THREADS)
+    t = torch.arange(K8_THREADS, dtype=torch.int64, device=x.device)
+    dd = torch.clamp(t * per, max=block).expand(pairs, nb, -1)
+    de = torch.clamp(dd + per, max=block)
+    ia = _windows_corank(A, a0, la, B, b0, lb, dd, block.bit_length() + 1)
+    ib = dd - ia
+    out = torch.zeros(pairs, 2 * run + 1, dtype=torch.int64, device=x.device)
+    first = torch.arange(nb, device=x.device)[None, :, None] * block
+    for e in range(per):
+        act = dd + e < de
+        av = _gather_runs(A, (a0 + ia).clamp(0, run - 1))
+        bv = _gather_runs(B, (b0 + ib).clamp(0, run - 1))
+        take_a = (ia < la) & ((ib >= lb) | (av <= bv))
+        dest = torch.where(act, first + dd + e, 2 * run)   # idle: a spare
+        out.scatter_(1, dest.reshape(pairs, -1),
+                     torch.where(take_a, av, bv).reshape(pairs, -1))
+        ia = ia + (act & take_a)
+        ib = ib + (act & ~take_a)
+    out = out[:, :2 * run].reshape(n)
+    if unpack_mask is not None:
+        return _i32(out & unpack_mask)
+    return _u32(out)
+
+
 def merge_level_plain(x: torch.Tensor, *, run: int,
                       unpack_mask: Optional[int] = None) -> torch.Tensor:
     """Twin of K8: each adjacent pair of sorted runs merged stably (ties to
@@ -259,10 +396,13 @@ def merge_level_plain(x: torch.Tensor, *, run: int,
 
 
 def _merge_level(x: torch.Tensor, *, run: int, tile: int,
-                 unpack_mask: Optional[int] = None) -> torch.Tensor:
+                 unpack_mask: Optional[int] = None,
+                 v1: bool = False) -> torch.Tensor:
     """Merge all adjacent (2·run)-pairs of sorted runs in one launch (K8);
     ``unpack_mask`` fuses the final ``& idx_mask`` unpack of ``argsort``
-    (int32 output)."""
+    (int32 output).  On the card v2 runs blocks of :func:`k8_block`
+    words; ``v1=True`` launches the first design instead (blocks of the
+    tile), which the card check times v2 against."""
     n = x.shape[0]
     if n % (2 * run) or run % tile:
         raise ValueError(f"_merge_level needs n % (2*run) == 0 and run % "
@@ -274,9 +414,10 @@ def _merge_level(x: torch.Tensor, *, run: int, tile: int,
                         f"tensor, got {x.dtype} on {x.device}")
     out = torch.empty(n, dtype=torch.uint32 if unpack_mask is None
                       else torch.int32, device=x.device)
-    K8(x.data_ptr(), out.data_ptr(), n, run, min(tile, MAX_BLOCK),
+    block = min(tile, MAX_BLOCK) if v1 else k8_block(n, run)
+    K8(x.data_ptr(), out.data_ptr(), n, run, block,
        0 if unpack_mask is None else unpack_mask & 0xFFFFFFFF,
-       int(unpack_mask is not None),
+       int(unpack_mask is not None), int(not v1),
        torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
@@ -490,7 +631,8 @@ def argsort(keys: torch.Tensor, *, num_key_bits: int = 12, tile: int = 1024,
 
 
 __all__ = ["argsort", "sort_u32", "tile_sort", "merge_pair",
-           "merge_level_plain", "tile_sort_plain", "pack_plain",
-           "unpack_plain", "tile_sort_model", "k9a_shape",
-           "kernel_attributes", "IDX_BITS", "IDX_MASK", "MAX_BITONIC_TILE",
-           "K8", "K9A", "K9B", "K9C"]
+           "merge_level_plain", "merge_level_model", "kary_coranks",
+           "k8_block", "tile_sort_plain", "pack_plain", "unpack_plain",
+           "tile_sort_model", "k9a_shape", "kernel_attributes",
+           "merge_level_attributes", "IDX_BITS", "IDX_MASK",
+           "MAX_BITONIC_TILE", "K8", "K9A", "K9B", "K9C"]

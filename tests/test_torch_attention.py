@@ -290,6 +290,63 @@ def test_split_wholly_past_the_causal_window():
     np.testing.assert_allclose(out.numpy(), ref[:, 96:160], **TOL)
 
 
+@pytest.mark.parametrize("G,c,off,Sk", [
+    (4, 256, 736, 2048), (5, 256, 736, 2048), (4, 32, 1792, 2048),
+    (4, 1, 1792, 2048), (4, 128, 1024, 2048), (5, 64, 736, 2048),
+    (1, 17, 96, 181), (4, 64, 0, 2048), (1, 1, 2047, 2048)])
+@pytest.mark.parametrize("nsplit", ["rule", 2, 5, 9, 16])
+def test_live_splits_count_the_nonempty_splits(G, c, off, Sk, nsplit):
+    """Each row tile's live split count (``live_splits``, which the fused
+    kernel mirrors) is the number of splits ``split_key_ranges`` gives a
+    key, and they come first: at the rule's split count for the main
+    paths' chunks (32/8 and 40/8 heads) and at forced counts."""
+    if nsplit == "rule":
+        nsplit = tfa.num_splits(1, c, G * 8, 8, Sk, q_offset=off)
+    live = tfa.live_splits(c, G, Sk, nsplit, q_offset=off)
+    lo, hi = tfa.split_key_ranges(c, G, Sk, nsplit, q_offset=off)
+    first = torch.arange(0, c * G, tfa.BLOCK_M)
+    nonempty = lo[:, first] < hi[:, first]             # (nsplit, tiles)
+    assert live.shape == first.shape
+    assert (nonempty.sum(0) == live).all()
+    assert (nonempty == (torch.arange(nsplit)[:, None] < live)).all()
+    assert (live >= 1).all() and (live <= nsplit).all()
+
+
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("c,off,nsplit", [(64, 117, 2), (64, 96, 3),
+                                          (48, 0, 5), (17, 164, 16)])
+def test_fused_merge_gives_the_same_bits_whichever_split_arrives_last(
+        G, c, off, nsplit):
+    """The fused route's claim in plain form: for every row tile and kv
+    head, the CTA that arrives last (in split order, reversed, or a seeded
+    order) merges the live splits' partials in split order and gets
+    ``merge_plain``'s bits over all the splits (the empty ones never read:
+    they hold NaN here), leaving the counter at 0; the output is the
+    Pallas kernel's within the fp32 tolerance."""
+    q, k, v, ref = _causal_square(G)
+    qc = q[:, off:off + c]
+    m, l, acc = tfa.split_partials_plain(*_t(qc, k, v), nsplit, causal=True,
+                                         q_offset=off)
+    whole = tfa.merge_plain(m, l, acc, torch.float32)
+    np.testing.assert_allclose(whole.numpy(), ref[:, off:off + c], **TOL)
+    live = tfa.live_splits(c, G, SPLIT_SK, nsplit, q_offset=off)
+    rows = tfa.packed_rows(c, G)
+    rng = np.random.RandomState(c + nsplit)
+    for t, n_live in enumerate(live.tolist()):
+        R = rows[t * tfa.BLOCK_M:(t + 1) * tfa.BLOCK_M]
+        for kvh in range(SPLIT_KV):
+            i, head = R[:, 0], kvh * G + R[:, 1]
+            tm, tl, ta = m[:, 0, i, head], l[:, 0, i, head], acc[:, 0, i, head]
+            tm[n_live:], tl[n_live:], ta[n_live:] = (float("nan"),) * 3
+            for order in (None, tuple(range(n_live))[::-1],
+                          tuple(rng.permutation(n_live).tolist())):
+                got, merger, counter = tfa.fused_merge_model(
+                    tm, tl, ta, n_live, torch.float32, arrivals=order)
+                assert torch.equal(got, whole[0, i, head])
+                assert merger == (n_live - 1 if order is None else order[-1])
+                assert counter == 0
+
+
 @pytest.mark.parametrize("G", [1, 4, 5])
 def test_merge_plain_matches_jax_combine(G):
     """The fixed-order merge == the JAX package's pairwise LSE combine
@@ -362,6 +419,23 @@ def test_split_rule_at_the_main_paths_shapes():
     assert tfa.num_splits(1, 32, 32, 8, 2048, causal=False) == 10
 
 
+def test_fused_merge_route_at_the_main_paths_shapes():
+    """A split call merges in its own launch up to FUSED_UP_TO splits (the
+    engines' 256-token llama3-8b chunks, 2 splits) and in a second launch
+    above (short chunks late in the cache, 4 to 9 splits); an unsplit call
+    has no merge."""
+    assert not tfa.fused_merge(1)
+    assert tfa.fused_merge(2) and tfa.FUSED_UP_TO == 2
+    assert not tfa.fused_merge(4) and not tfa.fused_merge(9)
+    for off in (224, 736, 1792):
+        assert tfa.fused_merge(tfa.num_splits(1, 256, 32, 8, 2048,
+                                              q_offset=off))
+    for c, off in ((32, 1792), (64, 736), (128, 1024)):
+        assert not tfa.fused_merge(tfa.num_splits(1, c, 32, 8, 2048,
+                                                  q_offset=off))
+    assert tfa.MAX_SPLITS <= tfa.MAX_FUSED_SPLITS
+
+
 def test_route_by_dtype_and_head_dim():
     """v3 takes bf16 with head dims that are multiples of 16; fp32 (exact
     goldens) and other bf16 head dims stay on v2."""
@@ -380,7 +454,8 @@ def test_merge_and_forced_routes_raise_off_the_card():
         tfa.merge(m, m, torch.zeros((2, 1, 4, H, hd), device="meta"))
     q, k, v = (t.to("meta") for t in _t(*_qkv(1, 8, 8)))
     for kw in ({"tensor_cores": True}, {"tensor_cores": False},
-               {"splits": 4}):
+               {"splits": 4}, {"splits": 4, "fused": True},
+               {"splits": 2, "fused": False}):
         with pytest.raises(ValueError, match="CUDA"):
             tfa.flash_attention(q, k, v, **kw)
     with pytest.raises(ValueError, match="CUDA"):
@@ -394,6 +469,10 @@ def test_merge_and_forced_routes_raise_off_the_card():
     out = tfa.merge(*parts)
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, tfa.merge_plain(*parts, torch.bfloat16))
+    for fused in (None, True, False):       # every route: the fp32 twin
+        assert torch.equal(tfa.flash_attention(q, k, v, q_offset=62,
+                                               splits=2, fused=fused),
+                           tfa.flash_attention_plain(q, k, v, q_offset=62))
     assert set(_build.launches().values()) == {0}
 
 

@@ -287,6 +287,99 @@ def test_merge_level_matches_reference(run, tile, pairs, hi, unpack_mask):
                            interpret=True, unpack_mask=unpack_mask))
 
 
+def _sorted_runs(n, run, kind, seed):
+    """(n,) uint32 words in sorted runs of ``run``: random with ties (every
+    word twice), all equal, the whole input sorted (each pair's A below its
+    B), reversed (each A above its B: the most skewed split), or random
+    with sentinel-padded tails."""
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return np.full(n, 0x9E3779B9, np.uint32)
+    w = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    if kind == "ties":
+        w[1::2] = w[::2]
+    if kind == "sorted":
+        return np.sort(w).astype(np.uint32)
+    if kind == "reversed":
+        return np.sort(w).astype(np.uint32).reshape(-1, run)[::-1].reshape(
+            -1).copy()
+    runs = np.sort(w.reshape(-1, run), axis=1).astype(np.uint32)
+    if kind == "padded":
+        runs[:, -(run // 3 + 1):] = rs.SENTINEL
+    return runs.reshape(-1)
+
+
+@pytest.mark.parametrize("kind", ["ties", "equal", "sorted", "reversed",
+                                  "padded"])
+@pytest.mark.parametrize("n,tile,runs,unpack_mask", [
+    (2048, 64, "one", None), (2048, 64, "four", None),
+    (2048, 64, "half", (1 << 11) - 1), (8192, 512, "moe", None),
+    (8192, 512, "moe", (1 << 13) - 1)])
+def test_merge_level_model_matches_plain_and_reference(n, tile, runs,
+                                                       unpack_mask, kind):
+    """K8 v2's partition (``merge_level_model``: blocks of ``k8_block``,
+    k-ary co-ranks, per-thread sub-diagonals, the merge order) bit for bit
+    against the twin ``merge_level_plain`` and the Pallas
+    ``_merge_level`` in interpret mode: runs of one tile, four tiles and
+    n/2, the unpack mask, and the four levels of an 8192-word MoE argsort
+    (runs 512 to 4096) at v2's own block and at blocks of 1 to 16 words a
+    thread."""
+    lengths = {"one": [tile], "four": [4 * tile], "half": [n // 2],
+               "moe": [512, 1024, 2048, 4096]}[runs]
+    for run in lengths:
+        x = _sorted_runs(n, run, kind, run + n)
+        want = jax.jit(functools.partial(
+            jms._merge_level, run=run, tile=tile, interpret=True,
+            unpack_mask=unpack_mask))(jnp.asarray(x))
+        _same(ms.merge_level_plain(_t(x), run=run, unpack_mask=unpack_mask),
+              want)
+        blocks = {ms.k8_block(n, run)} | ({256 * w for w in (2, 4, 8, 16)
+                                           if 256 * w <= 2 * run}
+                                          if runs == "moe" else set())
+        for block in sorted(blocks):
+            _same(ms.merge_level_model(_t(x), run=run, block=block,
+                                       unpack_mask=unpack_mask), want)
+
+
+@pytest.mark.parametrize("run,block,pairs,hi", [
+    (128, 32, 2, 16), (256, 512, 3, 1 << 30), (1024, 256, 1, 1 << 32),
+    (4096, 256, 1, 7), (1 << 14, 2048, 1, 1 << 32), (512, 1024, 4, 2),
+    (64, 16, 8, 1)])
+def test_kary_coranks_match_merge_path_starts(run, block, pairs, hi):
+    """K8 v2's 32-ary co-rank search (``kary_coranks``) at every block
+    diagonal equals the binary search of ``_merge_path_starts`` and the
+    JAX package's, for blocks that are not the tile and blocks that hold
+    the whole pair (no round), on random, few-valued and all-equal runs;
+    it takes ceil(log_129(run + 1)) rounds at most."""
+    rng = np.random.default_rng(run + block + hi)
+    ab = np.sort(rng.integers(0, hi, (pairs, 2, run), dtype=np.uint64),
+                 axis=-1).astype(np.uint32)
+    a0, b0, la, rounds = ms.kary_coranks(_t(ab), run, block)
+    for got, mine, want in zip(
+            (a0, b0, la), ms._merge_path_starts(_t(ab), run, block),
+            jms._merge_path_starts(jnp.asarray(ab), run, block)):
+        _same(got, want)
+        _same(mine, want)
+    assert rounds <= int(np.ceil(np.log(run + 1) / np.log(ms.K8_PROBES + 1)))
+    assert (rounds == 0) == (block == 2 * run)
+
+
+def test_k8_block_rule():
+    """v2's block: 8 words a thread in 512 CTAs at 2^20 words, 1 word a
+    thread in 32 CTAs at 8192 (the MoE levels), never past the pair, and a
+    power of two that divides it."""
+    assert ms.k8_block(1 << 20, 1024) == 2048
+    assert ms.k8_block(1 << 20, 1 << 19) == 2048
+    assert ms.k8_block(1 << 24, 1 << 12) == 4096
+    for run in (512, 1024, 2048, 4096):
+        assert ms.k8_block(8192, run) == 256
+    for n in (2, 64, 8192, 1 << 20, 1 << 24):
+        for run in (1 << i for i in range(n.bit_length() - 1)):
+            block = ms.k8_block(n, run)
+            assert block <= 2 * run and (2 * run) % block == 0
+            assert block <= ms.K8_THREADS * ms.K8_MAX_WORDS
+
+
 @pytest.mark.parametrize("n,tile", [(256, 64), (512, 512), (128, 16)])
 def test_merge_pair_matches_reference(n, tile):
     rng = np.random.default_rng(n)
