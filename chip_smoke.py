@@ -28,7 +28,15 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    v1 (the first design) on the same words, two launches bit-identical,
    v2's registers, spills and CTAs an SM printed, and v2 timed in turns
    against v1 at runs 1024, 2^14, 2^19 (with the unpack) and the four MoE
-   levels; 2b. the same for
+   levels; K6a and K6b (v2: the keys ranked in registers; warp-striped
+   words placed by one search and a forward walk) pass by pass through
+   case (a) (3 passes, the last with the unpack), the same on all-equal,
+   one-digit, sorted, reversed and sentinel-padded keys, case (c)'s 2^24
+   keys (2 passes) and tile 8192 at radix 256, each equal to its twin, to
+   v1 and to a second launch, the passes' order to
+   ``torch.argsort(stable=True)``; their registers, spills and CTAs an SM
+   printed; v2 timed in turns against v1 at the first and last pass of
+   cases (a) and (c), beside a copy of the same input; 2b. the same for
    the MoE dispatch K3 ``moe_dispatch`` (a decode step's 8 rows, a
    256-token chunk, ``Model.prefill``'s 8192 rows at d_model 5120; ragged,
    top-k 2, 256 experts; T·K of 1, 32, 33 and 512, deepseek-v2-lite's
@@ -1640,29 +1648,79 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     n, tile = 1 << 20, 1024
     nt, ib = n // tile, 20
     keys = ints(n, 12)                      # case (a) / (d): 12-bit keys
-    # K6a, K5, K6b: the first two passes of case (a), and its last
-    x, mask = keys, (1 << ib) - 1
-    for p, shift in enumerate((20, 24, 28)):
-        kw = dict(nt=nt, tile=tile, shift=shift, bits=4, pack=p == 0,
-                  idx_bits=ib)
+    # K6a, K5, K6b (v2, the route): every pass held to its twin, to v1
+    # (kept as the route v2 is timed against) and to a second v2 launch,
+    # bit for bit
+    def k6_pass(x, *, nt, tile, shift, bits, pack, idx_bits, um=None,
+                **case):
+        kw = dict(nt=nt, tile=tile, shift=shift, bits=bits, pack=pack,
+                  idx_bits=idx_bits)
+        case = dict(n=nt * tile, tile=tile, shift=shift, bits=bits, **case)
         local, hist = rs._mt_local(x, **kw)
         plocal, phist = rs.mt_local_plain(x, **kw)
-        same("radix_mt_local", local, plocal, n=n, tile=tile, shift=shift,
-             pack=p == 0)
-        same("radix_mt_local", hist, phist, what="histogram", shift=shift)
+        same("radix_mt_local", local, plocal, pack=pack, **case)
+        same("radix_mt_local", hist, phist, what="histogram", **case)
+        local1, hist1 = rs._mt_local(x, v1=True, **kw)
+        same("radix_mt_local", local1, plocal, pack=pack, v1=True, **case)
+        same("radix_mt_local", hist1, phist, what="histogram", v1=True,
+             **case)
+        again = rs._mt_local(x, **kw)
+        check(torch.equal(again[0], local) and torch.equal(again[1], hist)
+              and torch.equal(local1, local), f"K6a v2 {case}: two launches "
+              f"on one input differ, or v2 != v1")
         base = ts.histogram_offsets(hist)
         same("tile_scan_add", base, ts.histogram_offsets_plain(hist),
-             what="histogram_offsets", nt=nt, radix=16)
-        um = mask if p == 2 else None
-        x = rs._mt_scatter(local, hist, base, tile=tile, radix=16,
-                           unpack_mask=um)
-        same("radix_mt_scatter", x, rs.mt_scatter_plain(
-            local, hist, base, tile=tile, unpack_mask=um), n=n, shift=shift,
-             unpack=um is not None)
-        if p == 0:
-            local0, hist0, base0 = local, hist, base
-    check(torch.equal(x.to(torch.int64), torch.argsort(keys, stable=True)),
-          "three K6a/K5/K6b passes are not the stable argsort")
+             what="histogram_offsets", nt=nt, radix=1 << bits)
+        skw = dict(tile=tile, radix=1 << bits, unpack_mask=um)
+        out = rs._mt_scatter(local, hist, base, **skw)
+        pout = rs.mt_scatter_plain(local, hist, base, tile=tile,
+                                   unpack_mask=um)
+        same("radix_mt_scatter", out, pout, unpack=um is not None, **case)
+        out1 = rs._mt_scatter(local, hist, base, v1=True, **skw)
+        same("radix_mt_scatter", out1, pout, unpack=um is not None, v1=True,
+             **case)
+        check(torch.equal(rs._mt_scatter(local, hist, base, **skw), out)
+              and torch.equal(out1, out), f"K6b v2 {case}: two launches on "
+              f"one input differ, or v2 != v1")
+        return local, hist, base, out
+
+    def k6_sort(k, idx_bits, num_key_bits, **case):
+        """The multi-tile passes of ``k`` (4-bit digits, tile 1024), each
+        pass held as above; the order against torch.argsort(stable=True).
+        Returns each pass's input, arguments and outputs."""
+        passes, x = [], k
+        shifts = range(idx_bits, idx_bits + num_key_bits, 4)
+        for p, shift in enumerate(shifts):
+            um = (1 << idx_bits) - 1 if p == len(shifts) - 1 else None
+            kw = dict(nt=k.numel() // 1024, tile=1024, shift=shift, bits=4,
+                      pack=p == 0, idx_bits=idx_bits)
+            local, hist, base, out = k6_pass(x, um=um, **kw, **case)
+            passes.append(dict(x=x, kw=kw, um=um, local=local, hist=hist,
+                               base=base))
+            x = out
+        check(torch.equal(x.to(torch.int64), torch.argsort(k, stable=True)),
+              f"the K6a/K5/K6b passes of {case} are not the stable argsort")
+        return passes
+
+    n, tile = 1 << 20, 1024
+    nt, ib = n // tile, 20
+    mask = (1 << ib) - 1
+    keys = ints(n, 12)                      # case (a) / (d): 12-bit keys
+    passes_a = k6_sort(keys, ib, 12, input="case (a)")
+    hist0 = passes_a[0]["hist"]
+    # the skewed inputs of case (a)'s size, the sort path's pad included
+    skewed = {"all-equal": torch.full_like(keys, 1234),
+              "one-digit": (keys & ~15) | 5,
+              "sorted": torch.sort(keys).values,
+              "reversed": torch.sort(keys).values.flip(0),
+              "sentinel-padded": torch.where(
+                  torch.arange(n, device=dev) >= n - n // 3, 4095, keys)}
+    for kind, k in skewed.items():
+        k6_sort(k.contiguous(), ib, 12, input=kind)
+    # case (c)'s shape: 2^24 8-bit keys, two passes
+    nc = 1 << 24
+    keys_c = ints(nc, 8)
+    passes_c = k6_sort(keys_c, 24, 8, input="case (c)")
     # K5 (v2, one cluster) beyond the path's histograms: ragged row blocks,
     # blocks empty under a forced cluster, radix 4 to 256, and the 1-D scan
     # both ways (misaligned too: scalar loads); two launches bit-identical
@@ -1739,19 +1797,9 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     # the largest tile (8192 words: above 48 KB of shared memory) with
     # 8-bit digits (radix 256), off the path's defaults but accepted
     big_tile, nt8 = 1 << 13, n >> 13
-    kw8 = dict(nt=nt8, tile=big_tile, shift=ib, bits=8, pack=True,
-               idx_bits=ib)
-    local8, hist8 = rs._mt_local(keys, **kw8)
-    plocal8, phist8 = rs.mt_local_plain(keys, **kw8)
-    same("radix_mt_local", local8, plocal8, tile=big_tile, bits=8)
-    same("radix_mt_local", hist8, phist8, what="histogram", tile=big_tile)
-    base8 = ts.histogram_offsets(hist8)
-    same("tile_scan_add", base8, ts.histogram_offsets_plain(hist8),
-         what="histogram_offsets", nt=nt8, radix=256)
-    same("radix_mt_scatter", rs._mt_scatter(local8, hist8, base8,
-                                            tile=big_tile, radix=256),
-         rs.mt_scatter_plain(local8, hist8, base8, tile=big_tile),
-         tile=big_tile, radix=256)
+    local8, hist8, base8, _ = k6_pass(keys, nt=nt8, tile=big_tile, shift=ib,
+                                      bits=8, pack=True, idx_bits=ib,
+                                      input="tile 8192, radix 256")
     tiles8 = rs.radix_tile_sort(w, tile=big_tile, digit_bits=8)
     same("radix_tile_sort", tiles8, rs.radix_tile_sort_plain(
         w, tile=big_tile, total_bits=32, key_shift=0), tile=big_tile,
@@ -1830,30 +1878,72 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                  shape=shape)
         return r
 
-    digits = (keys & 15).reshape(nt, tile)
+    def k6_rows():
+        """K6a and K6b: v2 against v1 in turns (v2, v1 three times: each
+        the median of its three, since one reading of the flush-subtracting
+        harness can come out far off), the twin, the library call where
+        one computes the same, and a copy of the kernel's input (what this
+        harness gets from the card's memory for the same bytes in and
+        out), at case (a)'s first and last pass (the first is the row) and
+        case (c)'s."""
+        out = {"radix_mt_local": {}, "radix_mt_scatter": {}}
+        for label, pas in (("2^20 pass 0 (pack)", passes_a[0]),
+                           ("2^20 last pass (unpack)", passes_a[-1]),
+                           ("2^24 pass 0 (pack)", passes_c[0]),
+                           ("2^24 last pass (unpack)", passes_c[-1])):
+            x, kw, um = pas["x"], pas["kw"], pas["um"]
+            local, hist, base = pas["local"], pas["hist"], pas["base"]
+            n_, R_ = local.numel(), hist.numel()
+            wd = rs._u64(x)
+            if kw["pack"]:
+                wd = rs._shl(wd, kw["idx_bits"]) | torch.arange(n_,
+                                                                device=dev)
+            digits = (rs._shr(wd, kw["shift"]) & 15).to(torch.int32)
+            digits = digits.reshape(kw["nt"], kw["tile"])
+            shape = dict(n=n_, tile=kw["tile"], bits=kw["bits"],
+                         pack=kw["pack"], unpack=um is not None, what=label)
+            skw = dict(tile=kw["tile"], radix=16, unpack_mask=um)
+            fns = {
+                "radix_mt_local": (
+                    lambda v1: rs._mt_local(x, v1=v1, **kw),
+                    lambda: rs.mt_local_plain(x, **kw),
+                    lambda: torch.sort(digits, dim=1, stable=True), x,
+                    4.0 * (2 * n_ + R_),
+                    "per-tile stable sort of the pass digit (digits "
+                    "precomputed)"),
+                "radix_mt_scatter": (
+                    lambda v1: rs._mt_scatter(local, hist, base, v1=v1,
+                                              **skw),
+                    lambda: rs.mt_scatter_plain(local, hist, base,
+                                                tile=kw["tile"],
+                                                unpack_mask=um),
+                    None, local, 4.0 * (2 * n_ + 2 * R_), None)}
+            for name, (fn, plain, lib, src, nbytes, computes) in fns.items():
+                turns = [device_ms(lambda: fn(v1), cold=True)
+                         for v1 in (False, True) * 3]
+                out[name][label] = dict(
+                    ms=sorted(turns[0::2])[1], v1_ms=sorted(turns[1::2])[1],
+                    turns_ms=turns,
+                    plain_ms=device_ms(plain, cold=True),
+                    library_ms=None if lib is None
+                    else device_ms(lib, cold=True),
+                    library_computes=computes,
+                    copy_ms=device_ms(lambda: src.clone(), cold=True),
+                    bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                    shape=shape)
+        return out
+
+    k6 = k6_rows()
     hist_dm = hist0.t().contiguous().reshape(-1)
     fw, fp = _flip(torch, w).reshape(nt, tile), _flip(torch, packed)
     R = nt * 16
     rows = {
-        "radix_mt_local": row(
-            lambda: rs._mt_local(keys, nt=nt, tile=tile, shift=ib, bits=4,
-                                 pack=True, idx_bits=ib),
-            lambda: rs.mt_local_plain(keys, nt=nt, tile=tile, shift=ib,
-                                      bits=4, pack=True, idx_bits=ib),
-            lambda: torch.sort(digits, dim=1, stable=True),
-            4.0 * (2 * n + R), dict(n=n, tile=tile, bits=4, pass_=0),
-            "per-tile stable sort of the pass digit (digits precomputed)"),
         "tile_scan_add": row(
             lambda: ts.histogram_offsets(hist0),
             lambda: ts.histogram_offsets_plain(hist0),
             lambda: torch.cumsum(hist_dm, 0),
             4.0 * 2 * R, dict(nt=nt, radix=16, what="histogram_offsets"),
             "cumsum of the histogram already laid out digit-major"),
-        "radix_mt_scatter": row(
-            lambda: rs._mt_scatter(local0, hist0, base0, tile=tile,
-                                   radix=16),
-            lambda: rs.mt_scatter_plain(local0, hist0, base0, tile=tile),
-            None, 4.0 * (2 * n + 2 * R), dict(n=n, tile=tile, radix=16)),
         "radix_tile_sort_packed": row(
             lambda: rs.radix_tile_sort_packed(keys, **kw),
             lambda: rs.radix_tile_sort_packed_plain(
@@ -1891,6 +1981,9 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                        block=ms.k8_block(x8.numel(), run),
                        v1_block=min(t8, ms.MAX_BLOCK)))
 
+    for name, per in k6.items():
+        first, *rest = per
+        rows[name] = dict(per[first], other_shapes={k: per[k] for k in rest})
     rows["merge_level"] = k8_row(
         packed, tile, None, "sort of each 2-run row (top bit flipped, int32)",
         lambda: torch.sort(fp.reshape(n // (2 * tile), 2 * tile), dim=1))
@@ -1936,6 +2029,16 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                                                  (1, 1_000_003))},
         "radix_tile_sort": {f"tile {t7}": rs.kernel_attributes(t7)
                             for t7 in (1, 256, 1024, 8192)},
+        "radix_mt_local": {
+            f"{'v1' if v1 else 'v2'} tile {t6}, {b6} bits":
+            rs.mt_local_attributes(t6, b6, v1=v1)
+            for t6, b6, v1 in ((1024, 4, False), (1024, 8, False),
+                               (8192, 8, False), (1024, 4, True))},
+        "radix_mt_scatter": {
+            f"{'v1' if v1 else 'v2'} tile {t6}, radix {r6}":
+            rs.mt_scatter_attributes(t6, r6, v1=v1)
+            for t6, r6, v1 in ((1024, 16, False), (8192, 256, False),
+                               (1024, 16, True))},
         "merge_level": {f"v2 block {b_}": ms.merge_level_attributes(b_)
                         for b_ in (256, 512, 1024, 2048, 4096)}}
     for kname, per in attrs.items():
@@ -1956,6 +2059,15 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         say(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms (bytes) [{card}]")
+    for name, per in k6.items():
+        for what, r in per.items():
+            lib = "" if r["library_ms"] is None else \
+                f", library {r['library_ms']:.4f} ms"
+            say(f"{name} v2 {what} (n {r['shape']['n']}): {r['ms']:.4f} ms "
+                f"against v1 {r['v1_ms']:.4f} in turns, plain "
+                f"{r['plain_ms']:.4f} ms{lib}, a copy of its input "
+                f"{r['copy_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"(bytes) [{card}]")
     for what, r in [("run 1024", rows["merge_level"]), *other.items()]:
         say(f"merge_level v2 {what} (n {r['shape']['n']}, block "
             f"{r['shape']['block']}): {r['ms']:.4f} ms against v1 "
@@ -2183,8 +2295,8 @@ def sort_path(np, torch, dev, seed, card, report):
     from torch.autograd import DeviceType
     names = (("packed_tile_sort_kernel", "radix_tile_sort_packed"),
              ("tile_sort_kernel", "radix_tile_sort"),
-             ("mt_local_kernel", "radix_mt_local"),
-             ("mt_scatter_kernel", "radix_mt_scatter"),
+             ("mt_local", "radix_mt_local"),        # v1 and v2
+             ("mt_scatter", "radix_mt_scatter"),    # v1 and v2
              ("cluster_scan_kernel", "tile_scan_add"),
              ("merge_level", "merge_level"))     # v1 and v2
     breakdown = {}
@@ -2244,6 +2356,7 @@ def sort_kernel_entries(rows, errs, launches):
             "library_ms": r["library_ms"],
             "library_computes": r["library_computes"], "shape": r["shape"],
             **({"v1_ms": r["v1_ms"]} if "v1_ms" in r else {}),
+            **({"copy_ms": r["copy_ms"]} if "copy_ms" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r
                else {})})
     return out

@@ -1,6 +1,7 @@
 // K6a, K6b, K7a and K7b: the stable radix sort's kernels for Hopper
-// (sm_90a).  K6a and K7b share one device routine, a stable in-tile rank by
-// one digit (rank_pass, radix_rank.cuh); K7a has its own.
+// (sm_90a).  K7b (and K6a's v1) rank on one device routine, a stable
+// in-tile rank by one digit (rank_pass, radix_rank.cuh); K7a and K6a v2
+// rank their keys in registers.
 //
 // Replaces, in repro/kernels/radix_sort.py:
 //   K7a radix_tile_sort        (body _radix_sort_kernel): in-tile stable LSD
@@ -32,14 +33,15 @@
 // from the return value of a shared atomicAdd follows the order in which
 // threads happen to run, so it is not stable.  Both routines give each warp
 // a contiguous chunk of the tile and walk it 32 words at a time in index
-// order.  A match (__match_any_sync in rank_pass, eight ballots in K7a)
-// gives each lane the lanes with its digit; the popcount of those below it
-// is its rank among equal digits in this step, and the lowest such lane
-// (the leader) advances a per-(digit, warp) counter.  An exclusive scan of the (digit, warp) counts in digit-major
-// order gives each segment's first rank, so the order of ranks is (digit,
-// warp chunk, step, lane), which is (digit, index): stable.
+// order.  A match (__match_any_sync in rank_pass, a ballot a digit bit in
+// K7a and K6a v2) gives each lane the lanes with its digit; the popcount
+// of those below it is its rank among equal digits in this step, and the
+// lowest such lane (the leader) advances a per-(digit, warp) counter.  An
+// exclusive scan of the (digit, warp) counts in digit-major order gives
+// each segment's first rank, so the order of ranks is (digit, warp chunk,
+// step, lane), which is (digit, index): stable.
 //
-// rank_pass (K6a, K7b, and K3 in moe_dispatch.cu) keeps the tile in two
+// rank_pass (K7b, K6a v1, and K3 in moe_dispatch.cu) keeps the tile in two
 // shared buffers and ping-pongs: one sweep counts, the scan, a second sweep
 // ranks and scatters, about five CTA barriers a pass.
 //
@@ -63,6 +65,24 @@
 // counters, against v1's 16 KB), so 9 CTAs fit an SM and 1024 tiles run
 // in one wave; larger tiles take 256.
 //
+// K6a v2.  v1 ran rank_pass on a 256-thread CTA with two word buffers
+// (16.5 KB at tile 1024): the tile loaded and stored 4 bytes at a time
+// through a round trip in shared memory, two match sweeps, six barriers,
+// a 256-thread scan of 8 x 16 counts and a second loop to sum `hist`.  v2
+// is one pass of K7a v2 at the pass digit (bits <= 8: one ballot a bit):
+// the keys in registers, warp-striped, packed there after the load; one
+// sweep; the digit-major scan in registers plus one scan of the threads'
+// totals, whose digit sums are the `hist` row; one scatter into a single
+// shared buffer; 16-byte stores out.  Four barriers.  128 threads up to
+// tile 1024 (4.3 KB of shared memory), 256 above.  The digit width is a
+// template argument, so the ballots and the scan unroll with no branch on
+// it; with the width at run time the sweep cost far more.  Timed against
+// one CTA a tile and dropped: a persistent grid of one wave whose CTAs
+// stream their next tile in while they rank this one, into a second stage
+// by a bulk copy (cp.async.bulk on an mbarrier) or into registers; both
+// lost at 2^20 and 2^24 words.  A rank by counting (a column of counters a
+// thread) lost to the fixed-width ballots too.
+//
 // K6b: the TPU design does not carry over.  The reference revisits the
 // whole output across its sequential grid steps, copying masked windows by
 // read-modify-write into an output padded by one tile.  A Hopper grid runs
@@ -70,10 +90,20 @@
 // destination, disjoint from every other: one CTA per tile writes element
 // j of its locally sorted tile straight to base[t, d] + j - lstart[t, d].
 // No read-modify-write, no spare tile, and the order of CTAs does not
-// matter; K6b fuses the last pass's & idx_mask unpack.
+// matter; K6b fuses the last pass's & idx_mask unpack.  v1 scanned the
+// tile's counts with a 256-thread block scan (three barriers) and searched
+// the segment of every word (log2 R dependent shared loads), one word a
+// thread at a time.  v2 loads all of a thread's words first (warp-striped:
+// each warp instruction reads, and within a segment writes, 32
+// consecutive words), one warp scans the counts by shuffles behind one
+// barrier, and each thread searches once and then walks forward: the words
+// are in digit order, so the segment only advances.  A run of consecutive
+// words a thread, read 16 bytes at a time, was timed too and lost by far:
+// each of its store instructions spreads over 8 lines.
 #include "radix_rank.cuh"
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -330,6 +360,209 @@ mt_scatter_kernel(const unsigned* __restrict__ local,
   }
 }
 
+// K6a v2's dynamic shared memory: the scatter buffer and the (warp,
+// digit) counters
+size_t k6a_smem(int tile, int threads, int radix) {
+  return sizeof(unsigned) * ((size_t)tile + threads / 32 * radix);
+}
+
+// K6a v2: one digit pass, tile-local half, one CTA a tile, the keys in
+// registers (see the notes above).  NT threads, K keys a thread,
+// warp-striped as K7a's: warp w owns words [w * 32K, (w + 1) * 32K) of the
+// tile, lane l holds word w * 32K + 32 s + l as key[s].  The digit width
+// BITS is a template argument: the ballot loop and the scan then unroll
+// with no branch on the width, which took a large share of the sweep.
+template <int K, int NT, int BITS>
+__global__ void __launch_bounds__(NT)
+mt_local_v2_kernel(const unsigned* __restrict__ x,
+                   unsigned* __restrict__ local, int* __restrict__ hist,
+                   int tile, int shift, int pack, int idx_bits) {
+  constexpr int NW = NT / 32, RADIX = 1 << BITS;
+  constexpr int DPT = RADIX > NT ? RADIX / NT : 1;      // digits a thread
+  extern __shared__ __align__(16) unsigned dyn[];
+  unsigned* buf = dyn;                                   // [tile]
+  int* cnt = reinterpret_cast<int*>(dyn + tile);         // [NW][RADIX]
+  __shared__ int wtot[NW];
+  // u32 shifts by 32 or more leave no bits (shl, shr), folded into masks
+  const int sh = min(shift, 31), ish = min(idx_bits, 31);
+  const unsigned dmask = shift >= 32 ? 0u : (unsigned)RADIX - 1u;
+  const unsigned imask = idx_bits >= 32 ? 0u : FULL;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const size_t off = (size_t)blockIdx.x * tile;
+  const int first = warp * 32 * K + lane;                // key[s]: first + 32 s
+  int* mine = cnt + warp * RADIX;
+  unsigned key[K], dg[K];
+  int rank[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int i = first + 32 * s;
+    key[s] = i < tile ? x[off + i] : 0u;
+  }
+  if (pack) {
+    const unsigned g0 = (unsigned)(off + first);
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+      key[s] = ((key[s] << ish) & imask) | (g0 + 32 * s);
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) dg[s] = (key[s] >> sh) & dmask;
+  for (int dd = lane; dd < RADIX; dd += 32) mine[dd] = 0;
+  __syncwarp();
+  // 1. one sweep of ballots: each key's offset among the equal digits
+  // before it in the warp's chunk, and the (digit, warp) counts in `mine`.
+  // Every lane reads its digit's count (one broadcast a digit), then the
+  // lowest lane of each digit advances it.  (K7a's form, where that lane
+  // alone reads the count and shuffles it to its peers, gave wrong counts
+  // in one build of this kernel and right ones in another.)
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    unsigned peers = __ballot_sync(FULL, first + 32 * s < tile);
+#pragma unroll
+    for (int b = 0; b < BITS; ++b) {
+      const unsigned B = __ballot_sync(FULL, (dg[s] >> b) & 1u);
+      peers &= (dg[s] >> b) & 1u ? B : ~B;
+    }
+    rank[s] = (int)peers;
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const bool valid = first + 32 * s < tile;
+    const unsigned peers = (unsigned)rank[s];
+    const int before = valid ? mine[dg[s]] : 0;
+    __syncwarp();
+    if (valid && (peers & below) == 0) mine[dg[s]] = before + __popc(peers);
+    rank[s] = before + __popc(peers & below);
+    __syncwarp();
+  }
+  __syncthreads();
+  // 2. the histogram row, and the first rank of every (digit, warp)
+  // segment, digit-major: thread t scans the NW counts of its DPT digits
+  // in registers, the CTA scans the threads' totals
+  const int d0 = threadIdx.x * DPT;
+  int v[DPT][NW], sum = 0;
+#pragma unroll
+  for (int dd = 0; dd < DPT; ++dd) {
+    const bool own = d0 + dd < RADIX;
+    int h = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      v[dd][w] = own ? cnt[w * RADIX + d0 + dd] : 0;
+      h += v[dd][w];
+    }
+    if (own) hist[(size_t)blockIdx.x * RADIX + d0 + dd] = h;
+    sum += h;
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) wtot[warp] = incl;
+  __syncthreads();
+  int run = incl - sum;
+  for (int w = 0; w < warp; ++w) run += wtot[w];
+#pragma unroll
+  for (int dd = 0; dd < DPT; ++dd) {
+    if (d0 + dd < RADIX) {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        cnt[w * RADIX + d0 + dd] = run;
+        run += v[dd][w];
+      }
+    }
+  }
+  __syncthreads();
+  // 3. every key to its rank, then the tile out in 16-byte stores
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (first + 32 * s < tile) buf[mine[dg[s]] + rank[s]] = key[s];
+  }
+  __syncthreads();
+  if (tile >= 4) {
+    uint4* o4 = reinterpret_cast<uint4*>(local + off);
+    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+    for (int i = threadIdx.x; i < tile / 4; i += NT) o4[i] = b4[i];
+  } else {
+    for (int i = threadIdx.x; i < tile; i += NT) local[off + i] = buf[i];
+  }
+}
+
+// K6b v2: one CTA a tile of NT threads, W words a thread, warp-striped:
+// lane l of warp w holds words w * 32W + 32 k + l (k < W), so each load
+// and each store instruction of a warp covers 32 consecutive words.  A
+// thread's words rise, so after one search for its first word's segment
+// it walks forward.
+template <int W, int NT>
+__global__ void __launch_bounds__(NT)
+mt_scatter_v2_kernel(const unsigned* __restrict__ local,
+                     const int* __restrict__ hist,
+                     const int* __restrict__ base, unsigned* __restrict__ out,
+                     int tile, int radix, unsigned unpack_mask, int unpack) {
+  __shared__ int lstart[MAX_RADIX + 1];        // lstart[radix]: past the end
+  __shared__ int delta[MAX_RADIX];             // base - lstart
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t off = (size_t)blockIdx.x * tile;
+  const size_t row = (size_t)blockIdx.x * radix;
+  const int j0 = warp * 32 * W + lane;         // word k: j0 + 32 k
+  unsigned w[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int j = j0 + 32 * k;
+    w[k] = j < tile ? local[off + j] : 0u;
+  }
+  // one warp scans the tile's counts by shuffles: lane l holds digits
+  // [l * dpl, (l + 1) * dpl), up to 8 a lane at radix 256
+  if (warp == 0) {
+    const int dpl = max(1, radix / 32);
+    const int dl0 = lane * dpl;
+    int c[8], sum = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      c[i] = i < dpl && dl0 + i < radix ? hist[row + dl0 + i] : 0;
+      sum += c[i];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < dpl && dl0 + i < radix) {
+        lstart[dl0 + i] = run;
+        delta[dl0 + i] = base[row + dl0 + i] - run;
+        run += c[i];
+      }
+    }
+    if (lane == 0) lstart[radix] = INT_MAX;
+  }
+  __syncthreads();
+  // the segment of the first word: the last digit whose local start is
+  // <= j0 (an empty segment shares its start with the next one)
+  int d = 0, hi = radix - 1;
+  while (d < hi) {
+    const int mid = (d + hi + 1) >> 1;
+    if (lstart[mid] <= j0) d = mid; else hi = mid - 1;
+  }
+  int next = lstart[d + 1], dlt = delta[d];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int j = j0 + 32 * k;
+    if (j < tile) {
+      while (next <= j) {
+        ++d;
+        next = lstart[d + 1];
+        dlt = delta[d];
+      }
+      out[(size_t)(dlt + j)] = unpack ? (w[k] & unpack_mask) : w[k];
+    }
+  }
+}
+
 bool pow2_tile(int tile) {
   return tile >= 1 && tile <= MAX_TILE && (tile & (tile - 1)) == 0;
 }
@@ -397,6 +630,156 @@ int tile_sort_dispatch(const void* x, void* out, int nt, int tile,
 #undef K7A_CASE
 }
 
+// K6a v2 launched, or (attrs != nullptr) its attributes: out[0..4] as
+// kernel_attrs, out[5] threads a CTA
+template <int K, int NT, int BITS>
+int mt_local_v2_launch(const void* x, void* local, void* hist, int nt,
+                       int tile, int shift, int pack, int idx_bits,
+                       cudaStream_t st, int* attrs) {
+  auto kernel = mt_local_v2_kernel<K, NT, BITS>;
+  const size_t smem = k6a_smem(tile, NT, 1 << BITS);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (attrs != nullptr) {
+    attrs[5] = NT;
+    return (int)kernel_attrs(kernel, NT, smem, attrs);
+  }
+  kernel<<<nt, NT, smem, st>>>(
+      static_cast<const unsigned*>(x), static_cast<unsigned*>(local),
+      static_cast<int*>(hist), tile, shift, pack, idx_bits);
+  return (int)cudaGetLastError();
+}
+
+// K6a's instance for a tile, as K7a's (128 threads up to tile 1024, 256
+// above, K = tile / NT keys a thread, at least 1), at a digit width BITS
+template <int BITS>
+int mt_local_v2_tiles(const void* x, void* local, void* hist, int nt,
+                      int tile, int shift, int pack, int idx_bits,
+                      cudaStream_t st, int* attrs) {
+#define K6A_CASE(K, NT)                                                     \
+  return mt_local_v2_launch<K, NT, BITS>(x, local, hist, nt, tile, shift,   \
+                                         pack, idx_bits, st, attrs)
+  if (tile <= K7A_SMALL_TILE) {
+    constexpr int NT = K7A_SMALL_THREADS;
+    switch (std::max(1, tile / NT)) {
+      case 1: K6A_CASE(1, NT);
+      case 2: K6A_CASE(2, NT);
+      case 4: K6A_CASE(4, NT);
+      default: K6A_CASE(K7A_SMALL_TILE / NT, NT);
+    }
+  }
+  switch (tile / THREADS) {
+    case 8: K6A_CASE(8, THREADS);
+    case 16: K6A_CASE(16, THREADS);
+    default: K6A_CASE(32, THREADS);
+  }
+#undef K6A_CASE
+}
+
+int mt_local_v2_dispatch(const void* x, void* local, void* hist, int nt,
+                         int tile, int shift, int bits, int pack,
+                         int idx_bits, cudaStream_t st, int* attrs) {
+#define K6A_BITS(B)                                                          \
+  return mt_local_v2_tiles<B>(x, local, hist, nt, tile, shift, pack,         \
+                              idx_bits, st, attrs)
+  switch (bits) {
+    case 1: K6A_BITS(1);
+    case 2: K6A_BITS(2);
+    case 3: K6A_BITS(3);
+    case 4: K6A_BITS(4);
+    case 5: K6A_BITS(5);
+    case 6: K6A_BITS(6);
+    case 7: K6A_BITS(7);
+    default: K6A_BITS(8);
+  }
+#undef K6A_BITS
+}
+
+// K6b v2 launched, or its attributes (out[5] threads a CTA)
+template <int W>
+int mt_scatter_v2_launch(const void* local, const void* hist,
+                         const void* base, void* out, int nt, int tile,
+                         int radix, unsigned unpack_mask, int unpack,
+                         cudaStream_t st, int* attrs) {
+  auto kernel = mt_scatter_v2_kernel<W, THREADS>;
+  if (attrs != nullptr) {
+    attrs[5] = THREADS;
+    return (int)kernel_attrs(kernel, THREADS, 0, attrs);
+  }
+  kernel<<<nt, THREADS, 0, st>>>(
+      static_cast<const unsigned*>(local), static_cast<const int*>(hist),
+      static_cast<const int*>(base), static_cast<unsigned*>(out), tile, radix,
+      unpack_mask, unpack);
+  return (int)cudaGetLastError();
+}
+
+// K6b's instance for a tile of at most MAX_TILE words: 256 threads, W =
+// ceil(tile / 256) words a thread, at least 1
+int mt_scatter_v2_dispatch(const void* local, const void* hist,
+                           const void* base, void* out, int nt, int tile,
+                           int radix, unsigned unpack_mask, int unpack,
+                           cudaStream_t st, int* attrs) {
+#define K6B_CASE(W)                                                          \
+  return mt_scatter_v2_launch<W>(local, hist, base, out, nt, tile, radix,    \
+                                 unpack_mask, unpack, st, attrs)
+  switch ((tile + THREADS - 1) / THREADS) {
+    case 1: K6B_CASE(1);
+    case 2: K6B_CASE(2);
+    case 3: case 4: K6B_CASE(4);
+    case 5: case 6: case 7: case 8: K6B_CASE(8);
+    default:
+      if (tile <= 16 * THREADS) K6B_CASE(16);
+      K6B_CASE(32);
+  }
+#undef K6B_CASE
+}
+
+// v2 = 0: v1, mt_local_kernel on rank_pass; 1: v2.  attrs != nullptr
+// asks for the attributes (out[0..5]: kernel_attrs, threads a CTA).
+int mt_local_entry(const void* x, void* local, void* hist, int nt, int tile,
+                   int shift, int bits, int pack, int idx_bits, int v2,
+                   cudaStream_t st, int* attrs) {
+  if (nt < 1 || !pow2_tile(tile) || shift < 0 || bits < 1 || bits > 8 ||
+      idx_bits < 0)
+    return (int)cudaErrorInvalidValue;
+  if (v2)
+    return mt_local_v2_dispatch(x, local, hist, nt, tile, shift, bits, pack,
+                                idx_bits, st, attrs);
+  const size_t smem = tile_smem(tile);
+  const cudaError_t err = allow_smem(mt_local_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (attrs != nullptr) {
+    attrs[5] = THREADS;
+    return (int)kernel_attrs(mt_local_kernel, THREADS, smem, attrs);
+  }
+  mt_local_kernel<<<nt, THREADS, smem, st>>>(
+      static_cast<const unsigned*>(x), static_cast<unsigned*>(local),
+      static_cast<int*>(hist), tile, shift, bits, pack, idx_bits);
+  return (int)cudaGetLastError();
+}
+
+// v2 = 0: v1, mt_scatter_kernel; 1: v2 (tile <= MAX_TILE)
+int mt_scatter_entry(const void* local, const void* hist, const void* base,
+                     void* out, int nt, int tile, int radix,
+                     unsigned unpack_mask, int unpack, int v2,
+                     cudaStream_t st, int* attrs) {
+  if (nt < 1 || tile < 1 || radix < 2 || radix > MAX_RADIX ||
+      (radix & (radix - 1)) != 0 || (v2 && tile > MAX_TILE))
+    return (int)cudaErrorInvalidValue;
+  if (v2)
+    return mt_scatter_v2_dispatch(local, hist, base, out, nt, tile, radix,
+                                  unpack_mask, unpack, st, attrs);
+  if (attrs != nullptr) {
+    attrs[5] = THREADS;
+    return (int)kernel_attrs(mt_scatter_kernel, THREADS, 0, attrs);
+  }
+  mt_scatter_kernel<<<nt, THREADS, 0, st>>>(
+      static_cast<const unsigned*>(local), static_cast<const int*>(hist),
+      static_cast<const int*>(base), static_cast<unsigned*>(out), tile, radix,
+      unpack_mask, unpack);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // digit_bits is checked and otherwise unused: K7a ranks 8 bits a pass,
@@ -441,31 +824,33 @@ extern "C" int radix_tile_sort_packed(const void* keys, void* out, int nt,
 
 extern "C" int radix_mt_local(const void* x, void* local, void* hist, int nt,
                               int tile, int shift, int bits, int pack,
-                              int idx_bits, void* stream) {
-  if (nt < 1 || !pow2_tile(tile) || shift < 0 || bits < 1 || bits > 8 ||
-      idx_bits < 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = tile_smem(tile);
-  cudaError_t err = allow_smem(mt_local_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  mt_local_kernel<<<nt, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(x), static_cast<unsigned*>(local),
-      static_cast<int*>(hist), tile, shift, bits, pack, idx_bits);
-  return (int)cudaGetLastError();
+                              int idx_bits, int v2, void* stream) {
+  return mt_local_entry(x, local, hist, nt, tile, shift, bits, pack, idx_bits,
+                        v2, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// What the compiler and the occupancy calculator give K6a (v2 = 1) or its
+// v1 (v2 = 0) for `tile` and `bits`: out[0..5] = registers a thread, local
+// (spill) bytes a thread, static shared bytes, dynamic shared bytes a
+// launch, CTAs an SM can hold, threads a CTA.
+extern "C" int radix_mt_local_attrs(int tile, int bits, int v2, int* out) {
+  return mt_local_entry(nullptr, nullptr, nullptr, 1, tile, 0, bits, 0, 0, v2,
+                        nullptr, out);
 }
 
 extern "C" int radix_mt_scatter(const void* local, const void* hist,
                                 const void* base, void* out, int nt,
                                 int tile, int radix, unsigned unpack_mask,
-                                int unpack, void* stream) {
-  if (nt < 1 || tile < 1 || radix < 2 || radix > MAX_RADIX ||
-      (radix & (radix - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  mt_scatter_kernel<<<nt, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(local), static_cast<const int*>(hist),
-      static_cast<const int*>(base), static_cast<unsigned*>(out), tile, radix,
-      unpack_mask, unpack);
-  return (int)cudaGetLastError();
+                                int unpack, int v2, void* stream) {
+  return mt_scatter_entry(local, hist, base, out, nt, tile, radix,
+                          unpack_mask, unpack, v2,
+                          static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The same for K6b (v2 = 1) or its v1 (v2 = 0) at `tile`: out[0..5]
+extern "C" int radix_mt_scatter_attrs(int tile, int radix, int v2, int* out) {
+  return mt_scatter_entry(nullptr, nullptr, nullptr, nullptr, 1, tile, radix,
+                          0, 0, v2, nullptr, out);
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -16,7 +16,10 @@
   (tile, digit) segment to its global base), with K5
   (``tile_scan.histogram_offsets``) between them;
   ``multi_tile_argsort_packed`` runs ``3 · num_passes`` launches,
-  independent of n.
+  independent of n.  ``mt_local_model`` and ``mt_scatter_model`` are
+  their v2 kernels' decompositions in plain PyTorch; ``v1=True`` on
+  either wrapper launches the first design, which the card check times v2
+  against.
 
 Packed words are ``torch.uint32``, orders ``torch.int32``, as the
 reference's dtypes.  Each wrapper runs its plain twin for a CPU tensor (a
@@ -131,40 +134,49 @@ def k7a_threads(tile: int) -> int:
     return 128 if tile <= 1024 else 256
 
 
+def _warp_ranks(digit: torch.Tensor, tile: int, radix: int) -> torch.Tensor:
+    """The rank K7a v2 and K6a v2 give each word of the (nt, tile) rows by
+    its digit in [0, radix): with T = k7a_threads(tile) and K = max(1,
+    tile // T), warp w owns the words ``[w * 32K, (w + 1) * 32K)``; a word's
+    rank is ``base[digit, w]`` (the digit-major exclusive scan of the
+    (digit, warp) counts) plus its offset among the equal digits before it
+    in its warp's chunk."""
+    nt = digit.shape[0]
+    dev = digit.device
+    warps = k7a_threads(tile) // 32
+    chunk = 32 * max(1, tile // k7a_threads(tile))
+    warp = (torch.arange(tile, device=dev) // chunk).expand(nt, tile)
+    rows = torch.arange(nt, device=dev)[:, None]
+    seg = digit * warps + warp                          # digit-major
+    counts = torch.zeros(nt, radix * warps, dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, seg, torch.ones_like(seg))
+    base = torch.cumsum(counts, 1) - counts
+    # offset among equal (digit, warp) before it: its place in the stable
+    # order of seg, less the segment's first place
+    order = torch.sort(seg, dim=1, stable=True).indices
+    offset = torch.empty_like(seg)
+    offset[rows, order] = torch.arange(tile, device=dev) - \
+        torch.gather(base, 1, torch.gather(seg, 1, order))
+    return torch.gather(base, 1, seg) + offset
+
+
+def _place(w: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    placed = torch.empty_like(w)
+    placed[torch.arange(w.shape[0], device=w.device)[:, None], rank] = w
+    return placed
+
+
 def radix_tile_sort_model(x: torch.Tensor, *, tile: int, total_bits: int,
                           key_shift: int) -> torch.Tensor:
     """K7a's decomposition in plain PyTorch, pass by pass: 8-bit digits (the
-    last pass narrower; none at bit 32 or above); with T = k7a_threads(tile)
-    and K = max(1, tile // T), warp w owns the tile's words ``[w * 32K,
-    (w + 1) * 32K)``; a word's rank is ``base[digit, w]`` (the digit-major
-    exclusive scan of the (digit, warp) counts) plus its offset among the
-    equal digits before it in its warp's chunk.  Equals
-    :func:`radix_tile_sort_plain`."""
+    last pass narrower; none at bit 32 or above), each word placed at its
+    :func:`_warp_ranks` rank.  Equals :func:`radix_tile_sort_plain`."""
     n = x.shape[0]
-    nt = n // tile
-    w = _u64(x).reshape(nt, tile)
-    warps = k7a_threads(tile) // 32
-    chunk = 32 * max(1, tile // k7a_threads(tile))
-    warp = (torch.arange(tile, device=x.device) // chunk).expand(nt, tile)
-    rows = torch.arange(nt, device=x.device)[:, None]
+    w = _u64(x).reshape(n // tile, tile)
     lo = 0
     while lo < total_bits and key_shift + lo < 32:
         digit = (w >> (key_shift + lo)) & ((1 << min(8, total_bits - lo)) - 1)
-        seg = digit * warps + warp                      # digit-major
-        counts = torch.zeros(nt, 256 * warps, dtype=torch.int64,
-                             device=x.device)
-        counts.scatter_add_(1, seg, torch.ones_like(seg))
-        base = torch.cumsum(counts, 1) - counts
-        # offset among equal (digit, warp) before it: its place in the
-        # stable order of seg, less the segment's first place
-        order = torch.sort(seg, dim=1, stable=True).indices
-        offset = torch.empty_like(seg)
-        offset[rows, order] = torch.arange(tile, device=x.device) - \
-            torch.gather(base, 1, torch.gather(seg, 1, order))
-        rank = torch.gather(base, 1, seg) + offset
-        placed = torch.empty_like(w)
-        placed[rows, rank] = w
-        w = placed
+        w = _place(w, _warp_ranks(digit, tile, 256))
         lo += 8
     return _u32(w).reshape(n)
 
@@ -229,6 +241,75 @@ def mt_scatter_plain(local: torch.Tensor, hist: torch.Tensor,
         torch.gather(lstart, 1, d)
     out = torch.zeros(nt * tile, dtype=torch.int64, device=local.device)
     out[dest.reshape(-1)] = _u64(local).reshape(-1)
+    if unpack_mask is not None:
+        return _i32(out & unpack_mask)
+    return _u32(out)
+
+
+def mt_local_model(x: torch.Tensor, *, nt: int, tile: int, shift: int,
+                   bits: int, pack: bool, idx_bits: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a v2's decomposition in plain PyTorch: the words packed as the
+    kernel packs them after its load, each placed at its
+    :func:`_warp_ranks` rank by the pass digit, and ``hist`` the sums over
+    the warps of the (digit, warp) counts.  Equals :func:`mt_local_plain`."""
+    radix = 1 << bits
+    w = _u64(x).reshape(nt, tile)
+    if pack:
+        w = _shl(w, idx_bits) | torch.arange(
+            nt * tile, dtype=torch.int64, device=x.device).reshape(nt, tile)
+    digit = _shr(w, shift) & (radix - 1)
+    warps = k7a_threads(tile) // 32
+    chunk = 32 * max(1, tile // k7a_threads(tile))
+    warp = torch.arange(tile, device=x.device) // chunk
+    counts = torch.zeros(nt, radix, warps, dtype=torch.int64, device=x.device)
+    counts.view(nt, -1).scatter_add_(1, digit * warps + warp,
+                                     torch.ones_like(digit))
+    return (_u32(_place(w, _warp_ranks(digit, tile, radix))),
+            counts.sum(2).to(torch.int32))
+
+
+def k6b_shape(tile: int) -> Tuple[int, int]:
+    """K6b v2's CTA for a tile: ``(words a thread W, threads NT)``, 256
+    threads and ``W = ceil(tile / 256)`` rounded up to a power of two
+    (``mt_scatter_v2_dispatch`` in csrc/radix_sort.cu)."""
+    w = max(1, -(-tile // 256))
+    return 1 << (w - 1).bit_length(), 256
+
+
+def mt_scatter_model(local: torch.Tensor, hist: torch.Tensor,
+                     base: torch.Tensor, *, tile: int,
+                     unpack_mask: Optional[int] = None) -> torch.Tensor:
+    """K6b v2 in plain PyTorch, thread by thread: with (W, NT) =
+    :func:`k6b_shape`, lane l of warp w holds the words ``j0 + 32 k`` (k <
+    W, ``j0 = 32 W w + l``); one search gives the segment of j0 (the last
+    digit whose local start is <= j0), then the thread walks forward word
+    by word; word j goes to ``base[t, d] + j - lstart[t, d]``.  Equals
+    :func:`mt_scatter_plain`."""
+    nt = hist.shape[0]
+    dev = local.device
+    h = hist.to(torch.int64)
+    lstart = torch.cumsum(h, 1) - h
+    past = torch.cat([lstart, torch.full((nt, 1), 1 << 62, device=dev,
+                                         dtype=torch.int64)], 1)
+    delta = base.to(torch.int64) - lstart
+    W, NT = k6b_shape(tile)
+    t = torch.arange(NT, device=dev)
+    j0 = (32 * W * (t // 32) + t % 32).expand(nt, NT)
+    d = torch.searchsorted(lstart, j0.contiguous(), right=True) - 1
+    out = torch.zeros(nt * tile, dtype=torch.int64, device=dev)
+    words = _u64(local)
+    rows = torch.arange(nt, device=dev)[:, None].expand(nt, NT)
+    for k in range(W):
+        j = j0 + 32 * k
+        live = j < tile
+        while True:                                     # the forward walk
+            adv = live & (torch.gather(past, 1, d + 1) <= j)
+            if not bool(adv.any()):
+                break
+            d = d + adv.to(d.dtype)
+        dest = torch.gather(delta, 1, d) + j
+        out[dest[live]] = words[rows[live], j[live]]
     if unpack_mask is not None:
         return _i32(out & unpack_mask)
     return _u32(out)
@@ -327,11 +408,12 @@ def radix_tile_sort_packed(keys: torch.Tensor, *, n: int, tile: int,
 
 
 def _mt_local(x: torch.Tensor, *, nt: int, tile: int, shift: int, bits: int,
-              pack: bool, idx_bits: int, group: int = 8
+              pack: bool, idx_bits: int, group: int = 8, v1: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6a: one digit pass, tile-local half → ((nt, tile) uint32 words,
     (nt, 2^bits) int32 histogram).  ``x`` is (nt·tile,) raw int32 keys with
-    ``pack`` (pass 0), else uint32 words."""
+    ``pack`` (pass 0), else uint32 words.  ``v1=True`` launches the first
+    design (``rank_pass``) instead, which the card check times v2 against."""
     if x.numel() != nt * tile:
         raise ValueError(f"_mt_local: {x.numel()} elements != {nt} x {tile}")
     if x.device.type == "cpu":
@@ -342,16 +424,17 @@ def _mt_local(x: torch.Tensor, *, nt: int, tile: int, shift: int, bits: int,
     local = torch.empty(nt, tile, dtype=torch.uint32, device=x.device)
     hist = torch.empty(nt, 1 << bits, dtype=torch.int32, device=x.device)
     K6A(x.data_ptr(), local.data_ptr(), hist.data_ptr(), nt, tile, shift,
-        bits, int(pack), idx_bits, _stream(x))
+        bits, int(pack), idx_bits, int(not v1), _stream(x))
     return local, hist
 
 
 def _mt_scatter(local: torch.Tensor, hist: torch.Tensor, base: torch.Tensor,
                 *, tile: int, radix: int, group: int = 8,
-                unpack_mask: Optional[int] = None) -> torch.Tensor:
+                unpack_mask: Optional[int] = None, v1: bool = False
+                ) -> torch.Tensor:
     """K6b: one digit pass, global half → the (nt·tile,) words in global
     digit order (uint32), or with ``unpack_mask`` (last pass) ``word &
-    unpack_mask`` as int32."""
+    unpack_mask`` as int32.  ``v1=True`` launches the first design."""
     nt = local.shape[0]
     if tuple(local.shape) != (nt, tile) or \
             tuple(hist.shape) != (nt, radix) or base.shape != hist.shape:
@@ -368,7 +451,7 @@ def _mt_scatter(local: torch.Tensor, hist: torch.Tensor, base: torch.Tensor,
                       else torch.int32, device=local.device)
     K6B(local.data_ptr(), hist.data_ptr(), base.data_ptr(), out.data_ptr(),
         nt, tile, radix, 0 if unpack_mask is None else unpack_mask & M32,
-        int(unpack_mask is not None), _stream(local))
+        int(unpack_mask is not None), int(not v1), _stream(local))
     return out
 
 
@@ -592,6 +675,23 @@ def moe_dispatch_attributes(n: int, row_bytes: int,
                                           "moe_hist_kernel"))}
 
 
+def mt_local_attributes(tile: int, bits: int, *, v1: bool = False
+                        ) -> Dict[str, int]:
+    """Registers, spills, shared memory, CTAs an SM and threads a CTA of
+    K6a's kernel instance for ``tile`` and ``bits`` (``v1=True``: the first
+    design's), as the compiled library and the occupancy calculator report
+    them."""
+    return _build.attributes("radix_sort", "radix_mt_local_attrs", tile,
+                             bits, int(not v1), extra=("threads",))
+
+
+def mt_scatter_attributes(tile: int, radix: int, *, v1: bool = False
+                          ) -> Dict[str, int]:
+    """The same for K6b at ``tile`` (one CTA a tile)."""
+    return _build.attributes("radix_sort", "radix_mt_scatter_attrs", tile,
+                             radix, int(not v1), extra=("threads",))
+
+
 def kernel_attributes(tile: int) -> Dict[str, int]:
     """Registers, spills, shared memory, CTAs an SM and threads a CTA of
     K7a's kernel instance for ``tile`` (one a keys-per-thread count and CTA
@@ -605,6 +705,7 @@ __all__ = ["radix_tile_sort", "radix_tile_sort_packed",
            "multi_tile_argsort_packed", "radix_tile_sort_plain",
            "radix_tile_sort_model", "k7a_threads", "kernel_attributes",
            "radix_tile_sort_packed_plain", "mt_local_plain",
-           "mt_scatter_plain", "moe_dispatch_sort", "moe_dispatch_sort_plain",
+           "mt_scatter_plain", "mt_local_model", "mt_scatter_model",
+           "k6b_shape", "mt_local_attributes", "mt_scatter_attributes", "moe_dispatch_sort", "moe_dispatch_sort_plain",
            "moe_dispatch_model", "moe_dispatch_attributes", "k3_grid",
            "k3_cta_words", "SENTINEL", "K3", "K6A", "K6B", "K7A", "K7B"]

@@ -241,6 +241,134 @@ def test_mt_scatter_matches_reference(nt, tile, bits, unpack_mask):
     _same(got, want)
 
 
+def _k6_input(tile, bits, pack, kind, seed):
+    """One multi-tile pass's input at a small size: raw 12-bit keys (pack,
+    pass 0) or u32 words (a later pass), of ``kind``: random (words twice:
+    ties), all-equal, one digit (every pass digit the same), sorted,
+    reversed, or sentinel-padded (the last third the pad key: the max key
+    or the sentinel word).  Returns (x, nt, shift, idx_bits)."""
+    nt = max(2, min(64, 2048 // tile)) if tile < 4096 else 2
+    n = nt * tile
+    idx_bits = max(1, (n - 1).bit_length())
+    shift = idx_bits if pack else 5
+    rng = np.random.default_rng(seed)
+    if pack:
+        x = rng.integers(0, 1 << 12, n).astype(np.int64)
+        pad, field = (1 << 12) - 1, (1 << bits) - 1
+    else:
+        x = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.int64)
+        x[1::2] = x[::2]
+        pad, field = rs.SENTINEL, ((1 << bits) - 1) << shift
+    if kind == "all-equal":
+        x[:] = x[0]
+    elif kind == "one-digit":
+        x = (x & ~field) | (field & 0x5A5A5A5A)
+    elif kind == "sorted":
+        x = np.sort(x)
+    elif kind == "reversed":
+        x = np.sort(x)[::-1].copy()
+    elif kind == "sentinel-padded":
+        x[n - n // 3:] = pad
+    x = x.astype(np.int32) if pack else x.astype(np.uint32)
+    return x, nt, shift, idx_bits
+
+
+_K6_TILES = (1, 2, 4, 32, 64, 256, 1024, 8192)
+_K6_KINDS = ("random", "all-equal", "one-digit", "sorted", "reversed",
+             "sentinel-padded")
+
+
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("bits", [1, 3, 4, 8])
+@pytest.mark.parametrize("tile", _K6_TILES)
+def test_mt_local_model_matches_plain_and_reference(tile, bits, pack):
+    """K6a v2's decomposition (warp chunks, (digit, warp) bases plus the
+    in-warp offset, ``hist`` as the digit sums) equals the twin and the
+    Pallas kernel in interpret mode bit for bit."""
+    x, nt, shift, idx_bits = _k6_input(tile, bits, pack, "random",
+                                       tile * 10 + bits)
+    kw = dict(nt=nt, tile=tile, shift=shift, bits=bits, pack=pack,
+              idx_bits=idx_bits)
+    local, hist = rs.mt_local_model(_t(x), **kw)
+    plocal, phist = rs.mt_local_plain(_t(x), **kw)
+    _same(local, plocal.numpy())
+    _same(hist, phist.numpy())
+    jlocal, jhist = jrs._mt_local(jnp.asarray(x), group=8, interpret=True,
+                                  **kw)
+    _same(local, jlocal)
+    _same(hist, jhist)
+
+
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("kind", _K6_KINDS[1:])
+@pytest.mark.parametrize("tile", [32, 1024])
+def test_mt_local_model_on_skewed_tiles(tile, kind, pack):
+    x, nt, shift, idx_bits = _k6_input(tile, 4, pack, kind, tile)
+    kw = dict(nt=nt, tile=tile, shift=shift, bits=4, pack=pack,
+              idx_bits=idx_bits)
+    local, hist = rs.mt_local_model(_t(x), **kw)
+    jlocal, jhist = jrs._mt_local(jnp.asarray(x), group=8, interpret=True,
+                                  **kw)
+    _same(local, jlocal)
+    _same(hist, jhist)
+    _same(rs._mt_local(_t(x), **kw)[0], jlocal)
+
+
+def _k6b_input(tile, bits, kind, seed):
+    x, nt, shift, idx_bits = _k6_input(tile, bits, True, kind, seed)
+    kw = dict(nt=nt, tile=tile, shift=shift, bits=bits, pack=True,
+              idx_bits=idx_bits)
+    local, hist = rs.mt_local_plain(_t(x), **kw)
+    return local, hist, ts.histogram_offsets(hist), (1 << idx_bits) - 1
+
+
+@pytest.mark.parametrize("unpack", [False, True])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("tile", _K6_TILES)
+def test_mt_scatter_model_matches_plain_and_reference(tile, bits, unpack):
+    """K6b v2 thread by thread (each thread's words, one search for the
+    first one's segment, then a forward walk) equals the twin and the
+    Pallas kernel in interpret mode bit for bit."""
+    local, hist, base, mask = _k6b_input(tile, bits, "random", tile + bits)
+    um = mask if unpack else None
+    got = rs.mt_scatter_model(local, hist, base, tile=tile, unpack_mask=um)
+    _same(got, rs.mt_scatter_plain(local, hist, base, tile=tile,
+                                   unpack_mask=um).numpy())
+    _same(got, jrs._mt_scatter(
+        jnp.asarray(local.numpy()), jnp.asarray(hist.numpy()),
+        jnp.asarray(base.numpy()), tile=tile, radix=1 << bits, group=8,
+        interpret=True, unpack_mask=um))
+
+
+@pytest.mark.parametrize("kind", _K6_KINDS[1:])
+@pytest.mark.parametrize("tile", [32, 1024, 8192])
+def test_mt_scatter_model_on_skewed_tiles(tile, kind):
+    local, hist, base, mask = _k6b_input(tile, 4, kind, tile)
+    got = rs.mt_scatter_model(local, hist, base, tile=tile, unpack_mask=mask)
+    _same(got, jrs._mt_scatter(
+        jnp.asarray(local.numpy()), jnp.asarray(hist.numpy()),
+        jnp.asarray(base.numpy()), tile=tile, radix=16, group=8,
+        interpret=True, unpack_mask=mask))
+    _same(rs._mt_scatter(local, hist, base, tile=tile, radix=16,
+                         unpack_mask=mask), np.asarray(got))
+
+
+@pytest.mark.parametrize("tile,shape", [(1, (1, 256)), (64, (1, 256)),
+                                        (256, (1, 256)), (512, (2, 256)),
+                                        (1024, (4, 256)), (2048, (8, 256)),
+                                        (4096, (16, 256)), (8192, (32, 256))])
+def test_k6b_shape_covers_the_tile(tile, shape):
+    """K6b v2's threads, lane l of warp w holding the words 32 W w + l +
+    32 k (k < W), hold every word of a tile exactly once, and at most one
+    CTA's worth of threads more than the tile (idle at small tiles)."""
+    assert rs.k6b_shape(tile) == shape
+    W, NT = shape
+    t = np.arange(NT)[:, None]
+    j = 32 * W * (t // 32) + t % 32 + 32 * np.arange(W)[None]
+    assert sorted(j[j < tile].tolist()) == list(range(tile))
+    assert W == 1 or W * NT < 2 * tile
+
+
 @pytest.mark.parametrize("n,tile,num_key_bits", [(2048, 256, 12),
                                                  (1000, 256, 8),
                                                  (3000, 128, 16)])
@@ -625,12 +753,19 @@ def test_wrappers_on_a_non_cpu_tensor_launch_or_raise():
     _build.reset_launches()
     u = torch.empty(1024, dtype=torch.uint32, device="meta")
     k = torch.empty(1024, dtype=torch.int32, device="meta")
+    h = torch.empty(4, 16, dtype=torch.int32, device="meta")
     for call in (
             lambda: rs.radix_tile_sort(u, tile=256),
             lambda: rs.radix_tile_sort_packed(k, n=1024, tile=256,
                                               num_key_bits=8, idx_bits=10),
             lambda: rs._mt_local(k, nt=4, tile=256, shift=10, bits=4,
                                  pack=True, idx_bits=10),
+            lambda: rs._mt_local(k, nt=4, tile=256, shift=10, bits=4,
+                                 pack=True, idx_bits=10, v1=True),
+            lambda: rs._mt_scatter(u.reshape(4, 256), h, h, tile=256,
+                                   radix=16),
+            lambda: rs._mt_scatter(u.reshape(4, 256), h, h, tile=256,
+                                   radix=16, unpack_mask=1023, v1=True),
             lambda: ms._merge_level(u, run=256, tile=256),
             lambda: ts.tile_scan(k),
             lambda: ms.tile_sort(u, tile=256),
