@@ -28,15 +28,25 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    v1 (the first design) on the same words, two launches bit-identical,
    v2's registers, spills and CTAs an SM printed, and v2 timed in turns
    against v1 at runs 1024, 2^14, 2^19 (with the unpack) and the four MoE
-   levels; K6a and K6b (v2: the keys ranked in registers; warp-striped
-   words placed by one search and a forward walk) pass by pass through
-   case (a) (3 passes, the last with the unpack), the same on all-equal,
+   levels; K6a and K6b (the keys ranked in registers; warp-striped words
+   placed by one search and a forward walk) pass by pass through case (a)
+   (3 passes, the last with the unpack), the same on all-equal,
    one-digit, sorted, reversed and sentinel-padded keys, case (c)'s 2^24
-   keys (2 passes) and tile 8192 at radix 256, each equal to its twin, to
-   v1 and to a second launch, the passes' order to
+   keys (2 passes) and tile 8192 at radix 256, each equal to its twin and
+   to a second launch, the passes' order to
    ``torch.argsort(stable=True)``; their registers, spills and CTAs an SM
-   printed; v2 timed in turns against v1 at the first and last pass of
-   cases (a) and (c), beside a copy of the same input; 2b. the same for
+   printed; each timed at the first and last pass of cases (a) and (c),
+   beside a copy of the same input; K7b (v2: the composite ranked in
+   registers, ceil(bits / 8) passes of one compile-time width) at cases
+   (d), (e) and (g) and at every tile 2-8192 by 1-24 key bits, packed and
+   unpacked, ragged, at 2 and 132 tiles, and on equal, sorted, reversed
+   and 7-valued keys, equal to its twin, to v1 and to a second launch, at
+   tile 1024 under every CTA width built too; its registers, spills and
+   CTA width checked against ``k7b_shape`` and ``k7b_digits`` (the path's
+   instances within 64 registers, no spills); v2 timed in turns against
+   v1 at cases (d) and (e), and over CTA widths at 1, 32 and 1024 tiles;
+   2b.
+   the same for
    the MoE dispatch K3 ``moe_dispatch`` (a decode step's 8 rows, a
    256-token chunk, ``Model.prefill``'s 8192 rows at d_model 5120; ragged,
    top-k 2, 256 experts; T·K of 1, 32, 33 and 512, deepseek-v2-lite's
@@ -48,9 +58,10 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    beside the smallest launch the harness times) and the comparison
    sort's K9a
    ``bitonic_tile_sort``, K9b ``pack_keys`` and K9c ``unpack_order`` at
-   2^20 keys, timed beside ``torch.argsort`` + ``index_select`` and the
-   per-row ``torch.sort``; K9a (v2, the network in registers and warp
-   shuffles) at every tile from 1 to 8192, on equal, sorted and
+   2^20 keys, timed beside ``torch.argsort`` + ``index_select``, the
+   per-row ``torch.sort`` and ``torch.bitwise_and`` (K9c); K9a (v2, the
+   network in registers and warp shuffles) at every tile from 1 to 8192,
+   on equal, sorted and
    reverse-sorted words and a misaligned input, two launches
    bit-identical, its registers, spills, shared memory and CTAs an SM
    printed;
@@ -63,7 +74,7 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    every order equals ``torch.argsort(stable=True)`` and the CPU twins',
    every case launches the expected kernels as often as the reference's
    ``SortSchedule`` says (plus K9b and K9c unfused); then each case timed
-   against ``torch.argsort(stable=True)``, and the first five profiled
+   against ``torch.argsort(stable=True)``, and cases (a)-(g) profiled
    (device time by kernel beside wall time);
 4. hold K1, K2 and K4 against their plain versions at their paths' shapes
    and time kernel, plain version and, where one PyTorch call computes the
@@ -184,6 +195,54 @@ def free_card(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def device_timer(torch, dev):
+    """``device_ms(fn, cold)``: the device ms of one call of ``fn`` from a
+    CUDA graph of back-to-back calls, so host launch overhead is not in the
+    number (the median of three replays).  ``cold``: each call after an L2
+    flush, whose own graph's time is subtracted (K/V-reading kernels: the
+    serving path reads the cache cold); else warm (the combine: its
+    partials were just written)."""
+    flush_buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def graph_ms(body, iters):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                body()
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            g.replay()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        del g
+        return sorted(times)[1]
+
+    def device_ms(fn, cold):
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        iters = int(min(200, max(5, 20.0 / max(s.elapsed_time(e), 1e-3))))
+        if not cold:
+            return graph_ms(fn, iters) / iters
+        flush = flush_buf.zero_
+        both = graph_ms(lambda: (flush(), fn()), iters)
+        alone = graph_ms(flush, iters)
+        return max(both - alone, 0.0) / iters
+
+    return device_ms
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -253,47 +312,7 @@ def main() -> None:
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    # timing: CUDA graphs of back-to-back calls, so host launch overhead is
-    # not in the number; K/V-reading kernels run after an L2 flush (the
-    # serving path reads the cache cold), combine warm (its partials were
-    # just written)
-    flush_buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-
-    def graph_ms(body, iters):
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="relaxed"):
-            for _ in range(iters):
-                body()
-        g.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            g.replay()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        del g
-        return sorted(times)[1]
-
-    def device_ms(fn, cold):
-        fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        iters = int(min(200, max(5, 20.0 / max(s.elapsed_time(e), 1e-3))))
-        if not cold:
-            return graph_ms(fn, iters) / iters
-        flush = flush_buf.zero_
-        both = graph_ms(lambda: (flush(), fn()), iters)
-        alone = graph_ms(flush, iters)
-        return max(both - alone, 0.0) / iters
+    device_ms = device_timer(torch, dev)
 
     # ------------------------------------ 2. the sort's kernels vs their twins
     sort_rows, sort_errs = sort_kernel_rows(np, torch, dev, args.seed,
@@ -1600,6 +1619,22 @@ SORT_META = {
 }
 
 
+# K7b v2's instances whose attributes phase 2 reads: (tile, tiles, key
+# bits, threads a CTA or None for the rule); tile 1024 at 1, 32 and 1024
+# tiles is the path's (cases (g), (e), (d))
+K7B_ATTR_CASES = (
+    (1024, 1024, 12, None), (1024, 32, 17, None), (1024, 1, 12, None),
+    (1024, 1, 12, 128), (1024, 1, 12, 512), (1024, 1, 12, 1024),
+    (1024, 1024, 8, None), (1024, 1, 24, None), (2, 1, 12, None),
+    (128, 1, 12, None), (256, 1, 12, None), (512, 1, 12, None),
+    (256, 1024, 12, None), (8192, 1, 17, None), (8192, 1024, 17, None))
+
+
+def k7b_label(tile, nt, bits, threads):
+    return f"tile {tile}, {nt} tiles, {bits} bits" + (
+        f", {threads} threads" if threads else "")
+
+
 def _flip(torch, words):
     """uint32 words as int32 with the top bit flipped: signed order of the
     result is the unsigned order of the words (for the library sorts)."""
@@ -1648,8 +1683,7 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     n, tile = 1 << 20, 1024
     nt, ib = n // tile, 20
     keys = ints(n, 12)                      # case (a) / (d): 12-bit keys
-    # K6a, K5, K6b (v2, the route): every pass held to its twin, to v1
-    # (kept as the route v2 is timed against) and to a second v2 launch,
+    # K6a, K5, K6b: every pass held to its twin and to a second launch,
     # bit for bit
     def k6_pass(x, *, nt, tile, shift, bits, pack, idx_bits, um=None,
                 **case):
@@ -1660,14 +1694,9 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         plocal, phist = rs.mt_local_plain(x, **kw)
         same("radix_mt_local", local, plocal, pack=pack, **case)
         same("radix_mt_local", hist, phist, what="histogram", **case)
-        local1, hist1 = rs._mt_local(x, v1=True, **kw)
-        same("radix_mt_local", local1, plocal, pack=pack, v1=True, **case)
-        same("radix_mt_local", hist1, phist, what="histogram", v1=True,
-             **case)
         again = rs._mt_local(x, **kw)
-        check(torch.equal(again[0], local) and torch.equal(again[1], hist)
-              and torch.equal(local1, local), f"K6a v2 {case}: two launches "
-              f"on one input differ, or v2 != v1")
+        check(torch.equal(again[0], local) and torch.equal(again[1], hist),
+              f"K6a {case}: two launches on one input differ")
         base = ts.histogram_offsets(hist)
         same("tile_scan_add", base, ts.histogram_offsets_plain(hist),
              what="histogram_offsets", nt=nt, radix=1 << bits)
@@ -1676,12 +1705,8 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         pout = rs.mt_scatter_plain(local, hist, base, tile=tile,
                                    unpack_mask=um)
         same("radix_mt_scatter", out, pout, unpack=um is not None, **case)
-        out1 = rs._mt_scatter(local, hist, base, v1=True, **skw)
-        same("radix_mt_scatter", out1, pout, unpack=um is not None, v1=True,
-             **case)
-        check(torch.equal(rs._mt_scatter(local, hist, base, **skw), out)
-              and torch.equal(out1, out), f"K6b v2 {case}: two launches on "
-              f"one input differ, or v2 != v1")
+        check(torch.equal(rs._mt_scatter(local, hist, base, **skw), out),
+              f"K6b {case}: two launches on one input differ")
         return local, hist, base, out
 
     def k6_sort(k, idx_bits, num_key_bits, **case):
@@ -1747,19 +1772,59 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         odd = ints(n1 + 1, 8)[1:]                      # 4 bytes off 16
         same("tile_scan_add", ts.tile_scan(odd), ts.scan_plain(odd),
              what="tile_scan misaligned", n=n1)
-    # K7b: case (d)'s tile phase, and case (g)'s single tile with unpack
+    # K7b (v2, the route): case (d)'s tile phase, case (e)'s (2^15 17-bit
+    # keys) and case (g)'s single tile with unpack, then the CPU tests'
+    # shapes at 2 tiles (fewer than the SMs: 256-thread CTAs from tile 256
+    # up) and at 132 (K7a's CTAs): every tile 2-8192, 1-24 key bits (24 reach past bit 32 of the
+    # composite at tile 1024), packed and unpacked, ragged n; skewed keys;
+    # each v2 launch == the twin == v1 (`v1=True`, kept as the design v2
+    # is timed against), every CTA width built at tile 1024 too, and two
+    # launches bit-identical
+    def k7b_case(k, n_, t_, bits, unpack=False, **case):
+        kw_ = dict(n=n_, tile=t_, num_key_bits=bits,
+                   idx_bits=max(1, (n_ - 1).bit_length()), unpack=unpack)
+        want = rs.radix_tile_sort_packed_plain(
+            k, n=n_, tile=t_, idx_bits=kw_["idx_bits"], sort_bits=bits,
+            unpack=unpack)
+        case = dict(n=n_, n_pad=k.numel(), tile=t_, num_key_bits=bits,
+                    unpack=unpack, **case)
+        got = rs.radix_tile_sort_packed(k, **kw_)
+        same("radix_tile_sort_packed", got, want, **case)
+        same("radix_tile_sort_packed", rs.radix_tile_sort_packed(
+            k, v1=True, **kw_), want, v1=True, **case)
+        if t_ == 1024:
+            for th in (128, 256, 512, 1024):
+                same("radix_tile_sort_packed", rs.radix_tile_sort_packed(
+                    k, threads=th, **kw_), want, threads=th, **case)
+        check(torch.equal(rs.radix_tile_sort_packed(k, **kw_), got),
+              f"K7b {case}: two launches on the same input differ")
+        return got
+
     kw = dict(n=n, tile=tile, num_key_bits=12, idx_bits=ib)
-    packed = rs.radix_tile_sort_packed(keys, **kw)
-    same("radix_tile_sort_packed", packed, rs.radix_tile_sort_packed_plain(
-        keys, n=n, tile=tile, idx_bits=ib, sort_bits=12), n=n, tile=tile)
+    packed = k7b_case(keys, n, tile, 12, input="case (d)")
+    keys_e = ints(1 << 15, 17)
+    k7b_case(keys_e, 1 << 15, tile, 17, input="case (e)")
     keys_g = torch.cat([keys[:1000], torch.full((24,), 4095,
                                                 dtype=torch.int32,
                                                 device=dev)])
-    same("radix_tile_sort_packed", rs.radix_tile_sort_packed(
-        keys_g, n=1000, tile=tile, num_key_bits=12, idx_bits=10,
-        unpack=True), rs.radix_tile_sort_packed_plain(
-        keys_g, n=1000, tile=tile, idx_bits=10, sort_bits=12, unpack=True),
-        n=1000, tile=tile, unpack=True)
+    k7b_case(keys_g, 1000, tile, 12, unpack=True, input="case (g)")
+    for t_ in (2, 16, 32, 128, 1024, 8192):
+        for nt_ in (2, 132):
+            n_pad = t_ * nt_
+            for bits in (1, 4, 8, 12, 17, 24):
+                k = ints(n_pad, bits)
+                n_ = n_pad - n_pad // 6
+                k[n_:] = (1 << bits) - 1            # pad rows: the max key
+                for unpack in (False, True):
+                    k7b_case(k, n_, t_, bits, unpack)
+    for t_ in (32, 1024):
+        k = ints(2 * t_, 12)
+        for kind, k_ in (("equal", torch.full_like(k, 2048)),
+                         ("sorted", torch.sort(k).values),
+                         ("reversed", torch.sort(k).values.flip(0)),
+                         ("7-valued", k[torch.as_tensor(
+                             rng.randint(0, 7, 2 * t_), device=dev)])):
+            k7b_case(k_.contiguous(), 2 * t_, t_, 12, kind=kind)
     # K7a: case (f)'s tile phase, random u32 with ties (every word twice),
     # then every tile size, bit range and digit width (v2 ranks 8 bits a
     # pass whatever digit_bits says), adversarial inputs, and two launches
@@ -1878,14 +1943,17 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                  shape=shape)
         return r
 
+    def median3(fn):
+        """The median of three readings: one reading of the
+        flush-subtracting harness can come out far off."""
+        return sorted(device_ms(fn, cold=True) for _ in range(3))[1]
+
     def k6_rows():
-        """K6a and K6b: v2 against v1 in turns (v2, v1 three times: each
-        the median of its three, since one reading of the flush-subtracting
-        harness can come out far off), the twin, the library call where
-        one computes the same, and a copy of the kernel's input (what this
-        harness gets from the card's memory for the same bytes in and
-        out), at case (a)'s first and last pass (the first is the row) and
-        case (c)'s."""
+        """K6a and K6b: the kernel (the median of three), the twin, the
+        library call where one computes the same, and a copy of the
+        kernel's input (what this harness gets from the card's memory for
+        the same bytes in and out), at case (a)'s first and last pass (the
+        first is the row) and case (c)'s."""
         out = {"radix_mt_local": {}, "radix_mt_scatter": {}}
         for label, pas in (("2^20 pass 0 (pack)", passes_a[0]),
                            ("2^20 last pass (unpack)", passes_a[-1]),
@@ -1905,26 +1973,21 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             skw = dict(tile=kw["tile"], radix=16, unpack_mask=um)
             fns = {
                 "radix_mt_local": (
-                    lambda v1: rs._mt_local(x, v1=v1, **kw),
+                    lambda: rs._mt_local(x, **kw),
                     lambda: rs.mt_local_plain(x, **kw),
                     lambda: torch.sort(digits, dim=1, stable=True), x,
                     4.0 * (2 * n_ + R_),
                     "per-tile stable sort of the pass digit (digits "
                     "precomputed)"),
                 "radix_mt_scatter": (
-                    lambda v1: rs._mt_scatter(local, hist, base, v1=v1,
-                                              **skw),
+                    lambda: rs._mt_scatter(local, hist, base, **skw),
                     lambda: rs.mt_scatter_plain(local, hist, base,
                                                 tile=kw["tile"],
                                                 unpack_mask=um),
                     None, local, 4.0 * (2 * n_ + 2 * R_), None)}
             for name, (fn, plain, lib, src, nbytes, computes) in fns.items():
-                turns = [device_ms(lambda: fn(v1), cold=True)
-                         for v1 in (False, True) * 3]
                 out[name][label] = dict(
-                    ms=sorted(turns[0::2])[1], v1_ms=sorted(turns[1::2])[1],
-                    turns_ms=turns,
-                    plain_ms=device_ms(plain, cold=True),
+                    ms=median3(fn), plain_ms=device_ms(plain, cold=True),
                     library_ms=None if lib is None
                     else device_ms(lib, cold=True),
                     library_computes=computes,
@@ -1934,6 +1997,47 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         return out
 
     k6 = k6_rows()
+
+    def k7b_row(k, bits, n_):
+        """K7b v2 against v1 in turns (v2, v1 three times: each the median
+        of its three), the twin and the per-row library sort."""
+        kw_ = dict(n=n_, tile=tile, num_key_bits=bits,
+                   idx_bits=max(1, (n_ - 1).bit_length()))
+        turns = [device_ms(lambda: rs.radix_tile_sort_packed(
+            k, v1=v1, **kw_), cold=True) for v1 in (False, True) * 3]
+        width, passes = rs.k7b_digits(bits, tile)
+        return dict(
+            ms=sorted(turns[0::2])[1], v1_ms=sorted(turns[1::2])[1],
+            turns_ms=turns, plain_ms=device_ms(
+                lambda: rs.radix_tile_sort_packed_plain(
+                    k, n=n_, tile=tile, idx_bits=kw_["idx_bits"],
+                    sort_bits=bits), cold=True),
+            library_ms=device_ms(lambda: torch.sort(
+                k.reshape(-1, tile), dim=1, stable=True), cold=True),
+            library_computes="per-tile stable sort of the keys, with "
+            "indices",
+            bound_ms=4.0 * 2 * k.numel() / PEAK_BYTES * 1e3,
+            bound_by="bytes",
+            shape=dict(n=k.numel(), tile=tile, num_key_bits=bits,
+                       passes=passes, digit_bits=width,
+                       v1_passes=-(-bits // 4),
+                       threads=rs.k7b_shape(tile, k.numel() // tile)[1]))
+
+    # K7b's CTA widths (the rule's and the others built at tile 1024) at one
+    # tile (case (g)), 32 (case (e)'s count) and 1024 (case (d)), each the
+    # median of three
+    k7b_shapes = {
+        nt_: {th: median3(lambda: rs.radix_tile_sort_packed(
+            keys[:nt_ * tile], n=nt_ * tile, tile=tile, num_key_bits=12,
+            idx_bits=max(1, (nt_ * tile - 1).bit_length()), threads=th))
+            for th in (128, 256, 512, 1024)}
+        for nt_ in (1, 32, nt)}
+    report["timings"]["radix_tile_sort_packed CTA widths"] = k7b_shapes
+    for nt_, per in k7b_shapes.items():
+        say(f"radix_tile_sort_packed v2 tile {tile}, {nt_} tiles, 12-bit "
+            f"keys, by threads a CTA: " + ", ".join(
+                f"{th} {t:.4f} ms" for th, t in per.items())
+            + f" (the rule: {rs.k7b_shape(tile, nt_)[1]}) [{card}]")
     hist_dm = hist0.t().contiguous().reshape(-1)
     fw, fp = _flip(torch, w).reshape(nt, tile), _flip(torch, packed)
     R = nt * 16
@@ -1944,13 +2048,6 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             lambda: torch.cumsum(hist_dm, 0),
             4.0 * 2 * R, dict(nt=nt, radix=16, what="histogram_offsets"),
             "cumsum of the histogram already laid out digit-major"),
-        "radix_tile_sort_packed": row(
-            lambda: rs.radix_tile_sort_packed(keys, **kw),
-            lambda: rs.radix_tile_sort_packed_plain(
-                keys, n=n, tile=tile, idx_bits=ib, sort_bits=12),
-            lambda: torch.sort(keys.reshape(nt, tile), dim=1, stable=True),
-            4.0 * 2 * n, dict(n=n, tile=tile, num_key_bits=12, passes=3),
-            "per-tile stable sort of the keys, with indices"),
         "radix_tile_sort": row(
             lambda: rs.radix_tile_sort(w, tile=tile),
             lambda: rs.radix_tile_sort_plain(w, tile=tile, total_bits=32,
@@ -1984,6 +2081,10 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     for name, per in k6.items():
         first, *rest = per
         rows[name] = dict(per[first], other_shapes={k: per[k] for k in rest})
+    rows["radix_tile_sort_packed"] = dict(
+        k7b_row(keys, 12, n), cta_widths_ms=k7b_shapes,
+        other_shapes={"2^15 17-bit keys (case (e))": k7b_row(
+            keys_e, 17, 1 << 15)})
     rows["merge_level"] = k8_row(
         packed, tile, None, "sort of each 2-run row (top bit flipped, int32)",
         lambda: torch.sort(fp.reshape(n // (2 * tile), 2 * tile), dim=1))
@@ -2030,15 +2131,14 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         "radix_tile_sort": {f"tile {t7}": rs.kernel_attributes(t7)
                             for t7 in (1, 256, 1024, 8192)},
         "radix_mt_local": {
-            f"{'v1' if v1 else 'v2'} tile {t6}, {b6} bits":
-            rs.mt_local_attributes(t6, b6, v1=v1)
-            for t6, b6, v1 in ((1024, 4, False), (1024, 8, False),
-                               (8192, 8, False), (1024, 4, True))},
+            f"tile {t6}, {b6} bits": rs.mt_local_attributes(t6, b6)
+            for t6, b6 in ((1024, 4), (1024, 8), (8192, 8))},
         "radix_mt_scatter": {
-            f"{'v1' if v1 else 'v2'} tile {t6}, radix {r6}":
-            rs.mt_scatter_attributes(t6, r6, v1=v1)
-            for t6, r6, v1 in ((1024, 16, False), (8192, 256, False),
-                               (1024, 16, True))},
+            f"tile {t6}, radix {r6}": rs.mt_scatter_attributes(t6, r6)
+            for t6, r6 in ((1024, 16), (8192, 256))},
+        "radix_tile_sort_packed": {
+            k7b_label(*c): rs.radix_tile_sort_packed_attributes(*c)
+            for c in K7B_ATTR_CASES},
         "merge_level": {f"v2 block {b_}": ms.merge_level_attributes(b_)
                         for b_ in (256, 512, 1024, 2048, 4096)}}
     for kname, per in attrs.items():
@@ -2047,11 +2147,29 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
                      f"({a['active_clusters']} at once), the rule's "
                      f"{a['rule_cluster']} for this call"
                      if "max_cluster" in a else f", {a['threads']} threads")
+            if "passes" in a:
+                extra += f", {a['passes']} passes of {a['digit_bits']} bits"
             say(f"  {kname} {what}: {a['registers']} registers, "
                 f"{a['spill_bytes']} spill bytes, "
                 f"{a['static_smem'] + a['dynamic_smem']} bytes of shared "
                 f"memory, {a['ctas_per_sm']} CTAs an SM{extra}")
     report["sort_kernel_attributes"] = attrs
+    # K7b: the CPU model runs k7b_shape's and k7b_digits' tables, so they
+    # must be the kernel's; the path's instances (tile 1024 at 1, 32 and
+    # 1024 tiles, the rule's width) within 64 registers and no spills
+    for (t7, nt7, b7, th), a in zip(K7B_ATTR_CASES,
+                                    attrs["radix_tile_sort_packed"].values()):
+        what = k7b_label(t7, nt7, b7, th)
+        want = th or rs.k7b_shape(t7, nt7)[1]
+        check(a["threads"] == want, f"K7b {what}: {a['threads']} threads a "
+              f"CTA, k7b_shape says {want}")
+        check((a["digit_bits"], a["passes"]) == rs.k7b_digits(b7, t7),
+              f"K7b {what}: {a['passes']} passes of {a['digit_bits']} bits,"
+              f" k7b_digits says {rs.k7b_digits(b7, t7)}")
+        if t7 == 1024 and b7 in (12, 17) and th is None:
+            check(a["registers"] <= 64 and a["spill_bytes"] == 0,
+                  f"K7b {what}: {a['registers']} registers, "
+                  f"{a['spill_bytes']} spill bytes (target <= 64, 0)")
     for name, r in rows.items():
         report["timings"][f"{name} {r['shape']}"] = r
         lib = "none" if r["library_ms"] is None else \
@@ -2063,11 +2181,20 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         for what, r in per.items():
             lib = "" if r["library_ms"] is None else \
                 f", library {r['library_ms']:.4f} ms"
-            say(f"{name} v2 {what} (n {r['shape']['n']}): {r['ms']:.4f} ms "
-                f"against v1 {r['v1_ms']:.4f} in turns, plain "
-                f"{r['plain_ms']:.4f} ms{lib}, a copy of its input "
+            say(f"{name} {what} (n {r['shape']['n']}): {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms{lib}, a copy of its input "
                 f"{r['copy_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"(bytes) [{card}]")
+    k7b = rows["radix_tile_sort_packed"]
+    for what, r in [("2^20 12-bit keys (case (d))", k7b),
+                    *k7b["other_shapes"].items()]:
+        say(f"radix_tile_sort_packed v2 {what}, tile {tile}: {r['ms']:.4f} "
+            f"ms ({r['shape']['passes']} passes of "
+            f"{r['shape']['digit_bits']} bits, {r['shape']['threads']} "
+            f"threads) against v1 {r['v1_ms']:.4f} ms "
+            f"({r['shape']['v1_passes']} passes) in turns, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms (bytes) [{card}]")
     for what, r in [("run 1024", rows["merge_level"]), *other.items()]:
         say(f"merge_level v2 {what} (n {r['shape']['n']}, block "
             f"{r['shape']['block']}): {r['ms']:.4f} ms against v1 "
@@ -2293,10 +2420,10 @@ def sort_path(np, torch, dev, seed, card, report):
     # 5 calls, beside the wall time of 5 calls without the profiler
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
-    names = (("packed_tile_sort_kernel", "radix_tile_sort_packed"),
+    names = (("packed_tile_sort", "radix_tile_sort_packed"),
              ("tile_sort_kernel", "radix_tile_sort"),
-             ("mt_local", "radix_mt_local"),        # v1 and v2
-             ("mt_scatter", "radix_mt_scatter"),    # v1 and v2
+             ("mt_local", "radix_mt_local"),
+             ("mt_scatter", "radix_mt_scatter"),
              ("cluster_scan_kernel", "tile_scan_add"),
              ("merge_level", "merge_level"))     # v1 and v2
     breakdown = {}
@@ -2306,8 +2433,8 @@ def sort_path(np, torch, dev, seed, card, report):
             return lambda: ops.stable_argsort(keys, num_key_bits=bits)
         return lambda: ms.argsort(keys, num_key_bits=bits, strategy=strategy)
 
-    profiled = [(res, argsort_call(*inp[:3]))
-                for res, inp in zip(results[:5], inputs[:5])]
+    profiled = [(res, argsort_call(*inp[:3]))          # cases (a)-(g)
+                for res, inp in zip(results[:7], inputs[:7])]
     profiled.append((results[-2], lambda: ms.sort_u32(w)))   # case (f)
     for res, call in profiled:
         call()
@@ -2356,6 +2483,8 @@ def sort_kernel_entries(rows, errs, launches):
             "library_ms": r["library_ms"],
             "library_computes": r["library_computes"], "shape": r["shape"],
             **({"v1_ms": r["v1_ms"]} if "v1_ms" in r else {}),
+            **({"cta_widths_ms": r["cta_widths_ms"]}
+               if "cta_widths_ms" in r else {}),
             **({"copy_ms": r["copy_ms"]} if "copy_ms" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r
                else {})})
@@ -2622,12 +2751,15 @@ def moe_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         library_ms=None, library_computes=None,
         bound_ms=bound(4.0 * 2 * n), bound_by="bytes",
         shape=dict(n=n, idx_bits=20))
+    words32 = sorted_words.view(torch.int32)
     rows["unpack_order"] = dict(
         ms=device_ms(lambda: ms._unpack(sorted_words, idx_mask=mask),
                      cold=True),
         plain_ms=device_ms(lambda: ms.unpack_plain(sorted_words,
                                                    idx_mask=mask), cold=True),
-        library_ms=None, library_computes=None,
+        library_ms=device_ms(lambda: torch.bitwise_and(words32, mask),
+                             cold=True),
+        library_computes="torch.bitwise_and of the words viewed as int32",
         bound_ms=bound(4.0 * 2 * n), bound_by="bytes",
         shape=dict(n=n, idx_bits=20))
     for name in ("bitonic_tile_sort", "pack_keys", "unpack_order"):

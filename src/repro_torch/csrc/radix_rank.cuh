@@ -1,7 +1,9 @@
 // The stable in-tile rank by one digit, shared by the radix sort's kernels
-// (radix_sort.cu: K6a, K7a, K7b) and the MoE dispatch (moe_dispatch.cu: K3).
-// Why it is stable is set out in radix_sort.cu.  Every routine runs on a CTA
-// of THREADS threads.
+// (radix_sort.cu: K7a, K7b; K6a runs a copy of rank_place's sweep) and the
+// MoE dispatch (moe_dispatch.cu: K3).  Why it is stable is set out in
+// radix_sort.cu.  rank_pass (K3's several tiles, K7b v1) runs on a CTA of
+// THREADS threads over a tile in shared memory; rank_place (K7a, K7b) on a
+// CTA of NT threads over a tile held in registers.
 #pragma once
 
 #include "common.cuh"
@@ -109,6 +111,98 @@ __device__ void rank_pass(const unsigned* src, unsigned* dst, int m,
       dst[start + __popc(peers & below)] = w;
     }
     __syncwarp();
+  }
+  __syncthreads();
+}
+
+// One stable pass of a tile held in registers: afterwards buf[0, tile)
+// holds the tile ordered by the digit (key >> sh) & dmask, stably, and the
+// CTA is synchronised.  NT threads, K keys a thread, warp-striped: warp w
+// owns words [w * 32K, (w + 1) * 32K) of the tile and lane l holds word
+// w * 32K + 32 s + l as key[s], so (s, lane) is index order within the
+// warp's chunk; words at tile or above are masked lanes.  The digit width
+// BITS is a template argument, so the ballots and the scan unroll with no
+// branch on it; dmask (< 2^BITS) narrows a last pass.  Shared memory: cnt
+// [NW][2^BITS] counters, wtot [NW]; after the pass cnt[d] (warp 0's row)
+// is digit d's first rank.  Four CTA barriers.
+template <int K, int NT, int BITS>
+__device__ __forceinline__ void rank_place(const unsigned (&key)[K], int sh,
+                                           unsigned dmask, int tile,
+                                           unsigned* buf, int* cnt,
+                                           int* wtot) {
+  constexpr int NW = NT / 32, RADIX = 1 << BITS, E = NW * RADIX;
+  constexpr int PER = RADIX > 32 ? RADIX / 32 : 1;   // scan entries a thread
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int first = warp * 32 * K + lane;
+  int* mine = cnt + warp * RADIX;
+  unsigned dg[K];
+  int rank[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) dg[s] = (key[s] >> sh) & dmask;
+  for (int d = lane; d < RADIX; d += 32) mine[d] = 0;
+  __syncwarp();
+  // 1. one sweep of ballots: each key's offset among the equal digits
+  // before it in the warp's chunk, and the (digit, warp) counts in `mine`.
+  // Every lane reads its digit's count, then the lowest lane of each digit
+  // advances it.  (The form where that lane alone reads the count and
+  // shuffles it to its peers, K7a's before, gave wrong counts in one build
+  // of K6a.)
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    unsigned peers = __ballot_sync(FULL, first + 32 * s < tile);
+#pragma unroll
+    for (int b = 0; b < BITS; ++b) {
+      const unsigned B = __ballot_sync(FULL, (dg[s] >> b) & 1u);
+      peers &= (dg[s] >> b) & 1u ? B : ~B;
+    }
+    rank[s] = (int)peers;
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const bool valid = first + 32 * s < tile;
+    const unsigned peers = (unsigned)rank[s];
+    const int before = valid ? mine[dg[s]] : 0;
+    __syncwarp();
+    if (valid && (peers & below) == 0) mine[dg[s]] = before + __popc(peers);
+    rank[s] = before + __popc(peers & below);
+    __syncwarp();
+  }
+  __syncthreads();
+  // 2. the first rank of every (digit, warp) segment: an exclusive scan of
+  // the counts in digit-major order, entry e = d * NW + w; thread t scans
+  // entries [t * PER, (t + 1) * PER) in registers, the CTA the totals
+  const int e0 = threadIdx.x * PER;
+  int v[PER], sum = 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = e0 + i;
+    v[i] = e < E ? cnt[(e % NW) * RADIX + e / NW] : 0;
+    sum += v[i];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) wtot[warp] = incl;
+  __syncthreads();
+  int run = incl - sum;
+#pragma unroll
+  for (int w = 0; w < NW - 1; ++w)
+    if (w < warp) run += wtot[w];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = e0 + i;
+    if (e < E) cnt[(e % NW) * RADIX + e / NW] = run;
+    run += v[i];
+  }
+  __syncthreads();
+  // 3. every key to its rank
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (first + 32 * s < tile) buf[mine[dg[s]] + rank[s]] = key[s];
   }
   __syncthreads();
 }

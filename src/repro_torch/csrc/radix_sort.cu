@@ -1,7 +1,8 @@
 // K6a, K6b, K7a and K7b: the stable radix sort's kernels for Hopper
-// (sm_90a).  K7b (and K6a's v1) rank on one device routine, a stable
-// in-tile rank by one digit (rank_pass, radix_rank.cuh); K7a and K6a v2
-// rank their keys in registers.
+// (sm_90a).  K7a and K7b rank on one device routine, a stable pass over a
+// tile held in registers at a compile-time digit width (rank_place,
+// radix_rank.cuh), and K6a on its own copy of it; K7b's first design (v1,
+// kept to be timed against) ranks on rank_pass, a tile in shared memory.
 //
 // Replaces, in repro/kernels/radix_sort.py:
 //   K7a radix_tile_sort        (body _radix_sort_kernel): in-tile stable LSD
@@ -34,54 +35,65 @@
 // threads happen to run, so it is not stable.  Both routines give each warp
 // a contiguous chunk of the tile and walk it 32 words at a time in index
 // order.  A match (__match_any_sync in rank_pass, a ballot a digit bit in
-// K7a and K6a v2) gives each lane the lanes with its digit; the popcount
-// of those below it is its rank among equal digits in this step, and the
-// lowest such lane (the leader) advances a per-(digit, warp) counter.  An
-// exclusive scan of the (digit, warp) counts in digit-major order gives
-// each segment's first rank, so the order of ranks is (digit, warp chunk,
-// step, lane), which is (digit, index): stable.
+// rank_place) gives each lane the lanes with its digit; the popcount of
+// those below it is its rank among equal digits in this step, and the
+// lowest such lane advances a per-(digit, warp) counter.  An exclusive
+// scan of the (digit, warp) counts in digit-major order gives each
+// segment's first rank, so the order of ranks is (digit, warp chunk, step,
+// lane), which is (digit, index): stable.
 //
-// rank_pass (K7b, K6a v1, and K3 in moe_dispatch.cu) keeps the tile in two
+// rank_pass (K7b v1, and K3 in moe_dispatch.cu) keeps the tile in two
 // shared buffers and ping-pongs: one sweep counts, the scan, a second sweep
 // ranks and scatters, about five CTA barriers a pass.
 //
-// K7a v2.  v1 ran rank_pass 8 times for 32 bits with 4-bit digits: two
-// match sweeps, about five barriers and a round trip of the tile through
-// shared memory a pass, some 40 barriers and 64 sweeps a warp for a
-// 1024-word tile, 23x its byte bound.  A stable LSD sort by the same bits
-// has one result whatever its digit width, so v2 ranks 8 bits a pass (4
-// passes for 32 bits; a pass wholly at bit 32 or above is the identity and
-// is skipped) whatever digit_bits the caller gives.  Each thread holds its
-// keys in registers, warp-striped, so (step, lane) is index order in the
-// warp's chunk.  One match sweep a pass gives each key both its offset
-// among the equal digits before it in the warp and, through the leaders'
-// counter updates, the (digit, warp) counts; the warp remembers each key's
-// offset in a register.  Each thread then scans its digits' per-warp
+// rank_place.  Each thread holds its keys in registers, warp-striped, so
+// (step, lane) is index order in the warp's chunk.  One ballot sweep a pass
+// gives each key both its offset among the equal digits before it in the
+// warp and the (digit, warp) counts; every thread scans a run of the
 // counts in registers and the CTA scans the threads' totals (two
 // barriers); every key goes to base[digit, warp] + offset in one shared
-// buffer; one barrier; the keys come back to registers for the next pass.
-// Four barriers and one sweep a pass.  Up to tile 1024 a CTA has 128
+// buffer; one barrier.  Four barriers and one sweep a pass.  The digit
+// width is a template argument: the ballots and the scan unroll with no
+// branch on it, which did more for K6a than any grid change.
+//
+// K7a v2.  v1 ran rank_pass 8 times for 32 bits with 4-bit digits, 23x its
+// byte bound at tile 1024.  A stable LSD sort by the same bits has one
+// result whatever its digit width, so v2 ranks 8 bits a pass (4 passes for
+// 32 bits; a pass wholly at bit 32 or above is the identity and is
+// skipped) whatever digit_bits the caller gives, the keys back to
+// registers from the buffer between passes.  Up to tile 1024 a CTA has 128
 // threads (8 KB of shared memory at tile 1024: 4 KB of keys, 4 KB of
-// counters, against v1's 16 KB), so 9 CTAs fit an SM and 1024 tiles run
-// in one wave; larger tiles take 256.
+// counters; at most 64 registers a thread), so 8 CTAs fit an SM and 1024
+// tiles run in one wave; larger tiles take 256.
+//
+// K7b v2.  v1 runs rank_pass once a digit_bits-wide digit (3 passes of 4
+// bits for 12-bit keys), 12x its byte bound at 2^20 keys.  v2 is K7a v2
+// with the composite key << log2(tile) | pos packed in registers after
+// the load, and ceil(bits / 8) passes of one width w <= 8 fixed at compile
+// time (bits: the key bits below bit 32 of the composite), the last pass
+// masked to what is left: w = ceil(bits / passes) rounded up to an even
+// width, so 12-bit keys take 2 passes of 6 bits and 17-bit keys 3 of 6.
+// The pack or unpack, with the sentinel or idx_mask for slots at n or
+// above, is applied to 16-byte loads of the sorted buffer on their way
+// out.  The CTA shape follows the tile count (k7b_threads): with at least
+// one tile an SM, K7a's; below that an SM runs one CTA, whose time is its
+// chain of sweeps and barriers, and 256 threads (4 keys a thread at tile
+// 1024) halve each warp's sweep.  Timed at tile 1024 (chip_smoke.py), 256
+// threads beat 128, 512 and 1024 at 1 and 32 tiles, 1024 the slowest
+// (wider CTAs pay for their barriers and their longer scan of the warps'
+// totals), and 128 threads won at 1024 tiles.
 //
 // K6a v2.  v1 ran rank_pass on a 256-thread CTA with two word buffers
-// (16.5 KB at tile 1024): the tile loaded and stored 4 bytes at a time
-// through a round trip in shared memory, two match sweeps, six barriers,
-// a 256-thread scan of 8 x 16 counts and a second loop to sum `hist`.  v2
-// is one pass of K7a v2 at the pass digit (bits <= 8: one ballot a bit):
-// the keys in registers, warp-striped, packed there after the load; one
-// sweep; the digit-major scan in registers plus one scan of the threads'
-// totals, whose digit sums are the `hist` row; one scatter into a single
-// shared buffer; 16-byte stores out.  Four barriers.  128 threads up to
-// tile 1024 (4.3 KB of shared memory), 256 above.  The digit width is a
-// template argument, so the ballots and the scan unroll with no branch on
-// it; with the width at run time the sweep cost far more.  Timed against
-// one CTA a tile and dropped: a persistent grid of one wave whose CTAs
-// stream their next tile in while they rank this one, into a second stage
-// by a bulk copy (cp.async.bulk on an mbarrier) or into registers; both
-// lost at 2^20 and 2^24 words.  A rank by counting (a column of counters a
-// thread) lost to the fixed-width ballots too.
+// (16.5 KB at tile 1024): the tile loaded and stored 4 bytes at a time, two
+// match sweeps, six barriers.  v2 is one pass of rank_place's sweep and
+// scan at the pass digit (bits <= 8): the keys packed in registers after
+// the load; the digit sums of the scan are the histogram row; 16-byte
+// stores.  128 threads up to tile 1024 (4.3 KB of shared memory), 256
+// above.  Timed against one CTA a tile and dropped: a persistent grid
+// of one wave whose CTAs stream their next tile in while they rank this
+// one, into a second stage by a bulk copy (cp.async.bulk on an mbarrier)
+// or into registers; both lost at 2^20 and 2^24 words.  A rank by
+// counting (a column of counters a thread) lost to the ballots too.
 //
 // K6b: the TPU design does not carry over.  The reference revisits the
 // whole output across its sequential grid steps, copying masked windows by
@@ -110,10 +122,10 @@ namespace {
 constexpr int MAX_TILE = 1 << 13;
 constexpr int MAX_RADIX = 256;
 constexpr unsigned SENTINEL = 0xffffffffu;
-constexpr int RADIX8 = 256;              // K7a's digits are 8 bits wide
+constexpr int NUM_SMS = 132;             // H100 SXM
 
-// dynamic shared memory of K6a and K7b: two word buffers of the tile,
-// the (digit, warp) counts and the scan scratch
+// dynamic shared memory of K7b v1: two word buffers of the tile, the
+// (digit, warp) counts and the scan scratch
 size_t tile_smem(int tile) {
   return sizeof(unsigned) * (2 * (size_t)tile + WARPS * MAX_RADIX + WARPS + 1);
 }
@@ -122,10 +134,77 @@ size_t tile_smem(int tile) {
 constexpr int K7A_SMALL_THREADS = 128;
 constexpr int K7A_SMALL_TILE = 1024;
 
-// K7a's dynamic shared memory: one word buffer of the tile and the
-// (warp, digit) counters
-size_t k7a_smem(int tile, int threads) {
-  return sizeof(unsigned) * ((size_t)tile + threads / 32 * RADIX8);
+int k7a_threads(int tile) {
+  return tile <= K7A_SMALL_TILE ? K7A_SMALL_THREADS : THREADS;
+}
+
+// K7b v2's CTA for nt tiles: K7a's with at least one tile an SM, else 256
+// threads from tile 256 up
+int k7b_threads(int tile, int nt) {
+  if (nt >= NUM_SMS || tile < THREADS) return k7a_threads(tile);
+  return THREADS;
+}
+
+// CTAs an SM K7a and K7b are built for: 8 at 128 threads (at most 64
+// registers a thread), so 1024 tiles of up to 1024 keys run in one wave on
+// 132 SMs; wider CTAs take the registers the compiler gives them.  Left to
+// itself the compiler gave K7a 80 and K7b 69 registers at tile 1024; timed
+// in turns, the cap made K7a faster and K7b no slower.
+constexpr int rank_min_ctas(int threads) { return threads == 128 ? 8 : 1; }
+
+// dynamic shared memory of a rank_place kernel: one word buffer of the
+// tile and the (warp, digit) counters
+size_t rank_smem(int tile, int threads, int radix) {
+  return sizeof(unsigned) * ((size_t)tile + threads / 32 * radix);
+}
+
+// K7a v2: every tile sorted by bits [key_shift, key_shift + total_bits),
+// its keys in registers, 8-bit digits (see the notes above).  NT threads, K
+// keys a thread, warp-striped as rank_place takes them.
+template <int K, int NT>
+__global__ void __launch_bounds__(NT, rank_min_ctas(NT))
+tile_sort_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ out,
+                 int tile, int key_shift, int total_bits) {
+  extern __shared__ __align__(16) unsigned smem[];
+  unsigned* buf = smem;                                  // [tile]
+  int* cnt = reinterpret_cast<int*>(smem + tile);        // [NW][256]
+  __shared__ int wtot[NT / 32];
+  const int first = (threadIdx.x >> 5) * 32 * K + (threadIdx.x & 31);
+  const size_t off = (size_t)blockIdx.x * tile;
+  unsigned key[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int i = first + 32 * s;
+    key[s] = i < tile ? x[off + i] : 0u;
+  }
+  bool placed = false;                   // the tile lies in buf, in order
+  for (int lo = 0; lo < total_bits && key_shift + lo < 32; lo += 8) {
+    // a pass by bits at 32 or above is the identity: those bits are 0
+    if (placed) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const int i = first + 32 * s;
+        if (i < tile) key[s] = buf[i];
+      }
+    }
+    rank_place<K, NT, 8>(key, key_shift + lo,
+                         (1u << min(8, total_bits - lo)) - 1u, tile, buf,
+                         cnt, wtot);
+    placed = true;
+  }
+  if (!placed) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int i = first + 32 * s;
+      if (i < tile) out[off + i] = key[s];
+    }
+  } else if (tile >= 4) {
+    uint4* o4 = reinterpret_cast<uint4*>(out + off);
+    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+    for (int i = threadIdx.x; i < tile / 4; i += NT) o4[i] = b4[i];
+  } else {
+    for (int i = threadIdx.x; i < tile; i += NT) out[off + i] = buf[i];
+  }
 }
 
 struct Smem {
@@ -144,142 +223,8 @@ __device__ __forceinline__ Smem carve(unsigned* smem, int tile) {
   return s;
 }
 
-// The lanes of the warp whose 8-bit digit equals this lane's, among the
-// valid lanes (an invalid lane gets itself alone): one ballot a bit.
-// __match_any_sync took longer the more distinct values a warp held (about
-// 30 for random 8-bit digits) and lost to the ballots there; eight
-// ballots cost the same whatever the digits.
-__device__ __forceinline__ unsigned match8(unsigned digit, bool valid) {
-  unsigned peers = __ballot_sync(FULL, valid);
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const bool bit = (digit >> b) & 1u;
-    const unsigned same = __ballot_sync(FULL, bit);
-    peers &= bit ? same : ~same;
-  }
-  return valid ? peers : 1u << (threadIdx.x & 31);
-}
-
-// K7a v2: every tile sorted by bits [key_shift, key_shift + total_bits),
-// its keys in registers, 8-bit digits (see the notes above).  NT threads, K
-// keys a thread, warp-striped: warp w owns words [w * 32K, (w + 1) * 32K)
-// of the tile and lane l holds word w * 32K + 32 s + l as key[s], so (s,
-// lane) runs in index order within the warp's chunk.  Words past the tile
-// (tiles below NT words) are masked lanes.
-template <int K, int NT>
-__global__ void __launch_bounds__(NT)
-tile_sort_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ out,
-                 int tile, int key_shift, int total_bits) {
-  constexpr int NW = NT / 32, DPT = RADIX8 / NT;   // warps, digits a thread
-  extern __shared__ unsigned smem[];
-  unsigned* buf = smem;                                  // [tile]
-  int* cnt = reinterpret_cast<int*>(smem + tile);        // [NW][RADIX8]
-  __shared__ int wtot[NW];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  const size_t off = (size_t)blockIdx.x * tile;
-  const int first = warp * 32 * K + lane;                // key[s]: first + 32 s
-  int* mine = cnt + warp * RADIX8;
-  unsigned key[K];
-  int rank[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    const int i = first + 32 * s;
-    key[s] = i < tile ? x[off + i] : 0u;
-  }
-  bool placed = false;                   // the tile lies in buf, in order
-  for (int lo = 0; lo < total_bits && key_shift + lo < 32; lo += 8) {
-    // a pass by bits at 32 or above is the identity: those bits are 0
-    const int shift = key_shift + lo;
-    const unsigned mask = (1u << min(8, total_bits - lo)) - 1u;
-    if (placed) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        const int i = first + 32 * s;
-        if (i < tile) key[s] = buf[i];
-      }
-    }
-    for (int dd = lane; dd < RADIX8; dd += 32) mine[dd] = 0;
-    __syncwarp();
-    // 1. one match sweep: each key's offset among the equal digits before
-    // it in the warp's chunk, and the (digit, warp) counts in `mine`
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const bool valid = first + 32 * s < tile;
-      rank[s] = (int)match8(shr(key[s], shift) & mask, valid);
-    }
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const bool valid = first + 32 * s < tile;
-      const unsigned dg = shr(key[s], shift) & mask;
-      const unsigned peers = (unsigned)rank[s];
-      const int leader = __ffs(peers) - 1;
-      int before = 0;
-      if (valid && lane == leader) {
-        before = mine[dg];
-        mine[dg] = before + __popc(peers);
-      }
-      before = __shfl_sync(FULL, before, leader);
-      rank[s] = before + __popc(peers & below);
-      __syncwarp();
-    }
-    __syncthreads();
-    // 2. the first rank of every (digit, warp) segment, digit-major:
-    // thread t scans the NW counts of its DPT digits in registers, the CTA
-    // scans the threads' totals
-    const int d0 = threadIdx.x * DPT;
-    int v[DPT][NW], sum = 0;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd)
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        v[dd][w] = cnt[w * RADIX8 + d0 + dd];
-        sum += v[dd][w];
-      }
-    int incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (lane == 31) wtot[warp] = incl;
-    __syncthreads();
-    int run = incl - sum;
-    for (int w = 0; w < warp; ++w) run += wtot[w];
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd)
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        cnt[w * RADIX8 + d0 + dd] = run;
-        run += v[dd][w];
-      }
-    __syncthreads();
-    // 3. place every key at its rank
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      if (first + 32 * s < tile)
-        buf[mine[shr(key[s], shift) & mask] + rank[s]] = key[s];
-    }
-    __syncthreads();
-    placed = true;
-  }
-  if (!placed) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const int i = first + 32 * s;
-      if (i < tile) out[off + i] = key[s];
-    }
-  } else if (tile >= 4) {
-    uint4* o4 = reinterpret_cast<uint4*>(out + off);
-    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
-    for (int i = threadIdx.x; i < tile / 4; i += NT) o4[i] = b4[i];
-  } else {
-    for (int i = threadIdx.x; i < tile; i += NT) out[off + i] = buf[i];
-  }
-}
-
-// K7b: pack, sort by the key digits above log2(tile), emit packed words or
-// (unpack) the int32 order; slots past n become the sentinel / idx_mask
+// K7b v1: pack, sort by the key digits above log2(tile), emit packed words
+// or (unpack) the int32 order; slots past n become the sentinel / idx_mask
 __global__ void __launch_bounds__(THREADS)
 packed_tile_sort_kernel(const unsigned* __restrict__ keys,
                         unsigned* __restrict__ out, int tile, int lb, int n,
@@ -310,68 +255,83 @@ packed_tile_sort_kernel(const unsigned* __restrict__ keys,
   }
 }
 
-// K6a: one digit pass, tile-local half
-__global__ void __launch_bounds__(THREADS)
-mt_local_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ local,
-                int* __restrict__ hist, int tile, int shift, int bits,
-                int pack, int idx_bits) {
-  extern __shared__ unsigned smem[];
-  Smem s = carve(smem, tile);
-  const size_t off = (size_t)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += THREADS) {
-    const unsigned w = x[off + i];
-    s.a[i] = pack ? shl(w, idx_bits) | (unsigned)(off + i) : w;
+// K7b's output word for the sorted composite c of the tile at `off`
+struct PackedOut {
+  unsigned off, pos_mask, n, idx_mask;
+  int lb, idx_bits, unpack;
+  __device__ __forceinline__ unsigned operator()(unsigned c) const {
+    const unsigned gidx = off + (c & pos_mask);
+    const bool real = gidx < n;
+    return unpack ? (real ? gidx : idx_mask)
+                  : (real ? shl(c >> lb, idx_bits) | gidx : SENTINEL);
   }
-  __syncthreads();
-  rank_pass(s.a, s.b, tile, shift, bits, s.cnt, s.ws,
-            hist + (size_t)blockIdx.x * (1 << bits));
-  for (int i = threadIdx.x; i < tile; i += THREADS) local[off + i] = s.b[i];
-}
+};
 
-// K6b: one digit pass, global half: segment (t, d) of the locally sorted
-// tile goes to out[base[t, d], base[t, d] + hist[t, d])
-__global__ void __launch_bounds__(THREADS)
-mt_scatter_kernel(const unsigned* __restrict__ local,
-                  const int* __restrict__ hist, const int* __restrict__ base,
-                  unsigned* __restrict__ out, int tile, int radix,
-                  unsigned unpack_mask, int unpack) {
-  __shared__ int lstart[MAX_RADIX];
-  __shared__ int gbase[MAX_RADIX];
-  __shared__ int ws[WARPS + 1];
-  const size_t row = (size_t)blockIdx.x * radix;
-  for (int d = threadIdx.x; d < radix; d += THREADS) {
-    lstart[d] = hist[row + d];
-    gbase[d] = base[row + d];
-  }
-  __syncthreads();
-  block_exclusive_scan(lstart, radix, ws);
+// K7b v2: the composite key << lb | pos sorted by the key bits below bit
+// 32, passes of BITS bits (the last masked), keys in registers (see the
+// notes above); NT threads, K keys a thread, warp-striped
+template <int K, int NT, int BITS>
+__global__ void __launch_bounds__(NT, rank_min_ctas(NT))
+packed_tile_sort_v2_kernel(const unsigned* __restrict__ keys,
+                           unsigned* __restrict__ out, int tile, int lb,
+                           int n, int idx_bits, int sort_bits, int unpack) {
+  extern __shared__ __align__(16) unsigned smem[];
+  unsigned* buf = smem;                                  // [tile]
+  int* cnt = reinterpret_cast<int*>(smem + tile);        // [NW][2^BITS]
+  __shared__ int wtot[NT / 32];
+  const int first = (threadIdx.x >> 5) * 32 * K + (threadIdx.x & 31);
   const size_t off = (size_t)blockIdx.x * tile;
-  for (int j = threadIdx.x; j < tile; j += THREADS) {
-    // the segment holding j: the last digit whose local start is <= j
-    // (an empty segment shares its start with the next one)
-    int lo = 0, hi = radix - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (lstart[mid] <= j) lo = mid; else hi = mid - 1;
+  unsigned key[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int i = first + 32 * s;
+    key[s] = i < tile ? keys[off + i] << lb | (unsigned)i : 0u;
+  }
+  // the composite's bits at 32 or above are 0: no pass ranks them
+  const int bits = min(sort_bits, 32 - lb);
+  for (int lo = 0; lo < bits; lo += BITS) {
+    if (lo > 0) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const int i = first + 32 * s;
+        if (i < tile) key[s] = buf[i];
+      }
     }
-    const unsigned w = local[off + j];
-    out[(size_t)(gbase[lo] + (j - lstart[lo]))] = unpack ? (w & unpack_mask)
-                                                         : w;
+    rank_place<K, NT, BITS>(key, lb + lo, (1u << min(BITS, bits - lo)) - 1u,
+                            tile, buf, cnt, wtot);
   }
-}
-
-// K6a v2's dynamic shared memory: the scatter buffer and the (warp,
-// digit) counters
-size_t k6a_smem(int tile, int threads, int radix) {
-  return sizeof(unsigned) * ((size_t)tile + threads / 32 * radix);
+  if (bits <= 0) {                       // no key bits: the tile's order
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int i = first + 32 * s;
+      if (i < tile) buf[i] = key[s];
+    }
+    __syncthreads();
+  }
+  const PackedOut emit{(unsigned)off, (unsigned)tile - 1u, (unsigned)n,
+                       idx_bits >= 32 ? FULL : (1u << idx_bits) - 1u, lb,
+                       idx_bits, unpack};
+  if (tile >= 4) {
+    uint4* o4 = reinterpret_cast<uint4*>(out + off);
+    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+    for (int i = threadIdx.x; i < tile / 4; i += NT) {
+      const uint4 c = b4[i];
+      o4[i] = make_uint4(emit(c.x), emit(c.y), emit(c.z), emit(c.w));
+    }
+  } else {
+    for (int i = threadIdx.x; i < tile; i += NT) out[off + i] = emit(buf[i]);
+  }
 }
 
 // K6a v2: one digit pass, tile-local half, one CTA a tile, the keys in
 // registers (see the notes above).  NT threads, K keys a thread,
-// warp-striped as K7a's: warp w owns words [w * 32K, (w + 1) * 32K) of the
-// tile, lane l holds word w * 32K + 32 s + l as key[s].  The digit width
-// BITS is a template argument: the ballot loop and the scan then unroll
-// with no branch on the width, which took a large share of the sweep.
+// warp-striped as rank_place takes them: warp w owns words [w * 32K,
+// (w + 1) * 32K) of the tile, lane l holds word w * 32K + 32 s + l as
+// key[s].  The digit width BITS is a template argument.  The sweep and the
+// scan are rank_place's (radix_rank.cuh) written out, with the histogram
+// row taken from the digit-major scan: K6a on rank_place itself, timed in
+// turns against this copy, ran faster at 2^20 keys and slower at 2^24,
+// with either scan form, and slower still under a register cap.
 template <int K, int NT, int BITS>
 __global__ void __launch_bounds__(NT)
 mt_local_v2_kernel(const unsigned* __restrict__ x,
@@ -582,37 +542,40 @@ int log2_int(int v) {
   return l;
 }
 
-template <int K, int NT>
-int launch_tile_sort(const void* x, void* out, int nt, int tile,
-                     int key_shift, int total_bits, cudaStream_t st) {
-  const size_t smem = k7a_smem(tile, NT);
-  const cudaError_t err = allow_smem(tile_sort_kernel<K, NT>, smem);
+// A rank_place kernel's attributes (attrs != nullptr: out[0..4] as
+// kernel_attrs, out[5] threads a CTA), or cudaSuccess when it may launch
+// with `smem` dynamic shared bytes; -1 asks the caller to launch
+template <typename Kern>
+int attrs_or_allow(Kern kernel, int threads, size_t smem, int* attrs) {
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  tile_sort_kernel<K, NT><<<nt, NT, smem, st>>>(
-      static_cast<const unsigned*>(x), static_cast<unsigned*>(out), tile,
-      key_shift, total_bits);
-  return (int)cudaGetLastError();
-}
-
-template <int K, int NT>
-cudaError_t tile_sort_attrs(int tile, int* out) {
-  const size_t smem = k7a_smem(tile, NT);
-  const cudaError_t err = allow_smem(tile_sort_kernel<K, NT>, smem);
-  return err != cudaSuccess
-             ? err
-             : kernel_attrs(tile_sort_kernel<K, NT>, NT, smem, out);
+  if (attrs == nullptr) return -1;
+  attrs[5] = threads;
+  return (int)kernel_attrs(kernel, threads, smem, attrs);
 }
 
 // K7a's instance for a tile: NT threads, K = tile / NT keys a thread (at
 // least 1); attrs != nullptr asks for its attributes instead of a launch
+template <int K, int NT>
+int tile_sort_launch(const void* x, void* out, int nt, int tile,
+                     int key_shift, int total_bits, cudaStream_t st,
+                     int* attrs) {
+  auto kernel = tile_sort_kernel<K, NT>;
+  const size_t smem = rank_smem(tile, NT, 256);
+  const int done = attrs_or_allow(kernel, NT, smem, attrs);
+  if (done >= 0) return done;
+  kernel<<<nt, NT, smem, st>>>(static_cast<const unsigned*>(x),
+                               static_cast<unsigned*>(out), tile, key_shift,
+                               total_bits);
+  return (int)cudaGetLastError();
+}
+
 int tile_sort_dispatch(const void* x, void* out, int nt, int tile,
                        int key_shift, int total_bits, cudaStream_t st,
                        int* attrs) {
 #define K7A_CASE(K, NT)                                                    \
-  return attrs != nullptr                                                  \
-             ? (int)tile_sort_attrs<K, NT>(tile, attrs)                    \
-             : launch_tile_sort<K, NT>(x, out, nt, tile, key_shift,        \
-                                       total_bits, st)
+  return tile_sort_launch<K, NT>(x, out, nt, tile, key_shift, total_bits, \
+                                 st, attrs)
   if (tile <= K7A_SMALL_TILE) {
     constexpr int NT = K7A_SMALL_THREADS;
     switch (std::max(1, tile / NT)) {
@@ -630,6 +593,80 @@ int tile_sort_dispatch(const void* x, void* out, int nt, int tile,
 #undef K7A_CASE
 }
 
+// K7b v2's digits for `sort_bits` key bits at bit lb of the composite:
+// the width (ceil(bits / 8) passes of one width, rounded up to an even
+// one) and the pass count, bits = the key bits below bit 32
+void k7b_digits(int sort_bits, int lb, int* width, int* passes) {
+  const int bits = std::min(sort_bits, 32 - lb);
+  if (bits <= 0) {
+    *width = 2;
+    *passes = 0;
+    return;
+  }
+  const int p = (bits + 7) / 8;
+  *width = ((bits + p - 1) / p + 1) & ~1;
+  *passes = (bits + *width - 1) / *width;
+}
+
+struct K7bArgs {
+  const void* keys;
+  void* out;
+  int nt, tile, n, idx_bits, sort_bits, unpack;
+  cudaStream_t st;
+};
+
+template <int K, int NT, int BITS>
+int k7b_launch(const K7bArgs& a, int* attrs) {
+  auto kernel = packed_tile_sort_v2_kernel<K, NT, BITS>;
+  const size_t smem = rank_smem(a.tile, NT, 1 << BITS);
+  const int done = attrs_or_allow(kernel, NT, smem, attrs);
+  if (done >= 0) return done;
+  kernel<<<a.nt, NT, smem, a.st>>>(
+      static_cast<const unsigned*>(a.keys), static_cast<unsigned*>(a.out),
+      a.tile, log2_int(a.tile), a.n, a.idx_bits, a.sort_bits, a.unpack);
+  return (int)cudaGetLastError();
+}
+
+template <int K, int NT>
+int k7b_widths(const K7bArgs& a, int width, int* attrs) {
+  switch (width) {
+    case 2: return k7b_launch<K, NT, 2>(a, attrs);
+    case 4: return k7b_launch<K, NT, 4>(a, attrs);
+    case 6: return k7b_launch<K, NT, 6>(a, attrs);
+    default: return k7b_launch<K, NT, 8>(a, attrs);
+  }
+}
+
+// K7b v2's instance: `threads` a CTA (0: k7b_threads' rule), K = tile /
+// threads keys a thread (at least 1).  The shapes built: the rule's at
+// every tile, and 512 and 1024 threads at tile 1024 (timed beside it)
+int k7b_dispatch(const K7bArgs& a, int threads, int* attrs) {
+  const int nt_ = threads > 0 ? threads : k7b_threads(a.tile, a.nt);
+  int width, passes;
+  k7b_digits(a.sort_bits, log2_int(a.tile), &width, &passes);
+  if (attrs != nullptr) {
+    attrs[6] = width;
+    attrs[7] = passes;
+  }
+  const int k = std::max(1, a.tile / nt_);
+#define K7B_CASE(K, NT) \
+  if (nt_ == NT && k == K) return k7b_widths<K, NT>(a, width, attrs)
+  K7B_CASE(1, 128);
+  K7B_CASE(2, 128);
+  K7B_CASE(4, 128);
+  K7B_CASE(8, 128);
+  K7B_CASE(8, 256);
+  K7B_CASE(16, 256);
+  K7B_CASE(32, 256);
+  K7B_CASE(1, 256);
+  K7B_CASE(2, 256);
+  K7B_CASE(4, 256);
+  K7B_CASE(2, 512);
+  K7B_CASE(1, 1024);
+#undef K7B_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 // K6a v2 launched, or (attrs != nullptr) its attributes: out[0..4] as
 // kernel_attrs, out[5] threads a CTA
 template <int K, int NT, int BITS>
@@ -637,13 +674,9 @@ int mt_local_v2_launch(const void* x, void* local, void* hist, int nt,
                        int tile, int shift, int pack, int idx_bits,
                        cudaStream_t st, int* attrs) {
   auto kernel = mt_local_v2_kernel<K, NT, BITS>;
-  const size_t smem = k6a_smem(tile, NT, 1 << BITS);
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (attrs != nullptr) {
-    attrs[5] = NT;
-    return (int)kernel_attrs(kernel, NT, smem, attrs);
-  }
+  const size_t smem = rank_smem(tile, NT, 1 << BITS);
+  const int done = attrs_or_allow(kernel, NT, smem, attrs);
+  if (done >= 0) return done;
   kernel<<<nt, NT, smem, st>>>(
       static_cast<const unsigned*>(x), static_cast<unsigned*>(local),
       static_cast<int*>(hist), tile, shift, pack, idx_bits);
@@ -676,9 +709,12 @@ int mt_local_v2_tiles(const void* x, void* local, void* hist, int nt,
 #undef K6A_CASE
 }
 
-int mt_local_v2_dispatch(const void* x, void* local, void* hist, int nt,
-                         int tile, int shift, int bits, int pack,
-                         int idx_bits, cudaStream_t st, int* attrs) {
+int mt_local_entry(const void* x, void* local, void* hist, int nt, int tile,
+                   int shift, int bits, int pack, int idx_bits,
+                   cudaStream_t st, int* attrs) {
+  if (nt < 1 || !pow2_tile(tile) || shift < 0 || bits < 1 || bits > 8 ||
+      idx_bits < 0)
+    return (int)cudaErrorInvalidValue;
 #define K6A_BITS(B)                                                          \
   return mt_local_v2_tiles<B>(x, local, hist, nt, tile, shift, pack,         \
                               idx_bits, st, attrs)
@@ -715,10 +751,13 @@ int mt_scatter_v2_launch(const void* local, const void* hist,
 
 // K6b's instance for a tile of at most MAX_TILE words: 256 threads, W =
 // ceil(tile / 256) words a thread, at least 1
-int mt_scatter_v2_dispatch(const void* local, const void* hist,
-                           const void* base, void* out, int nt, int tile,
-                           int radix, unsigned unpack_mask, int unpack,
-                           cudaStream_t st, int* attrs) {
+int mt_scatter_entry(const void* local, const void* hist, const void* base,
+                     void* out, int nt, int tile, int radix,
+                     unsigned unpack_mask, int unpack, cudaStream_t st,
+                     int* attrs) {
+  if (nt < 1 || tile < 1 || tile > MAX_TILE || radix < 2 ||
+      radix > MAX_RADIX || (radix & (radix - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
 #define K6B_CASE(W)                                                          \
   return mt_scatter_v2_launch<W>(local, hist, base, out, nt, tile, radix,    \
                                  unpack_mask, unpack, st, attrs)
@@ -732,52 +771,6 @@ int mt_scatter_v2_dispatch(const void* local, const void* hist,
       K6B_CASE(32);
   }
 #undef K6B_CASE
-}
-
-// v2 = 0: v1, mt_local_kernel on rank_pass; 1: v2.  attrs != nullptr
-// asks for the attributes (out[0..5]: kernel_attrs, threads a CTA).
-int mt_local_entry(const void* x, void* local, void* hist, int nt, int tile,
-                   int shift, int bits, int pack, int idx_bits, int v2,
-                   cudaStream_t st, int* attrs) {
-  if (nt < 1 || !pow2_tile(tile) || shift < 0 || bits < 1 || bits > 8 ||
-      idx_bits < 0)
-    return (int)cudaErrorInvalidValue;
-  if (v2)
-    return mt_local_v2_dispatch(x, local, hist, nt, tile, shift, bits, pack,
-                                idx_bits, st, attrs);
-  const size_t smem = tile_smem(tile);
-  const cudaError_t err = allow_smem(mt_local_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (attrs != nullptr) {
-    attrs[5] = THREADS;
-    return (int)kernel_attrs(mt_local_kernel, THREADS, smem, attrs);
-  }
-  mt_local_kernel<<<nt, THREADS, smem, st>>>(
-      static_cast<const unsigned*>(x), static_cast<unsigned*>(local),
-      static_cast<int*>(hist), tile, shift, bits, pack, idx_bits);
-  return (int)cudaGetLastError();
-}
-
-// v2 = 0: v1, mt_scatter_kernel; 1: v2 (tile <= MAX_TILE)
-int mt_scatter_entry(const void* local, const void* hist, const void* base,
-                     void* out, int nt, int tile, int radix,
-                     unsigned unpack_mask, int unpack, int v2,
-                     cudaStream_t st, int* attrs) {
-  if (nt < 1 || tile < 1 || radix < 2 || radix > MAX_RADIX ||
-      (radix & (radix - 1)) != 0 || (v2 && tile > MAX_TILE))
-    return (int)cudaErrorInvalidValue;
-  if (v2)
-    return mt_scatter_v2_dispatch(local, hist, base, out, nt, tile, radix,
-                                  unpack_mask, unpack, st, attrs);
-  if (attrs != nullptr) {
-    attrs[5] = THREADS;
-    return (int)kernel_attrs(mt_scatter_kernel, THREADS, 0, attrs);
-  }
-  mt_scatter_kernel<<<nt, THREADS, 0, st>>>(
-      static_cast<const unsigned*>(local), static_cast<const int*>(hist),
-      static_cast<const int*>(base), static_cast<unsigned*>(out), tile, radix,
-      unpack_mask, unpack);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -801,56 +794,74 @@ extern "C" int radix_tile_sort(const void* x, void* out, int nt, int tile,
 // threads a CTA.
 extern "C" int radix_tile_sort_attrs(int tile, int* out) {
   if (!pow2_tile(tile)) return (int)cudaErrorInvalidValue;
-  out[5] = tile <= K7A_SMALL_TILE ? K7A_SMALL_THREADS : THREADS;
   return tile_sort_dispatch(nullptr, nullptr, 0, tile, 0, 0, nullptr, out);
 }
 
+// v2 = 1: K7b v2 with `threads` a CTA (0: the rule); 0: v1 (digit_bits
+// wide passes on rank_pass, 256 threads; `threads` unused).  v2 ranks
+// ceil(bits / 8) passes whatever digit_bits says (see the notes above).
 extern "C" int radix_tile_sort_packed(const void* keys, void* out, int nt,
                                       int tile, int n, int idx_bits,
                                       int sort_bits, int digit_bits,
-                                      int unpack, void* stream) {
+                                      int unpack, int v2, int threads,
+                                      void* stream) {
   if (nt < 1 || !pow2_tile(tile) || n < 0 || idx_bits < 0 || sort_bits < 0 ||
-      digit_bits < 1 || digit_bits > 8)
+      digit_bits < 1 || digit_bits > 8 || threads < 0)
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (v2)
+    return k7b_dispatch({keys, out, nt, tile, n, idx_bits, sort_bits, unpack,
+                         st}, threads, nullptr);
   const size_t smem = tile_smem(tile);
-  cudaError_t err = allow_smem(packed_tile_sort_kernel, smem);
+  const cudaError_t err = allow_smem(packed_tile_sort_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  packed_tile_sort_kernel<<<nt, THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  packed_tile_sort_kernel<<<nt, THREADS, smem, st>>>(
       static_cast<const unsigned*>(keys), static_cast<unsigned*>(out), tile,
       log2_int(tile), n, idx_bits, sort_bits, digit_bits, unpack);
   return (int)cudaGetLastError();
 }
 
-extern "C" int radix_mt_local(const void* x, void* local, void* hist, int nt,
-                              int tile, int shift, int bits, int pack,
-                              int idx_bits, int v2, void* stream) {
-  return mt_local_entry(x, local, hist, nt, tile, shift, bits, pack, idx_bits,
-                        v2, static_cast<cudaStream_t>(stream), nullptr);
+// What the compiler and the occupancy calculator give K7b v2's instance
+// for nt tiles of `tile` and `sort_bits` key bits (`threads` a CTA, 0: the
+// rule): out[0..5] as radix_tile_sort_attrs, out[6] the digit width,
+// out[7] the passes.
+extern "C" int radix_tile_sort_packed_attrs(int tile, int nt, int sort_bits,
+                                            int threads, int* out) {
+  if (nt < 1 || !pow2_tile(tile) || sort_bits < 0 || threads < 0)
+    return (int)cudaErrorInvalidValue;
+  return k7b_dispatch({nullptr, nullptr, nt, tile, 0, 0, sort_bits, 0,
+                       nullptr}, threads, out);
 }
 
-// What the compiler and the occupancy calculator give K6a (v2 = 1) or its
-// v1 (v2 = 0) for `tile` and `bits`: out[0..5] = registers a thread, local
-// (spill) bytes a thread, static shared bytes, dynamic shared bytes a
-// launch, CTAs an SM can hold, threads a CTA.
-extern "C" int radix_mt_local_attrs(int tile, int bits, int v2, int* out) {
-  return mt_local_entry(nullptr, nullptr, nullptr, 1, tile, 0, bits, 0, 0, v2,
+extern "C" int radix_mt_local(const void* x, void* local, void* hist, int nt,
+                              int tile, int shift, int bits, int pack,
+                              int idx_bits, void* stream) {
+  return mt_local_entry(x, local, hist, nt, tile, shift, bits, pack, idx_bits,
+                        static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// What the compiler and the occupancy calculator give K6a's instance for
+// `tile` and `bits`: out[0..5] = registers a thread, local (spill) bytes a
+// thread, static shared bytes, dynamic shared bytes a launch, CTAs an SM
+// can hold, threads a CTA.
+extern "C" int radix_mt_local_attrs(int tile, int bits, int* out) {
+  return mt_local_entry(nullptr, nullptr, nullptr, 1, tile, 0, bits, 0, 0,
                         nullptr, out);
 }
 
 extern "C" int radix_mt_scatter(const void* local, const void* hist,
                                 const void* base, void* out, int nt,
                                 int tile, int radix, unsigned unpack_mask,
-                                int unpack, int v2, void* stream) {
+                                int unpack, void* stream) {
   return mt_scatter_entry(local, hist, base, out, nt, tile, radix,
-                          unpack_mask, unpack, v2,
+                          unpack_mask, unpack,
                           static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The same for K6b (v2 = 1) or its v1 (v2 = 0) at `tile`: out[0..5]
-extern "C" int radix_mt_scatter_attrs(int tile, int radix, int v2, int* out) {
+// The same for K6b at `tile`: out[0..5]
+extern "C" int radix_mt_scatter_attrs(int tile, int radix, int* out) {
   return mt_scatter_entry(nullptr, nullptr, nullptr, nullptr, 1, tile, radix,
-                          0, 0, v2, nullptr, out);
+                          0, 0, nullptr, out);
 }
 
 extern "C" const char* repro_error_string(int err) {

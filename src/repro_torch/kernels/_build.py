@@ -66,13 +66,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # x, out, nt, tile, key_shift, total_bits, digit_bits, stream
         "radix_tile_sort": [P, P, I, I, I, I, I, P],
         # keys, out, nt, tile, n, idx_bits, sort_bits, digit_bits, unpack,
+        # v2, threads (0: the rule), stream
+        "radix_tile_sort_packed": [P, P] + [I] * 9 + [P],
+        # x, local, hist, nt, tile, shift, bits, pack, idx_bits, stream
+        "radix_mt_local": [P, P, P, I, I, I, I, I, I, P],
+        # local, hist, base, out, nt, tile, radix, unpack_mask, unpack,
         # stream
-        "radix_tile_sort_packed": [P, P, I, I, I, I, I, I, I, P],
-        # x, local, hist, nt, tile, shift, bits, pack, idx_bits, v2, stream
-        "radix_mt_local": [P, P, P, I, I, I, I, I, I, I, P],
-        # local, hist, base, out, nt, tile, radix, unpack_mask, unpack, v2,
-        # stream
-        "radix_mt_scatter": [P, P, P, P, I, I, I, U, I, I, P],
+        "radix_mt_scatter": [P, P, P, P, I, I, I, U, I, P],
     },
     "merge_sort": {
         # x, out, n, run, block, unpack_mask, unpack, v2, stream

@@ -11,15 +11,19 @@
   words ``key << idx_bits | global_index`` out (pad slots the sentinel), or
   with ``unpack`` the int32 order itself.  Only the key digits are ranked:
   in-tile the index bits are the (ordered) positions, carried by stability.
+  The kernel ranks ``ceil(bits / 8)`` passes of one width
+  (:func:`k7b_digits`) whatever ``digit_bits`` or the plan's passes say,
+  on a CTA shaped by the tile count (:func:`k7b_shape`);
+  ``packed_tile_sort_model`` is its decomposition in plain PyTorch, and
+  ``v1=True`` launches the first design, which the card check times v2
+  against.
 * K6a ``_mt_local`` and K6b ``_mt_scatter``: the two halves of one
   multi-tile LSD digit pass (per-tile stable sort plus histogram; every
   (tile, digit) segment to its global base), with K5
   (``tile_scan.histogram_offsets``) between them;
   ``multi_tile_argsort_packed`` runs ``3 · num_passes`` launches,
   independent of n.  ``mt_local_model`` and ``mt_scatter_model`` are
-  their v2 kernels' decompositions in plain PyTorch; ``v1=True`` on
-  either wrapper launches the first design, which the card check times v2
-  against.
+  their kernels' decompositions in plain PyTorch.
 
 Packed words are ``torch.uint32``, orders ``torch.int32``, as the
 reference's dtypes.  Each wrapper runs its plain twin for a CPU tensor (a
@@ -134,17 +138,20 @@ def k7a_threads(tile: int) -> int:
     return 128 if tile <= 1024 else 256
 
 
-def _warp_ranks(digit: torch.Tensor, tile: int, radix: int) -> torch.Tensor:
-    """The rank K7a v2 and K6a v2 give each word of the (nt, tile) rows by
-    its digit in [0, radix): with T = k7a_threads(tile) and K = max(1,
-    tile // T), warp w owns the words ``[w * 32K, (w + 1) * 32K)``; a word's
-    rank is ``base[digit, w]`` (the digit-major exclusive scan of the
-    (digit, warp) counts) plus its offset among the equal digits before it
-    in its warp's chunk."""
+def _warp_ranks(digit: torch.Tensor, tile: int, radix: int,
+                threads: Optional[int] = None) -> torch.Tensor:
+    """The rank K7a, K6a and K7b v2 give each word of the (nt, tile) rows
+    by its digit in [0, radix) (``rank_place`` in csrc/radix_rank.cuh):
+    with T threads a CTA (``k7a_threads(tile)`` unless given) and K =
+    max(1, tile // T), warp w owns the words ``[w * 32K, (w + 1) * 32K)``;
+    a word's rank is ``base[digit, w]`` (the digit-major exclusive scan of
+    the (digit, warp) counts) plus its offset among the equal digits
+    before it in its warp's chunk."""
     nt = digit.shape[0]
     dev = digit.device
-    warps = k7a_threads(tile) // 32
-    chunk = 32 * max(1, tile // k7a_threads(tile))
+    threads = threads or k7a_threads(tile)
+    warps = threads // 32
+    chunk = 32 * max(1, tile // threads)
     warp = (torch.arange(tile, device=dev) // chunk).expand(nt, tile)
     rows = torch.arange(nt, device=dev)[:, None]
     seg = digit * warps + warp                          # digit-major
@@ -187,17 +194,12 @@ def _composite(keys: torch.Tensor, nt: int, tile: int) -> torch.Tensor:
     return _shl(_u64(keys).reshape(nt, tile), lb) | pos
 
 
-def radix_tile_sort_packed_plain(keys: torch.Tensor, *, n: int, tile: int,
-                                 idx_bits: int, sort_bits: int,
-                                 unpack: bool = False) -> torch.Tensor:
-    """Twin of K7b: the composite ``key << log2(tile) | pos`` per tile,
-    stably sorted by its ``sort_bits`` key bits, then emitted as packed
-    words (sentinel past n) or the int32 order (idx_mask past n)."""
-    n_pad = keys.shape[0]
-    nt, lb = n_pad // tile, tile.bit_length() - 1
-    c = _composite(keys, nt, tile)
-    c = _sort_rows(c, _shr(c, lb) & ((1 << min(sort_bits, 32)) - 1))
-    gidx = torch.arange(nt, dtype=torch.int64, device=keys.device)[:, None] \
+def _packed_out(c: torch.Tensor, *, n: int, tile: int, idx_bits: int,
+                unpack: bool) -> torch.Tensor:
+    """K7b's output of the (nt, tile) sorted composites: packed words
+    (sentinel past n) or the int32 order (idx_mask past n), flat."""
+    nt, lb = c.shape[0], tile.bit_length() - 1
+    gidx = torch.arange(nt, dtype=torch.int64, device=c.device)[:, None] \
         * tile + (c & (tile - 1))
     real = gidx < n
     if unpack:
@@ -205,7 +207,64 @@ def radix_tile_sort_packed_plain(keys: torch.Tensor, *, n: int, tile: int,
     else:
         packed = _shl(_shr(c, lb), idx_bits) | gidx
         out = _u32(torch.where(real, packed, SENTINEL))
-    return out.reshape(n_pad)
+    return out.reshape(-1)
+
+
+def radix_tile_sort_packed_plain(keys: torch.Tensor, *, n: int, tile: int,
+                                 idx_bits: int, sort_bits: int,
+                                 unpack: bool = False) -> torch.Tensor:
+    """Twin of K7b: the composite ``key << log2(tile) | pos`` per tile,
+    stably sorted by its ``sort_bits`` key bits, then emitted as packed
+    words (sentinel past n) or the int32 order (idx_mask past n)."""
+    nt, lb = keys.shape[0] // tile, tile.bit_length() - 1
+    c = _composite(keys, nt, tile)
+    c = _sort_rows(c, _shr(c, lb) & ((1 << min(sort_bits, 32)) - 1))
+    return _packed_out(c, n=n, tile=tile, idx_bits=idx_bits, unpack=unpack)
+
+
+def k7b_shape(tile: int, nt: int) -> Tuple[int, int]:
+    """K7b v2's CTA for nt tiles: ``(keys a thread K, threads NT)``.  With
+    at least one tile an SM (132), K7a's (:func:`k7a_threads`); below
+    that, 256 threads from tile 256 up (``k7b_threads`` in
+    csrc/radix_sort.cu).  K = max(1, tile // NT)."""
+    threads = k7a_threads(tile) if nt >= NUM_SMS or tile < 256 else 256
+    return max(1, tile // threads), threads
+
+
+def k7b_digits(sort_bits: int, tile: int) -> Tuple[int, int]:
+    """K7b v2's ``(digit width, passes)``: the key bits below bit 32 of the
+    composite, ``bits = min(sort_bits, 32 - log2(tile))``, ranked in
+    ``ceil(bits / 8)`` passes of one width, ``ceil(bits / passes)``
+    rounded up to an even one, the last pass masked to what is left
+    (``k7b_digits`` in csrc/radix_sort.cu)."""
+    bits = min(sort_bits, 32 - (tile.bit_length() - 1))
+    if bits <= 0:
+        return 2, 0
+    p = -(-bits // 8)
+    width = (-(-bits // p) + 1) & ~1
+    return width, -(-bits // width)
+
+
+def packed_tile_sort_model(keys: torch.Tensor, *, n: int, tile: int,
+                           idx_bits: int, sort_bits: int,
+                           unpack: bool = False,
+                           threads: Optional[int] = None) -> torch.Tensor:
+    """K7b v2's decomposition in plain PyTorch, pass by pass: the composite
+    ``key << lb | pos`` as the kernel packs it after its load, the
+    :func:`k7b_digits` passes (the last masked), each word placed at its
+    :func:`_warp_ranks` rank on the :func:`k7b_shape` CTA (``threads``
+    forces another width, as the kernel's entry point takes it), then the
+    output transform.  Equals :func:`radix_tile_sort_packed_plain`."""
+    nt, lb = keys.shape[0] // tile, tile.bit_length() - 1
+    threads = threads or k7b_shape(tile, nt)[1]
+    width, passes = k7b_digits(sort_bits, tile)
+    bits = min(sort_bits, 32 - lb)
+    c = _composite(keys, nt, tile)
+    for p in range(passes):
+        lo = p * width
+        digit = (c >> (lb + lo)) & ((1 << min(width, bits - lo)) - 1)
+        c = _place(c, _warp_ranks(digit, tile, 1 << width, threads))
+    return _packed_out(c, n=n, tile=tile, idx_bits=idx_bits, unpack=unpack)
 
 
 def mt_local_plain(x: torch.Tensor, *, nt: int, tile: int, shift: int,
@@ -362,14 +421,21 @@ def radix_tile_sort_packed(keys: torch.Tensor, *, n: int, tile: int,
                            num_key_bits: int, idx_bits: int,
                            digit_bits: int = 4, group: int = 8,
                            unpack: bool = False,
-                           passes: Optional[Sequence[DigitPass]] = None
-                           ) -> torch.Tensor:
+                           passes: Optional[Sequence[DigitPass]] = None,
+                           v1: bool = False,
+                           threads: Optional[int] = None) -> torch.Tensor:
     """Fused pack + tile sort: raw int32 keys (padded to a multiple of
     ``tile``; pad rows must carry the max key) → per-tile-sorted packed
     uint32 words ``key << idx_bits | global_index``, pad slots as the
     sentinel; with ``unpack=True`` the int32 order.  ``passes`` takes the
-    plan's ``sort_schedule`` digit passes and parameterizes the kernel
-    (derived locally when absent); malformed schedules raise."""
+    plan's ``sort_schedule`` digit passes (derived locally when absent);
+    malformed schedules raise, as the reference's do.  Their key bits are
+    what the kernel sorts by: it ranks them in the :func:`k7b_digits`
+    passes, which give the same words, since a stable sort by the same
+    bits has one result.  On the card ``threads`` forces the CTA width
+    (default :func:`k7b_shape`'s) and ``v1=True`` launches the first
+    design (``digit_bits``-wide passes on ``rank_pass``); the card check
+    times both against v2."""
     n_pad = keys.shape[0]
     tile = min(tile, n_pad)
     if n_pad % tile:
@@ -403,17 +469,17 @@ def radix_tile_sort_packed(keys: torch.Tensor, *, n: int, tile: int,
     out = torch.empty(n_pad, dtype=torch.int32 if unpack else torch.uint32,
                       device=keys.device)
     K7B(keys.data_ptr(), out.data_ptr(), n_pad // tile, tile, n, idx_bits,
-        sort_bits, stride, int(unpack), _stream(keys))
+        sort_bits, stride, int(unpack), int(not v1), threads or 0,
+        _stream(keys))
     return out
 
 
 def _mt_local(x: torch.Tensor, *, nt: int, tile: int, shift: int, bits: int,
-              pack: bool, idx_bits: int, group: int = 8, v1: bool = False
+              pack: bool, idx_bits: int, group: int = 8
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6a: one digit pass, tile-local half → ((nt, tile) uint32 words,
     (nt, 2^bits) int32 histogram).  ``x`` is (nt·tile,) raw int32 keys with
-    ``pack`` (pass 0), else uint32 words.  ``v1=True`` launches the first
-    design (``rank_pass``) instead, which the card check times v2 against."""
+    ``pack`` (pass 0), else uint32 words."""
     if x.numel() != nt * tile:
         raise ValueError(f"_mt_local: {x.numel()} elements != {nt} x {tile}")
     if x.device.type == "cpu":
@@ -424,17 +490,16 @@ def _mt_local(x: torch.Tensor, *, nt: int, tile: int, shift: int, bits: int,
     local = torch.empty(nt, tile, dtype=torch.uint32, device=x.device)
     hist = torch.empty(nt, 1 << bits, dtype=torch.int32, device=x.device)
     K6A(x.data_ptr(), local.data_ptr(), hist.data_ptr(), nt, tile, shift,
-        bits, int(pack), idx_bits, int(not v1), _stream(x))
+        bits, int(pack), idx_bits, _stream(x))
     return local, hist
 
 
 def _mt_scatter(local: torch.Tensor, hist: torch.Tensor, base: torch.Tensor,
                 *, tile: int, radix: int, group: int = 8,
-                unpack_mask: Optional[int] = None, v1: bool = False
-                ) -> torch.Tensor:
+                unpack_mask: Optional[int] = None) -> torch.Tensor:
     """K6b: one digit pass, global half → the (nt·tile,) words in global
     digit order (uint32), or with ``unpack_mask`` (last pass) ``word &
-    unpack_mask`` as int32.  ``v1=True`` launches the first design."""
+    unpack_mask`` as int32."""
     nt = local.shape[0]
     if tuple(local.shape) != (nt, tile) or \
             tuple(hist.shape) != (nt, radix) or base.shape != hist.shape:
@@ -451,7 +516,7 @@ def _mt_scatter(local: torch.Tensor, hist: torch.Tensor, base: torch.Tensor,
                       else torch.int32, device=local.device)
     K6B(local.data_ptr(), hist.data_ptr(), base.data_ptr(), out.data_ptr(),
         nt, tile, radix, 0 if unpack_mask is None else unpack_mask & M32,
-        int(unpack_mask is not None), int(not v1), _stream(local))
+        int(unpack_mask is not None), _stream(local))
     return out
 
 
@@ -675,21 +740,29 @@ def moe_dispatch_attributes(n: int, row_bytes: int,
                                           "moe_hist_kernel"))}
 
 
-def mt_local_attributes(tile: int, bits: int, *, v1: bool = False
-                        ) -> Dict[str, int]:
+def mt_local_attributes(tile: int, bits: int) -> Dict[str, int]:
     """Registers, spills, shared memory, CTAs an SM and threads a CTA of
-    K6a's kernel instance for ``tile`` and ``bits`` (``v1=True``: the first
-    design's), as the compiled library and the occupancy calculator report
-    them."""
+    K6a's kernel instance for ``tile`` and ``bits``, as the compiled
+    library and the occupancy calculator report them."""
     return _build.attributes("radix_sort", "radix_mt_local_attrs", tile,
-                             bits, int(not v1), extra=("threads",))
+                             bits, extra=("threads",))
 
 
-def mt_scatter_attributes(tile: int, radix: int, *, v1: bool = False
-                          ) -> Dict[str, int]:
+def mt_scatter_attributes(tile: int, radix: int) -> Dict[str, int]:
     """The same for K6b at ``tile`` (one CTA a tile)."""
     return _build.attributes("radix_sort", "radix_mt_scatter_attrs", tile,
-                             radix, int(not v1), extra=("threads",))
+                             radix, extra=("threads",))
+
+
+def radix_tile_sort_packed_attributes(tile: int, nt: int, sort_bits: int,
+                                      threads: Optional[int] = None
+                                      ) -> Dict[str, int]:
+    """The same for K7b v2's instance for nt tiles of ``tile`` and
+    ``sort_bits`` key bits (``threads`` a CTA, default the rule), with its
+    digit width and passes (:func:`k7b_shape`, :func:`k7b_digits`)."""
+    return _build.attributes("radix_sort", "radix_tile_sort_packed_attrs",
+                             tile, nt, sort_bits, threads or 0,
+                             extra=("threads", "digit_bits", "passes"))
 
 
 def kernel_attributes(tile: int) -> Dict[str, int]:
@@ -704,8 +777,11 @@ def kernel_attributes(tile: int) -> Dict[str, int]:
 __all__ = ["radix_tile_sort", "radix_tile_sort_packed",
            "multi_tile_argsort_packed", "radix_tile_sort_plain",
            "radix_tile_sort_model", "k7a_threads", "kernel_attributes",
-           "radix_tile_sort_packed_plain", "mt_local_plain",
-           "mt_scatter_plain", "mt_local_model", "mt_scatter_model",
-           "k6b_shape", "mt_local_attributes", "mt_scatter_attributes", "moe_dispatch_sort", "moe_dispatch_sort_plain",
+           "radix_tile_sort_packed_plain", "packed_tile_sort_model",
+           "k7b_shape", "k7b_digits", "radix_tile_sort_packed_attributes",
+           "mt_local_plain", "mt_scatter_plain", "mt_local_model",
+           "mt_scatter_model", "k6b_shape", "mt_local_attributes",
+           "mt_scatter_attributes", "moe_dispatch_sort",
+           "moe_dispatch_sort_plain",
            "moe_dispatch_model", "moe_dispatch_attributes", "k3_grid",
            "k3_cta_words", "SENTINEL", "K3", "K6A", "K6B", "K7A", "K7B"]

@@ -2,11 +2,12 @@
 bit for bit: K5 (``tile_scan``, ``histogram_offsets``, and the cluster
 split of its kernel), K6 (``_mt_local``, ``_mt_scatter``), K7
 (``radix_tile_sort`` and its kernel's 8-bit warp rank order,
-``radix_tile_sort_packed``), K8 (``_merge_path_starts``, ``_merge_level``),
+``radix_tile_sort_packed`` and its v2 kernel's passes, CTA shapes and
+output transform), K8 (``_merge_path_starts``, ``_merge_level``),
 ``sort_u32``, ``merge_pair`` and ``argsort`` under both strategies.  On the
 CPU every wrapper runs its plain twin; the JAX side runs its Pallas kernels
 in interpret mode, as ``tests/test_kernels.py`` does, so sizes stay small
-(n <= 4096, tile <= 1024).  Integer data: the tolerance is 0 mismatches.
+(n <= 16384, tile <= 8192).  Integer data: the tolerance is 0 mismatches.
 """
 
 import functools
@@ -201,6 +202,88 @@ def test_radix_tile_sort_packed_takes_the_plans_passes():
                                      interpret=True, **kw))
 
 
+def _k7b_input(tile, sort_bits, kind, seed):
+    """Two tiles (one at tile 8192) of raw keys below 2^sort_bits, the last
+    sixth past n carrying the max key (the pad rows of a ragged input), of
+    ``kind``: random, equal, sorted, reversed or 7-valued ("few").
+    Returns (keys, n, idx_bits)."""
+    n_pad = tile * (1 if tile >= 8192 else 2)
+    keys = _keys(n_pad, min(sort_bits, 31), seed, kind).copy()
+    n = n_pad - n_pad // 6
+    keys[n:] = (1 << min(sort_bits, 31)) - 1
+    return keys, n, max(1, (n - 1).bit_length())
+
+
+_K7B_TILES = (2, 16, 32, 128, 1024, 8192)
+
+
+@pytest.mark.parametrize("unpack", [False, True])
+@pytest.mark.parametrize("sort_bits", [1, 4, 8, 12, 17, 24])
+@pytest.mark.parametrize("tile", _K7B_TILES)
+def test_packed_tile_sort_model_matches_plain_and_reference(tile, sort_bits,
+                                                            unpack):
+    """K7b v2's decomposition (the composite packed after the load,
+    ``k7b_digits`` passes of one width, the last masked, warp ranks on the
+    ``k7b_shape`` CTA and on every CTA width the kernel is built for, the
+    fused output transform) equals the twin and the Pallas kernel in
+    interpret mode bit for bit, ragged n included; at tile 1024 and 8192,
+    24 key bits reach past bit 32 of the composite."""
+    keys, n, idx_bits = _k7b_input(tile, sort_bits, "random",
+                                   tile * 100 + sort_bits)
+    kw = dict(n=n, tile=tile, idx_bits=idx_bits, sort_bits=sort_bits,
+              unpack=unpack)
+    want = jrs.radix_tile_sort_packed(
+        jnp.asarray(keys), n=n, tile=tile, num_key_bits=sort_bits,
+        idx_bits=idx_bits, unpack=unpack, interpret=True)
+    _same(rs.radix_tile_sort_packed_plain(_t(keys), **kw), want)
+    for threads in (None, 128, 256, 512, 1024):
+        _same(rs.packed_tile_sort_model(_t(keys), threads=threads, **kw),
+              want)
+    _same(rs.radix_tile_sort_packed(_t(keys), n=n, tile=tile,
+                                    num_key_bits=sort_bits,
+                                    idx_bits=idx_bits, unpack=unpack), want)
+
+
+@pytest.mark.parametrize("unpack", [False, True])
+@pytest.mark.parametrize("kind", ["equal", "sorted", "reversed", "few"])
+@pytest.mark.parametrize("tile", [32, 1024])
+def test_packed_tile_sort_model_on_skewed_keys(tile, kind, unpack):
+    keys, n, idx_bits = _k7b_input(tile, 12, kind, tile)
+    want = jrs.radix_tile_sort_packed(
+        jnp.asarray(keys), n=n, tile=tile, num_key_bits=12,
+        idx_bits=idx_bits, unpack=unpack, interpret=True)
+    _same(rs.packed_tile_sort_model(_t(keys), n=n, tile=tile,
+                                    idx_bits=idx_bits, sort_bits=12,
+                                    unpack=unpack), want)
+
+
+@pytest.mark.parametrize("nt", [1, 32, 131, 132, 1024])
+@pytest.mark.parametrize("tile", [1 << i for i in range(14)])
+def test_k7b_shape_covers_the_tile(tile, nt):
+    """K7b v2's CTA holds every word of a tile exactly once, warp-striped
+    (lane l of warp w: words 32 K w + l + 32 s, s < K): K7a's CTA from one
+    tile an SM up, else 256 threads from tile 256 up."""
+    K, NT = rs.k7b_shape(tile, nt)
+    want = rs.k7a_threads(tile) if nt >= rs.NUM_SMS or tile < 256 else 256
+    assert NT == want and K == max(1, tile // NT)
+    t = np.arange(NT)[:, None]
+    j = 32 * K * (t // 32) + t % 32 + 32 * np.arange(K)[None]
+    assert sorted(j[j < tile].tolist()) == list(range(tile))
+
+
+@pytest.mark.parametrize("sort_bits", list(range(0, 33)))
+def test_k7b_digits_rank_every_key_bit_in_the_fewest_passes(sort_bits):
+    """ceil(bits / 8) passes of one even width <= 8 cover exactly the key
+    bits below bit 32 of the composite, whatever the tile."""
+    for tile in (2, 1024, 8192):
+        bits = min(sort_bits, 32 - (tile.bit_length() - 1))
+        width, passes = rs.k7b_digits(sort_bits, tile)
+        assert width in (2, 4, 6, 8)
+        assert passes == -(-bits // 8)
+        assert (passes - 1) * width < bits <= passes * width or \
+            bits == passes == 0
+
+
 # ---------------------------------------------------------------------------
 # K6
 # ---------------------------------------------------------------------------
@@ -371,7 +454,8 @@ def test_k6b_shape_covers_the_tile(tile, shape):
 
 @pytest.mark.parametrize("n,tile,num_key_bits", [(2048, 256, 12),
                                                  (1000, 256, 8),
-                                                 (3000, 128, 16)])
+                                                 (3000, 128, 16),
+                                                 (1000, 1024, 12)])
 def test_multi_tile_argsort_packed_matches_reference(n, tile, num_key_bits):
     n_pad = -(-n // tile) * tile
     keys = _keys(n_pad, num_key_bits, n)
@@ -758,14 +842,18 @@ def test_wrappers_on_a_non_cpu_tensor_launch_or_raise():
             lambda: rs.radix_tile_sort(u, tile=256),
             lambda: rs.radix_tile_sort_packed(k, n=1024, tile=256,
                                               num_key_bits=8, idx_bits=10),
+            lambda: rs.radix_tile_sort_packed(
+                k, n=1024, tile=256, num_key_bits=8, idx_bits=10,
+                threads=rs.k7b_shape(256, 4)[1]),
+            lambda: rs.radix_tile_sort_packed(k, n=1024, tile=256,
+                                              num_key_bits=8, idx_bits=10,
+                                              unpack=True, v1=True),
             lambda: rs._mt_local(k, nt=4, tile=256, shift=10, bits=4,
                                  pack=True, idx_bits=10),
-            lambda: rs._mt_local(k, nt=4, tile=256, shift=10, bits=4,
-                                 pack=True, idx_bits=10, v1=True),
             lambda: rs._mt_scatter(u.reshape(4, 256), h, h, tile=256,
                                    radix=16),
             lambda: rs._mt_scatter(u.reshape(4, 256), h, h, tile=256,
-                                   radix=16, unpack_mask=1023, v1=True),
+                                   radix=16, unpack_mask=1023),
             lambda: ms._merge_level(u, run=256, tile=256),
             lambda: ts.tile_scan(k),
             lambda: ms.tile_sort(u, tile=256),
