@@ -80,14 +80,19 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    and time kernel, plain version and, where one PyTorch call computes the
    same function, that call (``F.scaled_dot_product_attention`` for K1/K2;
    none exists for the K4 scans): K1 (bf16 through v3, the tensor-core
-   kernel, with its split-KV merge: GQA groups 1, 4 and 5, chunks of 1 to
-   256 at offsets 0 to 1792, forced split counts, two launches bit-identical;
+   kernel, with its split-KV merge: GQA groups 1, 3, 4, 5, 8 and 16, chunks
+   of 1 to 256 at offsets 0 to 1792, forced split counts, two launches
+   bit-identical; MLA's q/k head dim 192 with v head dim 128 in bf16 (v3)
+   and fp32 (v2) at B 1 and 4, S 256 to 2048 and chunks of 32 and 256 at
+   offsets 736 and 1792, through both merges;
    the fused merge (one launch whose last CTA a row tile merges, the
    route up to 2 splits) equal bit for bit to split partials + the
    standalone merge and to a second fused launch in every split case,
    forced ones included, the arrival counters back at 0; fp32 through v2;
    v3 timed beside v2 in turns, unsplit, and over split counts, and the
-   fused launch in turns against the two at every split shape), K2 (bf16
+   fused launch in turns against the two at every split shape; groups 3, 8
+   and 16 at c=256 / 736 and MLA's ``Model.prefill`` of 4 x 2048 at
+   (192, 128) beside SDPA and the bound), K2 (bf16
    through v2, the tensor-core kernel, with the merge
    fused into its launch, at every GQA group of ``GROUPS`` and lengths 0,
    1, 127, 128, 129, S and ragged: the fused launch equal to v2 partials +
@@ -111,7 +116,7 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    partials and the standalone combine once each a layer a step;
 7. the SSM path: xlstm-1.3b at full width and depth (48 blocks, bf16,
    ``scan_impl="pallas"``): ``Model.prefill`` of 4 x 2048 tokens (K4 once
-   per mLSTM layer) and 32 decode steps, then 16 requests through
+   per mLSTM layer) and 32 decode steps, then 8 requests through
    ``ContinuousEngine`` with O(1) state slots; profiles of one decode step
    and of a 1 x 512 prefill;
 8. fp32 checks at xlstm's full width, one period (8 blocks): card logits
@@ -134,7 +139,22 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    K3's logits bit for bit; profiles of a decode step and a prefill chunk;
 11. fp32 checks at the MoE path's full width, 1 layer: card logits
    against the CPU plain path, batched == one-at-a-time tokens;
-12. the kernels line, then the last line
+12. the MLA path: deepseek-v2-lite-16b at full width and depth (27
+   layers: one dense prefix layer, 26 MoE layers of 64 experts top-6 + 2
+   shared; bf16, seeded random weights, ``moe_strategy="sort"``, K3
+   routing): 16 requests through ``ContinuousEngine`` and 4 through
+   ``Engine`` (MLA absorbed against the latent cache: K3 once a MoE layer
+   a chunk and a decode step, K1 and K2 never), ``Model.prefill`` of 4 x
+   2048 (K1 at (192, 128) once a layer, K3 once a MoE layer), profiles
+   of a decode step and a 256-token chunk;
+13. fp32 checks at deepseek's full width, 2 layers (the prefix layer and
+   one MoE layer), as phase 11;
+14. the dense configs: yi-9b, chatglm3-6b and minitron-4b at full width
+   and depth in bf16, 8 requests each through ``ContinuousEngine`` (K1
+   once a layer a chunk, K2 once a layer a step), then minitron's fp32
+   checks at 2 layers;
+15. the kernels line (K1's MLA instance in its own entry), then the last
+   line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  Details
@@ -591,7 +611,85 @@ def main() -> None:
         check(err(ref[0], mean_v) <= 1e-4, "K2's twin: a zero-length row "
               "is not the mean of V")
 
+    def k1_new_shapes_checks():
+        """K1 at the slice's shapes.  MLA's (192, 128), 16/16 heads, scale
+        1/sqrt(192): v3 (bf16) and v2 (fp32) at B 1 and 4, S 256, 512 and
+        2048 from offset 0, and chunks of 32 and 256 at offsets 736 and
+        1792 against Sk 2048, under the rule and forced splits through
+        both merges (fused, and partials + the standalone merge); two
+        launches bit-identical.  Then v3 at head dim 128 at the dense
+        configs' GQA groups 3 (minitron 24/8), 8 (yi 32/4) and 16
+        (chatglm 32/2: 4 queries a 64-row tile)."""
+        bf = torch.bfloat16
+        name = "flash_attention_fwd (192, 128)"
+        same = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for B, S in ((1, 256), (4, 256), (1, 512), (4, 512), (1, 2048),
+                         (4, 2048)):
+                q = randn(B, S, 16, 192, dtype=dtype)
+                k = randn(B, S, 16, 192, dtype=dtype)
+                v = randn(B, S, 16, 128, dtype=dtype)
+                out = fa.flash_attention(q, k, v, causal=True)
+                again = fa.flash_attention(q, k, v, causal=True)
+                ref = fa.flash_attention_plain(q.float(), k.float(),
+                                               v.float(), causal=True)
+                torch.cuda.synchronize()
+                record(name, dtype, err(out, ref), B=B, S=S, q_offset=0)
+                same.append(bool(torch.equal(out, again)))
+                del q, k, v, out, again, ref
+            k = randn(1, 2048, 16, 192, dtype=dtype)
+            v = randn(1, 2048, 16, 128, dtype=dtype)
+            for c in (32, 256):
+                q = randn(1, c, 16, 192, dtype=dtype)
+                for off in (736, 1792):
+                    ref = fa.flash_attention_plain(q.float(), k.float(),
+                                                   v.float(), causal=True,
+                                                   q_offset=off)
+                    bf16 = dtype == torch.bfloat16
+                    for sp in (None, 1, 2, 5, 16) if bf16 else (None,):
+                        out = fa.flash_attention(q, k, v, causal=True,
+                                                 q_offset=off, splits=sp)
+                        again = fa.flash_attention(q, k, v, causal=True,
+                                                   q_offset=off, splits=sp)
+                        torch.cuda.synchronize()
+                        ns = sp or (fa.num_splits(1, c, 16, 16, 2048,
+                                                  q_offset=off) if bf16
+                                    else 1)
+                        record(name, dtype, err(out, ref), c=c,
+                               q_offset=off, Sk=2048, splits=ns)
+                        same.append(bool(torch.equal(out, again)))
+                        if bf16:
+                            k1_fused_check(q, k, v, off, ns, out, c=c,
+                                           H=16, q_offset=off, Sk=2048,
+                                           hd=(192, 128))
+        check(all(same), "K1 (192, 128): two launches on the same inputs "
+              "differ")
+        report["k1_mla_bit_identical"] = same
+        say(f"K1 (192, 128): two launches bit-identical in {sum(same)} of "
+            f"{len(same)} cases (bf16 v3 and fp32 v2)")
+        for Hq, kv in ((24, 8), (32, 4), (32, 2)):
+            k = randn(1, 2048, kv, hd, dtype=bf)
+            v = randn(1, 2048, kv, hd, dtype=bf)
+            for c in (1, 32, 256):
+                q = randn(1, c, Hq, hd, dtype=bf)
+                for off in (0, 736, 1792):
+                    out = fa.flash_attention(q, k, v, causal=True,
+                                             q_offset=off)
+                    ref = fa.flash_attention_plain(q.float(), k.float(),
+                                                   v.float(), causal=True,
+                                                   q_offset=off)
+                    torch.cuda.synchronize()
+                    ns = fa.num_splits(1, c, Hq, kv, 2048, q_offset=off)
+                    record("flash_attention_fwd", bf, err(out, ref), c=c,
+                           q_offset=off, Sk=2048, H=Hq, KV=kv, splits=ns)
+                    k1_fused_check(q, k, v, off, ns, out, c=c, H=Hq, KV=kv,
+                                   q_offset=off, Sk=2048)
+        say("K1 v3 at GQA groups 3, 8 and 16 (head dim 128): within "
+            f"{TOL['bfloat16']} of the fp32 twin, the fused split merge "
+            f"equal to partials + merge bit for bit")
+
     k1_bf16_checks()
+    k1_new_shapes_checks()
     k2_v2_checks()
 
     # K1 and K2 at llama4-scout's head layout, the MoE path's: 40 q heads
@@ -693,20 +791,21 @@ def main() -> None:
 
     bf = torch.bfloat16
 
-    def k1_case(c, off, Sk, B=1, Hq=H):
+    def k1_case(c, off, Sk, B=1, Hq=H, kv=KV, dk=hd, dv=hd):
         """v3 (the wrapper's route and split rule) timed in turns with v2
         (v3, v2, v3, v2: each the mean of its two), v3 unsplit, the plain
-        twin and SDPA, all on the same inputs after an L2 flush."""
-        q = randn(B, c, Hq, hd, dtype=bf)
-        k = randn(B, Sk, KV, hd, dtype=bf)
-        v = randn(B, Sk, KV, hd, dtype=bf)
+        twin and SDPA, all on the same inputs after an L2 flush; q/k head
+        dim ``dk``, v head dim ``dv`` (MLA: 192, 128)."""
+        q = randn(B, c, Hq, dk, dtype=bf)
+        k = randn(B, Sk, kv, dk, dtype=bf)
+        v = randn(B, Sk, kv, dv, dtype=bf)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = (off + torch.arange(c, device=dev)[:, None]
                 >= torch.arange(Sk, device=dev)[None, :])
         pairs = sum(min(Sk, off + i + 1) for i in range(c))
         kv_len = min(Sk, off + c)
-        flops = 4.0 * B * Hq * hd * pairs
-        nbytes = 2.0 * (2 * B * c * Hq * hd + 2 * B * kv_len * KV * hd)
+        flops = 2.0 * B * Hq * (dk + dv) * pairs
+        nbytes = 2.0 * (B * c * Hq * (dk + dv) + B * kv_len * kv * (dk + dv))
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES)
 
         def v3():
@@ -716,7 +815,7 @@ def main() -> None:
             return fa.flash_attention(q, k, v, causal=True, q_offset=off,
                                       tensor_cores=False)
         turns = [device_ms(f, cold=True) for f in (v3, v2, v3, v2)]
-        ns = fa.num_splits(B, c, Hq, KV, Sk, q_offset=off)
+        ns = fa.num_splits(B, c, Hq, kv, Sk, q_offset=off)
         pair = {}
         if ns > 1:
             # the fused launch against the two launches, in turns
@@ -732,6 +831,12 @@ def main() -> None:
                         pair_ms=(fturns[1] + fturns[3]) / 2,
                         fused_turns_ms=fturns, route="fused"
                         if fa.fused_merge(ns) else "two launches")
+        try:        # SDPA's backends may refuse a v head dim != q/k's
+            library = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), cold=True)
+        except RuntimeError as e:
+            say(f"SDPA refuses q/k {dk}, v {dv}: {e}")
+            library = None
         return dict(
             ms=(turns[0] + turns[2]) / 2, v2_ms=(turns[1] + turns[3]) / 2,
             turns_ms=turns, **pair,
@@ -739,15 +844,13 @@ def main() -> None:
                 q, k, v, causal=True, q_offset=off, splits=1), cold=True),
             plain_ms=device_ms(lambda: fa.flash_attention_plain(
                 q, k, v, causal=True, q_offset=off), cold=True),
-            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), cold=True),
+            library_ms=library,
             library_computes="the same attention (offset causal mask)",
             bound_ms=bound * 1e3,
             bound_by="operations" if flops / PEAK_FLOPS["bfloat16"]
             > nbytes / PEAK_BYTES else "bytes",
-            shape=dict(B=B, c=c, q_offset=off, Sk=Sk, H=Hq, KV=KV, hd=hd,
-                       dtype="bfloat16", splits=fa.num_splits(
-                           B, c, Hq, KV, Sk, q_offset=off)))
+            shape=dict(B=B, c=c, q_offset=off, Sk=Sk, H=Hq, KV=kv, hd=dk,
+                       hdv=dv, dtype="bfloat16", splits=ns))
 
     def merge_case(c, off, Sk, Hq=H):
         """The merge launch alone, on partials v3 just wrote (warm)."""
@@ -831,19 +934,32 @@ def main() -> None:
         return part, comb
 
     t0 = time.perf_counter()
-    for Hq, c, off in [(H, c, off) for c in (32, 64, 256)
-                       for off in (0, 224, 736, 1792) if off + c <= 2048] + [
-                           (40, 256, 736), (H, 1, 1792)]:
-        r = k1_case(c, off, 2048, Hq=Hq)
-        tag = f"c={c} off={off}" + ("" if Hq == H else f" H={Hq}")
+    # llama3-8b's chunks (32/8 heads), llama4-scout's (40/8), the dense
+    # configs' groups (minitron 24/8, yi 32/4, chatglm 32/2), and MLA's
+    # Model.prefill of 4 x 2048 at 16 heads, (192, 128)
+    for Hq, c, off, kw in [(H, c, off, {}) for c in (32, 64, 256)
+                           for off in (0, 224, 736, 1792)
+                           if off + c <= 2048] + [
+            (40, 256, 736, {}), (H, 1, 1792, {}),
+            (24, 256, 736, dict(kv=8)), (32, 256, 736, dict(kv=4)),
+            (32, 256, 736, dict(kv=2)),
+            (16, 2048, 0, dict(B=4, kv=16, dk=192, dv=128))]:
+        r = k1_case(c, off, 2048, Hq=Hq, **kw)
+        tag = f"c={c} off={off}" + ("" if Hq == H and not kw else
+                                    f" H={Hq}") + (
+            f" KV={kw['kv']}" if "kv" in kw else "") + (
+            f" B={kw['B']} hd=({kw['dk']}, {kw['dv']})" if "dk" in kw
+            else "")
         report["timings"][f"flash_attention_fwd {tag}"] = r
         fused = "" if "pair_ms" not in r else (
             f"; fused {r['fused_ms']:.4f} against split partials + merge "
             f"{r['pair_ms']:.4f} in turns, route {r['route']}")
+        lib = "refused" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
         say(f"K1 {tag} Sk=2048 bf16: v3 {r['ms']:.4f} ms "
             f"({r['shape']['splits']} splits{fused}; unsplit "
             f"{r['unsplit_ms']:.4f}), v2 {r['v2_ms']:.4f} ms"
-            f", plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+            f", plain {r['plain_ms']:.4f} ms, sdpa {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     merge_row = merge_case(32, 1792, 2048)
     report["timings"]["flash_attention_merge c=32 off=1792"] = merge_row
@@ -1291,6 +1407,9 @@ def main() -> None:
         xreqs.append(Request(rid=i, prompt=xrng.randint(
             3, V, size=plen).astype(np.int32),
             max_new=int(xrng.randint(16, 65))))
+    # the first XLSTM_REQUESTS of the 16 drawn (the rest keep the later
+    # phases' inputs as they were): the engine's host time bounds the run
+    xreqs = xreqs[:XLSTM_REQUESTS]
     del xcache
     free_card(torch)
     _build.reset_launches()
@@ -1309,7 +1428,8 @@ def main() -> None:
     t_xce = time.perf_counter() - t0
     peak_xce = torch.cuda.max_memory_allocated()
     eng_launches = _build.launches()
-    check(len(xdone) == 16, f"served {len(xdone)}/16 xlstm requests")
+    check(len(xdone) == len(xreqs), f"served {len(xdone)}/{len(xreqs)} "
+          f"xlstm requests")
     for r in xdone.values():
         res = np.asarray(r.result)
         check(1 <= len(res) <= r.max_new and bool(
@@ -1318,10 +1438,10 @@ def main() -> None:
     check(xce.telemetry.pages_per_request == 1.0
           and len(xce.pages.free) == xce.pages.num_pages
           and xce._admission.counter.value == 1
-          and xce.telemetry.retired == 16,
+          and xce.telemetry.retired == len(xreqs),
           "state slots: pages per request != 1, or not all freed/retired")
     gen_x = sum(len(r.result) for r in xdone.values())
-    say(f"SSM path: ContinuousEngine served 16 requests (prompts "
+    say(f"SSM path: ContinuousEngine served {len(xreqs)} requests (prompts "
         f"{min(len(r.prompt) for r in xreqs)}-"
         f"{max(len(r.prompt) for r in xreqs)}), {gen_x} tokens in "
         f"{t_xce:.2f} s = {gen_x / t_xce:.1f} tok/s, "
@@ -1525,17 +1645,31 @@ def main() -> None:
     # ----------------------------- 11. fp32 at the MoE path's width, 1 layer
     moe_fp32(np, torch, args.seed, report, drain)
 
-    # --------------------------------------------------------- 12. report
+    # ------------------ 12. the MLA path: deepseek-v2-lite-16b, 27 layers
+    mla_launches = mla_path(np, torch, dev, args.seed, card, report,
+                            breakdown, drain)
+
+    # ------------------------------ 13. fp32 at deepseek's width, 2 layers
+    mla_fp32(np, torch, args.seed, report, drain)
+
+    # ------ 14. the dense configs: yi-9b, chatglm3-6b, minitron-4b, full
+    dense_configs_path(np, torch, args.seed, card, report, drain)
+
+    # --------------------------------------------------------- 15. report
     # the standalone combine serves v1 only: its launches are the fp32
     # dense engine's (phase 6)
     path_launches_by_kernel = {
         **launches, "tile_scan_logspace": ssm_launches["tile_scan_logspace"],
         "tile_scan_affine": mamba_launches["tile_scan_affine"],
-        "flash_decode_combine": fp32_launches["flash_decode_combine"]}
+        "flash_decode_combine": fp32_launches["flash_decode_combine"],
+        "flash_attention_fwd (192, 128)": mla_launches["k1"]}
+    rows["flash_attention_fwd (192, 128)"] = report["timings"][
+        "flash_attention_fwd c=2048 off=0 H=16 KV=16 B=4 hd=(192, 128)"]
     kernels = []
     meta = {
         "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:72"),
+        "flash_attention_fwd (192, 128)": K1_MLA,
         "flash_attention_merge": ("src/repro_torch/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:72"),
         "flash_decode_partials": ("src/repro_torch/csrc/flash_decode.cu",
@@ -1577,6 +1711,8 @@ def main() -> None:
                                    "partials_bound_ms") if k in row},
             **({"launches_from": "fp32 dense ContinuousEngine (v1 route)"}
                if name == "flash_decode_combine" else {}),
+            **({"launches_from": f"{MLA_ARCH} Model.prefill 4 x 2048"}
+               if name == "flash_attention_fwd (192, 128)" else {}),
             **({"fused_split_launches": n_fused}
                if name == "flash_attention_fwd" else {})})
     kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
@@ -2084,7 +2220,9 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     rows["radix_tile_sort_packed"] = dict(
         k7b_row(keys, 12, n), cta_widths_ms=k7b_shapes,
         other_shapes={"2^15 17-bit keys (case (e))": k7b_row(
-            keys_e, 17, 1 << 15)})
+            keys_e, 17, 1 << 15),
+            "one tile of 1024 12-bit keys": k7b_row(keys[:tile], 12,
+                                                    tile)})
     rows["merge_level"] = k8_row(
         packed, tile, None, "sort of each 2-run row (top bit flipped, int32)",
         lambda: torch.sort(fp.reshape(n // (2 * tile), 2 * tile), dim=1))
@@ -2506,6 +2644,9 @@ MOE_META = {
     "unpack_order": ("src/repro_torch/csrc/merge_sort.cu",
                      "src/repro/kernels/merge_sort.py:150"),
 }
+# the SSM path's ContinuousEngine serves 8 of its 16 drawn requests: the
+# engine is host-bound (124-169 s for all 16 on an H100 host)
+XLSTM_REQUESTS = 8
 MOE_ARCH = "llama4-scout-17b-a16e"
 MOE_LAYERS = 12           # of 48: the bf16 weights of 12 layers are 57 GB
 
@@ -3039,22 +3180,29 @@ def moe_path(np, torch, dev, seed, card, report, breakdown, drain):
 
 
 def moe_fp32(np, torch, seed, report, drain):
-    """fp32 at the MoE path's full width, one layer: card logits against
-    the CPU plain path on the same weights, and continuous-batching tokens
-    against one-at-a-time tokens (a divergence must be a near-tie)."""
+    """fp32 at the MoE path's full width, one layer (``fp32_check``)."""
     from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=1,
+                              param_dtype="float32", compute_dtype="float32")
+    fp32_check(np, torch, seed, report, drain, cfg, "MoE", "fp32_moe",
+               rng_seed=seed + 6, moe_strategy="sort", moe_sort_fn="pallas")
+
+
+def fp32_check(np, torch, seed, report, drain, cfg, what, key, *, rng_seed,
+               **model_kw):
+    """fp32 at full width and the depth of ``cfg``: card logits against
+    the CPU plain path on the same weights (prefill 2 x 300, then 4 decode
+    steps), and continuous-batching tokens against one-at-a-time tokens (a
+    divergence must be a near-tie); the results go to ``report[key]``."""
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import (ContinuousEngine, Engine,
                                           EngineConfig, Request)
-    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=1,
-                              param_dtype="float32", compute_dtype="float32")
     V = cfg.vocab_size
-    kw = dict(moe_strategy="sort", moe_sort_fn="pallas")
-    model = Model(cfg, device="cuda", **kw)
+    model = Model(cfg, device="cuda", **model_kw)
     params = model.init(seed + 1)
-    cpu_model = Model(cfg, device="cpu", **kw)
+    cpu_model = Model(cfg, device="cpu", **model_kw)
     cpu_params = _tree_to(params, "cpu")
-    rng = np.random.RandomState(seed + 6)
+    rng = np.random.RandomState(rng_seed)
     toks = torch.as_tensor(rng.randint(3, V, size=(2, 300)),
                            dtype=torch.int32)
     gl, gcache = model.prefill(params, toks.cuda(), max_seq=320)
@@ -3072,10 +3220,11 @@ def moe_fp32(np, torch, seed, report, drain):
         cl, ccache = cpu_model.decode_step(cpu_params, nxt, ccache, lengths)
         worst = max(worst, err(gl.cpu(), cl))
         nxt, lengths = torch.argmax(cl, -1).to(torch.int32), lengths + 1
-    say(f"fp32 MoE logits, card (K3) vs CPU plain path (1 layer at full "
-        f"width, prefill 2 x 300 + 4 decode steps): max abs err {worst:.3g} "
-        f"(tol {LOGIT_TOL})")
-    check(worst <= LOGIT_TOL, "card MoE logits disagree with the CPU")
+    say(f"fp32 {what} logits, card vs CPU plain path ({cfg.num_layers} "
+        f"layer{'s' if cfg.num_layers > 1 else ''} at full width, prefill "
+        f"2 x 300 + 4 decode steps): max abs err {worst:.3g} (tol "
+        f"{LOGIT_TOL})")
+    check(worst <= LOGIT_TOL, f"card {what} logits disagree with the CPU")
     del cpu_model, cpu_params, ccache, gcache
 
     lens6, news6 = (40, 300, 77, 520, 129, 260), (10, 6, 14, 8, 12, 5)
@@ -3105,16 +3254,282 @@ def moe_fp32(np, torch, seed, report, drain):
             ctx[None], device="cuda"))
         top2 = torch.topk(logits[0, :V], 2).values
         gap = float(top2[0] - top2[1])
-        say(f"MoE request {i}: batched and one-at-a-time tokens differ at "
-            f"step {t}; top-2 logit gap there {gap:.3g}")
-        check(gap < NEAR_TIE, f"MoE request {i}: divergence is not a "
+        say(f"{what} request {i}: batched and one-at-a-time tokens differ "
+            f"at step {t}; top-2 logit gap there {gap:.3g}")
+        check(gap < NEAR_TIE, f"{what} request {i}: divergence is not a "
               f"near-tie (gap {gap:.3g} >= {NEAR_TIE})")
         ties += 1
-    say(f"fp32 MoE ContinuousEngine == one-at-a-time Engine tokens for "
+    say(f"fp32 {what} ContinuousEngine == one-at-a-time Engine tokens for "
         f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties)")
-    report["fp32_moe"] = dict(max_logit_err=worst, near_ties=ties)
+    report[key] = dict(max_logit_err=worst, near_ties=ties)
     del ce, params, model
     free_card(torch)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2-lite-16b) and the dense configs beside llama3-8b
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+DENSE_ARCHS = ("yi-9b", "chatglm3-6b", "minitron-4b")
+# K1's MLA instance for the kernels line: (source, the TPU kernel)
+K1_MLA = ("src/repro_torch/csrc/flash_attention.cu",
+          "src/repro/kernels/flash_attention.py:72")
+
+
+def _requests(np, rng, n, vocab, max_new):
+    """n (prompt, max_new) pairs: prompts of 64 to 1024 tokens, the dense
+    path's mix, max_new in [max_new[0], max_new[1]]."""
+    return [(rng.randint(3, vocab, size=int(rng.randint(64, 1025)))
+             .astype(np.int32), int(rng.randint(max_new[0], max_new[1] + 1)))
+            for _ in range(n)]
+
+
+def _serve(torch, model, params, reqs, drain, *, continuous, rid0=0):
+    """Serve ``reqs`` through ContinuousEngine (8 slots, pages of 32) or
+    the sync Engine (one batch of 4); returns ({rid: tokens}, seconds,
+    the continuous engine's telemetry or None).  Every token must be in
+    the vocabulary and at most its request's max_new."""
+    import numpy as np
+    from repro_torch.serve.engine import (ContinuousEngine, Engine,
+                                          EngineConfig, Request)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if continuous:
+        eng = ContinuousEngine(model, params, EngineConfig(
+            max_batch=8, max_seq=2048, decode_tick=8, page_size=32,
+            eos_id=7))
+        for i, (pr, mn) in enumerate(reqs):
+            eng.submit(Request(rid=rid0 + i, prompt=pr, max_new=mn))
+        done = {rid: np.asarray(r.result) for rid, r in drain(eng).items()}
+        check(len(eng.pages.free) == eng.pages.num_pages
+              and eng._admission.counter.value == 1
+              and eng.telemetry.retired == len(reqs)
+              and all(s is None for s in eng.slots),
+              f"{model.cfg.name}: pages, cap counter or slots not all "
+              f"freed")
+        telemetry = eng.telemetry.snapshot()
+    else:
+        eng = Engine(model, params, EngineConfig(max_batch=4, max_seq=2048,
+                                                 eos_id=7))
+        for i, (pr, mn) in enumerate(reqs):
+            eng.submit(Request(rid=rid0 + i, prompt=pr, max_new=mn))
+        done = {r.rid: np.asarray(r.result) for r in eng.step()}
+        telemetry = None
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(len(done) == len(reqs), f"{model.cfg.name}: served {len(done)}/"
+          f"{len(reqs)}")
+    V = model.cfg.vocab_size
+    for rid, res in done.items():
+        mn = reqs[rid - rid0][1]
+        check(1 <= len(res) <= mn and bool(((res >= 0) & (res < V)).all()),
+              f"{model.cfg.name} request {rid}: {len(res)} tokens for "
+              f"max_new {mn}, or out of range")
+    return done, secs, telemetry
+
+
+def mla_path(np, torch, dev, seed, card, report, breakdown, drain):
+    """The MLA path: deepseek-v2-lite-16b at full width and depth (27
+    layers: the dense prefix layer + 26 MoE layers of 64 experts top-6 and
+    2 shared), bf16, seeded random weights, ``moe_strategy="sort"``, K3
+    routing.  16 requests through ContinuousEngine and 4 through Engine
+    (chunks and decode steps score MLA in absorbed form against the latent
+    cache: no K1, no K2; K3 once per MoE layer per chunk and step), then
+    ``Model.prefill`` of 4 x 2048 (K1 at (192, 128) once per layer, K3 once
+    per MoE layer).  Returns the launches of those runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import Model
+    cfg = get_config(MLA_ARCH)
+    V, L = cfg.vocab_size, cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", moe_strategy="sort",
+                  moe_sort_fn="pallas")
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    specs = model.prefix_specs + model.period_specs * model.repeats
+    n_moe = sum(s.is_moe for s in specs)
+    check(len(specs) == L and [s.kind for s in specs] == ["mla"] * L
+          and n_moe == L - 1 and not specs[0].is_moe,
+          f"{cfg.name}: layers {[(s.kind, s.is_moe) for s in specs]}")
+    say(f"{cfg.name}: {L} layers (1 dense prefix + {n_moe} MoE: "
+        f"{cfg.num_experts} experts top-{cfg.top_k} + "
+        f"{cfg.num_shared_experts} shared), MLA kv_lora {cfg.kv_lora_rank}, "
+        f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.2f}B params in "
+        f"{cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 7)
+    cont_reqs = _requests(np, rng, 16, V, (16, 64))
+    sync_reqs = _requests(np, rng, 4, V, (16, 64))
+    attn = ("flash_attention_fwd", "flash_attention_merge",
+            "flash_decode_partials", "flash_decode_combine")
+
+    _build.reset_launches()
+    model.calls = dict.fromkeys(model.calls, 0)
+    done, t_cont, telemetry = _serve(torch, model, params, cont_reqs, drain,
+                                     continuous=True)
+    calls_cont = dict(model.calls)
+    sync_done, t_sync, _ = _serve(torch, model, params, sync_reqs, drain,
+                                  continuous=False, rid0=100)
+    eng_launches, calls = _build.launches(), dict(model.calls)
+    check(calls["prefill"] == 0, "the engines ran a non-chunked prefill")
+    n_k3 = n_moe * (calls["prefill_chunk"] + calls["decode_step"])
+    check(eng_launches["moe_dispatch"] == n_k3 > 0,
+          f"MLA engines: K3 launches {eng_launches['moe_dispatch']} != "
+          f"{n_moe} MoE layers x ({calls['prefill_chunk']} chunks + "
+          f"{calls['decode_step']} decode steps)")
+    check(all(eng_launches[k] == 0 for k in attn),
+          f"MLA engines launched K1 or K2 (absorbed MLA runs neither): "
+          f"{ {k: eng_launches[k] for k in attn} }")
+    others = [k for k, n in eng_launches.items() if n and k != "moe_dispatch"]
+    check(not others, f"MLA engines launched {others}")
+    gen_cont = sum(len(v) for v in done.values())
+    gen_sync = sum(len(v) for v in sync_done.values())
+    say(f"MLA path: K3 launches {n_k3} = {n_moe} MoE layers x "
+        f"({calls['prefill_chunk']} prefill chunks + {calls['decode_step']} "
+        f"decode steps), K1 and K2 0 (absorbed chunks and decode; "
+        f"continuous engine alone: {calls_cont})")
+    say(f"MLA ContinuousEngine: 16 requests, {gen_cont} tokens in "
+        f"{t_cont:.2f} s = {gen_cont / t_cont:.1f} tok/s; Engine: 4 "
+        f"requests, {gen_sync} tokens in {t_sync:.2f} s = "
+        f"{gen_sync / t_sync:.1f} tok/s [{card}]")
+
+    prompts = torch.as_tensor(rng.randint(3, V, size=(4, 2048)),
+                              dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    model.calls = dict.fromkeys(model.calls, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    pre_launches = _build.launches()
+    want = {"flash_attention_fwd": L, "flash_attention_merge": 0,
+            "moe_dispatch": n_moe, "flash_decode_partials": 0}
+    got = {k: pre_launches[k] for k in want}
+    check(got == want, f"MLA Model.prefill 4 x 2048: launches {got} != K1 "
+          f"once a layer, K3 once a MoE layer {want}")
+    check(tuple(logits.shape) == (4, V) and bool(torch.isfinite(
+        logits).all()), f"MLA prefill logits {tuple(logits.shape)} not "
+        f"finite (4, {V})")
+    check(tuple(cache["prefix"][0]["latent"].shape) == (
+        4, 2048, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+        "MLA prefill: the prefix layer's latent cache has the wrong shape")
+    say(f"MLA Model.prefill 4 x 2048: {t_prefill:.2f} s, launches {got} "
+        f"(K1 at q/k 192, v 128: one a layer) [{card}]")
+    del cache, logits
+
+    lens8 = torch.as_tensor(np.random.RandomState(seed).randint(
+        64, 1089, size=8), dtype=torch.int32, device=dev)
+    toks8 = torch.randint(3, V, (8,), device=dev, dtype=torch.int32)
+    dcache = model.init_cache(8, 2048)
+    pcache = model.init_cache(1, 2048)
+    model.prefill_chunk(params, prompts[:1, :736], pcache, 0)
+    breakdowns = {}
+    for what, fn, reps in (
+            ("decode step B=8 S=2048", lambda: model.decode_step(
+                params, toks8, dcache, lens8), 5),
+            ("prefill chunk c=256 at 736, B=1 S=2048", lambda:
+             model.prefill_chunk(params, prompts[:1, 736:992], pcache, 736,
+                                 all_logits=True), 3)):
+        wall, groups = breakdown(fn, reps)
+        dev_ms = sum(groups.values())
+        breakdowns[what] = dict(wall_ms=wall, device_ms=dev_ms,
+                                busy=dev_ms / wall, groups=groups)
+        say(f"MLA {what}, {L} layers: wall {wall:.2f} ms, device "
+            f"{dev_ms:.2f} ms ({100 * dev_ms / wall:.0f}% busy: " + ", ".join(
+                f"{g} {t:.2f}" for g, t in sorted(
+                    groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"MLA path: peak memory {peak / 2**30:.2f} GiB [{card}]")
+    report["mla_path"] = dict(
+        layers=L, engine_launches={k: v for k, v in eng_launches.items()
+                                   if v}, prefill_launches=got,
+        calls=calls, continuous_s=t_cont, continuous_tokens=gen_cont,
+        sync_s=t_sync, sync_tokens=gen_sync, prefill_s=t_prefill,
+        peak_bytes=peak, breakdown=breakdowns, telemetry=telemetry)
+    del dcache, pcache, params, model, prompts
+    free_card(torch)
+    return dict(k1=got["flash_attention_fwd"],
+                k3=eng_launches["moe_dispatch"] + got["moe_dispatch"])
+
+
+def mla_fp32(np, torch, seed, report, drain):
+    """fp32 at deepseek's full width, 2 layers (the dense prefix layer and
+    one MoE layer): ``Model.prefill`` runs K1's fp32 kernel at (192,
+    128)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    fp32_check(np, torch, seed, report, drain, cfg, "MLA", "fp32_mla",
+               rng_seed=seed + 8, moe_strategy="sort", moe_sort_fn="pallas")
+
+
+def dense_configs_path(np, torch, seed, card, report, drain):
+    """yi-9b (32/4 heads), chatglm3-6b (32/2, half-rotary) and
+    minitron-4b (24/8, relu² FFN) at full width and depth in bf16, seeded
+    random weights: 8 requests each through ContinuousEngine (prompts 64
+    to 1024, max_new 16 to 32); K1 once per layer per prefill chunk, K2
+    once per layer per decode step, no standalone combine.  Then
+    minitron's fp32 check at full width, 2 layers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import Model
+    out = {}
+    for i, arch in enumerate(DENSE_ARCHS):
+        cfg = get_config(arch)
+        L, G = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda")
+        params = model.init(seed)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        reqs = _requests(np, np.random.RandomState(seed + 20 + i), 8,
+                         cfg.vocab_size, (16, 32))
+        _build.reset_launches()
+        model.calls = dict.fromkeys(model.calls, 0)
+        done, secs, telemetry = _serve(torch, model, params, reqs, drain,
+                                       continuous=True)
+        launches, calls = _build.launches(), dict(model.calls)
+        expect = {"flash_attention_fwd": L * calls["prefill_chunk"],
+                  "flash_decode_partials": L * calls["decode_step"],
+                  "flash_decode_combine": 0}
+        got = {k: launches[k] for k in expect}
+        check(calls["prefill"] == 0 and got == expect and all(
+            got[k] > 0 for k in ("flash_attention_fwd",
+                                 "flash_decode_partials")),
+              f"{arch}: launches {got} != layers x (prefill chunks, decode "
+              f"steps), no combine {expect}")
+        n_merge = launches["flash_attention_merge"]
+        n_fused = _build.KERNELS["flash_attention_fwd"].tags.get("fused", 0)
+        check(n_merge % L == 0 and n_fused % L == 0
+              and n_merge + n_fused <= launches["flash_attention_fwd"],
+              f"{arch}: K1 split launches ({n_fused} fused, {n_merge} "
+              f"merges) are not layers x split chunks")
+        gen = sum(len(v) for v in done.values())
+        peak = torch.cuda.max_memory_allocated()
+        say(f"{arch}: {L} layers, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+            f"(G {G}), {cfg.ffn_type}, {cfg.param_count() / 1e9:.2f}B "
+            f"params in {cfg.param_dtype} (init {t_init:.1f} s); "
+            f"ContinuousEngine: 8 requests, {gen} tokens in {secs:.2f} s = "
+            f"{gen / secs:.1f} tok/s; launches {got} = {L} layers x "
+            f"({calls['prefill_chunk']} chunks, {calls['decode_step']} "
+            f"decode steps), K1 split chunks {(n_fused + n_merge) // L} "
+            f"({n_fused // L} fused); peak memory {peak / 2**30:.2f} GiB "
+            f"[{card}]")
+        out[arch] = dict(layers=L, launches=got, merge_launches=n_merge,
+                         fused_split_launches=n_fused, calls=calls,
+                         continuous_s=secs, tokens=gen, peak_bytes=peak,
+                         telemetry=telemetry)
+        del model, params, done
+        free_card(torch)
+    report["dense_configs"] = out
+    cfg = dataclasses.replace(get_config("minitron-4b"), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    fp32_check(np, torch, seed, report, drain, cfg, "minitron-4b",
+               "fp32_minitron", rng_seed=seed + 9)
 
 
 def moe_kernel_entries(rows, errs, launches):

@@ -133,21 +133,28 @@ class ModelConfig:
 
     def param_count(self, *, active_only: bool = False) -> int:
         """Analytic parameter count, the reference's formula for the layer
-        kinds the port runs (GQA attention, Mamba, mLSTM, sLSTM, dense FFN,
-        MoE); ``active_only`` counts the top-k experts only (MoE activated
+        kinds the port runs (GQA and MLA attention, Mamba, mLSTM, sLSTM,
+        dense SwiGLU / 2-matrix FFN, MoE, the unrolled dense prefix);
+        ``active_only`` counts the top-k experts only (MoE activated
         parameters)."""
-        if self.attn_type == "mla" or self.cross_attn_period \
-                or self.is_encdec:
+        if self.cross_attn_period or self.is_encdec:
             raise NotImplementedError(
-                "param_count of MLA / cross-attention / encoder configs: "
+                "param_count of cross-attention / encoder configs: "
                 "ROADMAP.md Queue 1 item 8")
         d, hd = self.d_model, self.resolved_head_dim
         di = self.ssm_expand * d
         mats = 3 if self.ffn_type == "swiglu" else 2
-        qd, kvd = self.num_heads * hd, self.num_kv_heads * hd
         dt_rank = max(1, d // 16)
+        if self.attn_type == "mla":
+            r, rd = self.kv_lora_rank, self.qk_rope_head_dim
+            nd, vd, H = self.qk_nope_head_dim, self.v_head_dim, self.num_heads
+            attn = (d * H * (nd + rd) + d * (r + rd) + r * H * (nd + vd)
+                    + H * vd * d)
+        else:
+            qd, kvd = self.num_heads * hd, self.num_kv_heads * hd
+            attn = d * (qd + 2 * kvd) + qd * d
         per_kind = {
-            "attn": d * (qd + 2 * kvd) + qd * d,
+            "attn": attn,
             "mamba": (d * 2 * di + di * self.ssm_conv_dim
                       + di * (dt_rank + 2 * self.ssm_state_dim)
                       + dt_rank * di + di + di * self.ssm_state_dim

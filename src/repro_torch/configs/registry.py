@@ -9,22 +9,22 @@ from __future__ import annotations
 
 from typing import List
 
-from . import llama3_8b, llama4_scout_17b, xlstm_1_3b
+from . import (chatglm3_6b, deepseek_v2_lite, llama3_8b, llama4_scout_17b,
+               minitron_4b, xlstm_1_3b, yi_9b)
 from .base import ModelConfig
 
 _MODULES = {
     "llama3-8b": llama3_8b,
     "llama4-scout-17b-a16e": llama4_scout_17b,
     "xlstm-1.3b": xlstm_1_3b,
+    "yi-9b": yi_9b,
+    "chatglm3-6b": chatglm3_6b,
+    "minitron-4b": minitron_4b,
+    "deepseek-v2-lite-16b": deepseek_v2_lite,
 }
 
 # arch id → the ROADMAP.md item that ports what it needs
 NOT_PORTED = {
-    "minitron-4b": "Queue 1 item 7 (dense configs: relu2 FFN)",
-    "chatglm3-6b": "Queue 1 item 7 (dense configs: half-rotary GQA)",
-    "yi-9b": "Queue 1 item 7 (dense configs)",
-    "deepseek-v2-lite-16b": "Queue 1 item 8 (MLA and the unrolled dense "
-                            "prefix layer; its MoE layers are ported)",
     "whisper-medium": "Queue 1 item 8 (encoder-decoder attention)",
     "llama-3.2-vision-11b": "Queue 1 item 8 (cross-attention)",
     "jamba-1.5-large-398b": "Queue 1 item 15 (its full-width MoE layers, "

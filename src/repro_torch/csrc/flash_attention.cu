@@ -12,8 +12,9 @@
 //
 // Two kernels compute it, chosen by a shape rule in the Python wrapper:
 //
-// v3, flash_fwd_tc_kernel<HD> (bf16, head dim HD a multiple of 16, <=
-// 128): both products on the bf16 tensor cores (mma.sync.aligned.m16n8k16,
+// v3, flash_fwd_tc_kernel<HDK, HDV> (bf16; q/k head dim HDK, v head dim
+// HDV: one dim, a multiple of 16 up to 128, or MLA's (192, 128)): both
+// products on the bf16 tensor cores (mma.sync.aligned.m16n8k16,
 // fp32 accumulation; mma.sync rather than wgmma because at these sizes --
 // at most ~1024 packed rows by 2048 keys per kv head -- occupancy and
 // latency bound the kernel before the tensor-core rate does, and its
@@ -28,7 +29,10 @@
 // memory holds bf16 rows padded by 16 bytes, so every ldmatrix (.trans
 // for V) is free of bank conflicts; Q is staged in the ring's last K
 // stage before the loop, so 68 KB a CTA (and 200 registers a thread at
-// HD 128) let 2 CTAs share an SM.  Each warp owns 16 rows: S = Q K^T
+// HD 128) let 2 CTAs share an SM.  At (192, 128) Q K^T runs 12 k-steps,
+// the K stages hold 192-wide rows (25 KB) and the V stages 128-wide ones
+// (17 KB): 84 KB of ring, and Q's 12 A fragments are 16 more registers a
+// thread, so 2 CTAs still share an SM.  Each warp owns 16 rows: S = Q K^T
 // stays in the m16n8 accumulator fragments, the softmax scale (folded
 // with log2 e, for exp2f) is applied to the fp32 logits, the row max and
 // sum are reduced over the 4 lanes of a quad with shuffles, and P,
@@ -80,7 +84,9 @@
 // keys tx + 16j (i, j < 4), so each shared-memory read feeds 2 FMAs
 // (register blocking; row stride hd + 1 keeps the reads free of bank
 // conflicts), and output dims tx + 16e.  The row max and sum are reduced
-// over the 16 lanes of a row group with shuffles.
+// over the 16 lanes of a row group with shuffles.  V and the output are
+// at most 128 wide; q/k rows up to 128 in one instance (113 KB of shared
+// memory) and up to 192 in another (145 KB, MLA's fp32 path).
 //
 // Both: the kv loop stops at q_offset + the tile's last query (causal
 // pruning); masked logits are -1e30, never -inf, so exp() gives exactly 0
@@ -99,23 +105,29 @@ namespace {
 
 constexpr int BQ = 64;            // query rows per CTA
 constexpr int BK = 64;            // keys per kv tile
-constexpr int MAX_HD = 128;
-constexpr int LD = MAX_HD + 1;    // row stride of sQ and sK
+constexpr int MAX_HD = 128;       // v head dim (and q/k of the narrow build)
+constexpr int MAX_HDK = 192;      // q/k head dim of the wide build (MLA)
 constexpr int PLD = BK + 1;       // row stride of sP
 constexpr int THREADS = 256;      // a 16 x 16 thread grid
 constexpr int RI = BQ / 16;       // rows per thread
 constexpr int KJ = BK / 16;       // keys per thread and tile
 constexpr int DE = MAX_HD / 16;   // output dims per thread
 
+// MAXK: the widest q/k head dim the instance takes (128, or 192 for MLA's
+// 128 + 64); sQ and sK rows are MAXK + 1 wide, V rows MAX_HD
+template <int MAXK>
 constexpr size_t fma_smem_bytes() {
-  return sizeof(float) * (BQ * LD + BK * LD + BK * MAX_HD + BQ * PLD);
+  return sizeof(float) *
+         (BQ * (MAXK + 1) + BK * (MAXK + 1) + BK * MAX_HD + BQ * PLD);
 }
 
-template <typename T>
+template <typename T, int MAXK>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, int hd, int causal, float scale, int q_offset) {
+                 int H, int KV, int hd, int hdv, int causal, float scale,
+                 int q_offset) {
+  constexpr int LD = MAXK + 1;           // row stride of sQ and sK
   extern __shared__ float smem[];
   float* sQ = smem;                      // BQ x LD, pre-scaled
   float* sK = sQ + BQ * LD;              // BK x LD
@@ -130,11 +142,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const size_t q_row = (size_t)H * hd;   // stride between sequence positions
   const size_t kv_row = (size_t)KV * hd;
+  const size_t v_row = (size_t)KV * hdv, o_row = (size_t)H * hdv;
   const T* qb = q + ((size_t)b * Sq * H + h) * hd;
   const T* kb = k + ((size_t)b * Sk * KV + kvh) * hd;
-  const T* vb = v + ((size_t)b * Sk * KV + kvh) * hd;
-  T* ob = o + ((size_t)b * Sq * H + h) * hd;
-  const int hd4 = hd >> 2;
+  const T* vb = v + ((size_t)b * Sk * KV + kvh) * hdv;
+  T* ob = o + ((size_t)b * Sq * H + h) * hdv;
+  const int hd4 = hd >> 2, hdv4 = hdv >> 2;
 
   // q is cast to fp32 and then scaled, as the TPU kernel does
   for (int i = tid; i < BQ * hd4; i += THREADS) {
@@ -165,16 +178,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                     // previous tile fully consumed
     for (int i = tid; i < BK * hd4; i += THREADS) {
       const int j = i / hd4, d = (i - j * hd4) * 4;
-      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + j < k_hi) {
-        load4(kb + (size_t)(k0 + j) * kv_row + d, kx);
-        load4(vb + (size_t)(k0 + j) * kv_row + d, vx);
-      }
+      float kx[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k0 + j < k_hi) load4(kb + (size_t)(k0 + j) * kv_row + d, kx);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sK[j * LD + d + e] = kx[e];
-        sV[j * MAX_HD + d + e] = vx[e];
-      }
+      for (int e = 0; e < 4; ++e) sK[j * LD + d + e] = kx[e];
+    }
+    for (int i = tid; i < BK * hdv4; i += THREADS) {
+      const int j = i / hdv4, d = (i - j * hdv4) * 4;
+      float vx[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k0 + j < k_hi) load4(vb + (size_t)(k0 + j) * v_row + d, vx);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sV[j * MAX_HD + d + e] = vx[e];
     }
     __syncthreads();
 
@@ -251,11 +265,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = ob + (size_t)r * q_row;
+    T* orow = ob + (size_t)r * o_row;
 #pragma unroll
     for (int e = 0; e < DE; ++e) {
       const int d = tx + 16 * e;
-      if (d < hd) store(orow + d, acc[i][e] * inv);
+      if (d < hdv) store(orow + d, acc[i][e] * inv);
     }
   }
 }
@@ -265,14 +279,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int TC_BM = 64;                 // packed rows per CTA (16 a warp)
 constexpr int TC_BN = 64;                 // keys per kv tile
 constexpr int TC_MAXD = 128;
-constexpr int TC_LDS = TC_MAXD + 8;       // bf16 row stride: +16 bytes
 constexpr int TC_STAGES = 2;              // K/V ring
 constexpr int TC_THREADS = 128;
 constexpr int MERGE_THREADS = 256;
 
-// K and V rings; Q is staged in the last K stage before the loop fills it
+// bf16 row stride of a D-wide row in shared memory: at least TC_MAXD,
+// +16 bytes (every row starts 16 bytes further round the banks: ldmatrix
+// meets no conflict)
+__host__ __device__ constexpr int tc_lds(int D) {
+  return (D > TC_MAXD ? D : TC_MAXD) + 8;
+}
+// K (HDK wide) and V (HDV wide) rings; Q is staged in the last K stage
+// before the loop fills it
+template <int HDK, int HDV>
 __host__ __device__ constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * TC_LDS * 2 * TC_STAGES * TC_BN;
+  return sizeof(__nv_bfloat16) * (tc_lds(HDK) + tc_lds(HDV)) * TC_STAGES *
+         TC_BN;
 }
 static_assert(TC_BM == TC_BN, "Q is staged in a K stage");
 // the fused merge's m, l and weights: static shared memory for this many
@@ -319,7 +341,7 @@ __device__ __forceinline__ void store_quad(__nv_bfloat16* out,
 //     the slots interleave the threads, so copies and reads meet no bank
 //     conflict.  (Streaming a tile's rows split by split, group by group
 //     was 3x slower: one 8 KB chunk a round trip.)
-template <int HD>
+template <int HD, size_t RING_BYTES>
 __device__ __forceinline__ void merge_rows(
     const float* pm, const float* pl, const float* pacc,
     __nv_bfloat16* __restrict__ o, float4* ring, int r0, int nrows, int G,
@@ -330,7 +352,7 @@ __device__ __forceinline__ void merge_rows(
   constexpr int ITEMS = RG * Q;                 // items a chunk
   constexpr int IPT = (ITEMS + TC_THREADS - 1) / TC_THREADS;   // a thread
   static_assert(sizeof(float4) * MERGE_STAGES * IPT * TC_THREADS <=
-                tc_smem_bytes(), "the stream fits the ring");
+                RING_BYTES, "the stream fits the ring");
   __shared__ float sM[TC_MAX_FUSED][TC_BM];     // m, then the weights
   __shared__ float sL[TC_MAX_FUSED][TC_BM];
   __shared__ float sInv[TC_BM];                 // 1 / max(l, 1e-30)
@@ -420,8 +442,10 @@ __device__ __forceinline__ void merge_rows(
 }
 
 // Fragment layouts: tensor_core.cuh.  Two S accumulator tiles side by side
-// are the A fragment of P V, so P needs no shuffle.
-template <int HD>
+// are the A fragment of P V, so P needs no shuffle.  HDK: the q/k head dim
+// (the k-steps of Q K^T), HDV: the v head dim (acc, the output, P V's
+// n-tiles); equal but for MLA (192, 128).
+template <int HDK, int HDV>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -431,10 +455,11 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     unsigned* __restrict__ arrive, int Sq, int Sk, int H,
                     int KV, int causal, float scale_log2, int q_offset,
                     int nsplit) {
+  constexpr int LDK = tc_lds(HDK), LDV = tc_lds(HDV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + TC_STAGES * TC_BN * TC_LDS;   // [stage][key][d]
-  __nv_bfloat16* sQ = sK + (TC_STAGES - 1) * TC_BN * TC_LDS;
+  __nv_bfloat16* sV = sK + TC_STAGES * TC_BN * LDK;      // [stage][key][d]
+  __nv_bfloat16* sQ = sK + (TC_STAGES - 1) * TC_BN * LDK;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
@@ -455,35 +480,55 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // fused: the tile's scratch rows, nsplit x TC_BM of them
   const size_t tile_base =
       (((size_t)b * KV + kvh) * gridDim.x + tile) * nsplit * TC_BM;
-  constexpr int nd8 = HD / 8;                    // 16-byte chunks of a row
-  constexpr int ndk = HD / 16;                   // 16-wide steps over HD
-  const size_t kv_row = (size_t)KV * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * Sk * kv_row + (size_t)kvh * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * Sk * kv_row + (size_t)kvh * HD;
+  constexpr int nk8 = HDK / 8;                   // 16-byte chunks of a row
+  constexpr int nd8 = HDV / 8;
+  constexpr int ndk = HDK / 16;                  // 16-wide steps over HDK
+  constexpr int ndv = HDV / 16;                  // and over HDV
+  const size_t k_row = (size_t)KV * HDK, v_row = (size_t)KV * HDV;
+  const __nv_bfloat16* kb = k + (size_t)b * Sk * k_row + (size_t)kvh * HDK;
+  const __nv_bfloat16* vb = v + (size_t)b * Sk * v_row + (size_t)kvh * HDV;
 
-  // packed row R of this kv head -> its q row in (B, Sq, H, HD)
-  auto q_row_offset = [&](int R) {
+  // packed row R of this kv head -> its row in (B, Sq, H): q rows are HDK
+  // wide, output rows HDV
+  auto q_row_index = [&](int R) {
     const int i = R / G;
-    return ((size_t)(b * Sq + i) * H + kvh * G + (R - i * G)) * HD;
+    return (size_t)(b * Sq + i) * H + kvh * G + (R - i * G);
   };
 
   // Q tile (zero rows past M): cp.async group 0
-  for (int c = tid; c < TC_BM * nd8; c += TC_THREADS) {
-    const int r = c / nd8, d = (c - r * nd8) * 8;
+  for (int c = tid; c < TC_BM * nk8; c += TC_THREADS) {
+    const int r = c / nk8, d = (c - r * nk8) * 8;
     const bool full = r0 + r < M;
-    cp_async16(smem_addr(sQ + r * TC_LDS + d),
-               full ? q + q_row_offset(r0 + r) + d : q, full);
+    cp_async16(smem_addr(sQ + r * LDK + d),
+               full ? q + q_row_index(r0 + r) * HDK + d : q, full);
   }
   auto load_kv = [&](int t, int stage) {
-    __nv_bfloat16* dK = sK + stage * TC_BN * TC_LDS;
-    __nv_bfloat16* dV = sV + stage * TC_BN * TC_LDS;
-    for (int c = tid; c < TC_BN * nd8; c += TC_THREADS) {
-      const int j = c / nd8, d = (c - j * nd8) * 8;
-      const int key = t * TC_BN + j;
-      const bool full = key < k_hi;   // past it: zero-filled and masked
-      const size_t off = (size_t)(full ? key : 0) * kv_row + d;
-      cp_async16(smem_addr(dK + j * TC_LDS + d), kb + off, full);
-      cp_async16(smem_addr(dV + j * TC_LDS + d), vb + off, full);
+    __nv_bfloat16* dK = sK + stage * TC_BN * LDK;
+    __nv_bfloat16* dV = sV + stage * TC_BN * LDV;
+    if constexpr (HDK == HDV) {   // one loop: the one-dim instances' code
+      for (int c = tid; c < TC_BN * nd8; c += TC_THREADS) {
+        const int j = c / nd8, d = (c - j * nd8) * 8;
+        const int key = t * TC_BN + j;
+        const bool full = key < k_hi;   // past it: zero-filled and masked
+        const size_t off = (size_t)(full ? key : 0) * k_row + d;
+        cp_async16(smem_addr(dK + j * LDK + d), kb + off, full);
+        cp_async16(smem_addr(dV + j * LDV + d), vb + off, full);
+      }
+    } else {
+      for (int c = tid; c < TC_BN * nk8; c += TC_THREADS) {
+        const int j = c / nk8, d = (c - j * nk8) * 8;
+        const int key = t * TC_BN + j;
+        const bool full = key < k_hi;
+        cp_async16(smem_addr(dK + j * LDK + d),
+                   kb + (size_t)(full ? key : 0) * k_row + d, full);
+      }
+      for (int c = tid; c < TC_BN * nd8; c += TC_THREADS) {
+        const int j = c / nd8, d = (c - j * nd8) * 8;
+        const int key = t * TC_BN + j;
+        const bool full = key < k_hi;
+        cp_async16(smem_addr(dV + j * LDV + d),
+                   vb + (size_t)(full ? key : 0) * v_row + d, full);
+      }
     }
   };
   cp_async_commit();
@@ -504,7 +549,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp_qmin = q_offset + min(r0 + wr, M - 1) / G;
 
   unsigned qf[ndk][4];    // A fragments of my 16 rows of Q
-  float acc[nd8][4];       // O, fp32, 16 rows x HD
+  float acc[nd8][4];       // O, fp32, 16 rows x HDV
 #pragma unroll
   for (int n = 0; n < nd8; ++n)
 #pragma unroll
@@ -516,7 +561,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 #pragma unroll
   for (int kk = 0; kk < ndk; ++kk)
-    ldmatrix_x4(qf[kk], smem_addr(sQ + (wr + (lane & 15)) * TC_LDS +
+    ldmatrix_x4(qf[kk], smem_addr(sQ + (wr + (lane & 15)) * LDK +
                                   kk * 16 + (lane >> 4) * 8));
 
   for (int t = t_begin; t < t_end; ++t) {
@@ -529,8 +574,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (t + TC_STAGES - 1 < t_end)
       load_kv(t + TC_STAGES - 1, (stage + TC_STAGES - 1) % TC_STAGES);
     cp_async_commit();
-    const __nv_bfloat16* cK = sK + stage * TC_BN * TC_LDS;
-    const __nv_bfloat16* cV = sV + stage * TC_BN * TC_LDS;
+    const __nv_bfloat16* cK = sK + stage * TC_BN * LDK;
+    const __nv_bfloat16* cV = sV + stage * TC_BN * LDV;
 
     // S = Q K^T: 16 rows x 64 keys a warp, 8 accumulator tiles
     float s[TC_BN / 8][4];
@@ -546,7 +591,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < TC_BN / 16; ++np)
         ldmatrix_x4(bk[np], smem_addr(cK + (np * 16 + (lane & 7) +
-                                            ((lane >> 4) << 3)) * TC_LDS +
+                                            ((lane >> 4) << 3)) * LDK +
                                       kk * 16 + ((lane >> 3) & 1) * 8));
 #pragma unroll
       for (int np = 0; np < TC_BN / 16; ++np) {
@@ -609,15 +654,15 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P V: V^T fragments by ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < TC_BN / 16; ++kk) {
-      unsigned bv[ndk][4];   // dims dp*16 + 0..7 (keys lo, hi), 8..15
+      unsigned bv[ndv][4];   // dims dp*16 + 0..7 (keys lo, hi), 8..15
 #pragma unroll
-      for (int dp = 0; dp < ndk; ++dp)
+      for (int dp = 0; dp < ndv; ++dp)
         ldmatrix_x4_trans(bv[dp], smem_addr(cV + (kk * 16 + (lane & 7) +
                                                   ((lane >> 3) & 1) * 8) *
-                                                     TC_LDS +
+                                                     LDV +
                                             dp * 16 + (lane >> 4) * 8));
 #pragma unroll
-      for (int dp = 0; dp < ndk; ++dp) {
+      for (int dp = 0; dp < ndv; ++dp) {
         mma_bf16(acc[2 * dp], pf[kk], bv[dp][0], bv[dp][1]);
         mma_bf16(acc[2 * dp + 1], pf[kk], bv[dp][2], bv[dp][3]);
       }
@@ -634,11 +679,10 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     const int R = r0 + wr + g4 + 8 * h;
     if (R >= M) continue;
-    const int i = R / G, head = kvh * G + (R - i * G);
-    const size_t row = (size_t)(b * Sq + i) * H + head;
+    const size_t row = q_row_index(R);
     if (nsplit == 1) {
       const float inv = 1.f / fmaxf(l_r[h], 1e-30f);
-      __nv_bfloat16* orow = o + row * HD;
+      __nv_bfloat16* orow = o + row * HDV;
 #pragma unroll
       for (int n = 0; n < nd8; ++n) {
         if (n >= nd8) break;
@@ -657,7 +701,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         pm[prow] = m_r[h] == NEG_INF ? NEG_INF : m_r[h] * LN2;
         pl[prow] = l_r[h];
       }
-      float* arow = pacc + prow * HD;
+      float* arow = pacc + prow * HDV;
 #pragma unroll
       for (int n = 0; n < nd8; ++n) {
         if (n >= nd8) break;
@@ -670,9 +714,10 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       !last_to_arrive(arrive + ((size_t)b * KV + kvh) * gridDim.x + tile,
                       live))
     return;
-  merge_rows<HD>(pm + tile_base, pl + tile_base, pacc + tile_base * HD, o,
-                 reinterpret_cast<float4*>(smem_raw), r0, min(TC_BM, M - r0),
-                 G, ((size_t)b * Sq) * H + (size_t)kvh * G, H, nsplit, live);
+  merge_rows<HDV, tc_smem_bytes<HDK, HDV>()>(
+      pm + tile_base, pl + tile_base, pacc + tile_base * HDV, o,
+      reinterpret_cast<float4*>(smem_raw), r0, min(TC_BM, M - r0), G,
+      ((size_t)b * Sq) * H + (size_t)kvh * G, H, nsplit, live);
 }
 
 // The standalone merge of the splits of each (b, query, head) row in
@@ -711,38 +756,55 @@ cudaError_t opt_in(K kernel, size_t smem, bool& done) {
   if (err == cudaSuccess) done = true;
   return err;
 }
-bool opted_in_tc[TC_MAXD / 16 + 1] = {};   // by head dim / 16
-bool opted_in_fma[2] = {false, false};   // bf16, fp32
+// one opt-in flag an instance
+template <typename T, int MAXK>
+bool opted_in_fma = false;
+template <int HDK, int HDV>
+bool opted_in_tc = false;
 
-template <typename T>
+template <typename T, int MAXK>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Sk, int H, int KV, int hd,
+                       int B, int Sq, int Sk, int H, int KV, int hd, int hdv,
                        int causal, float scale, int q_offset,
                        cudaStream_t stream) {
-  const size_t smem = fma_smem_bytes();
-  cudaError_t err = opt_in(flash_fwd_kernel<T>, smem,
-                           opted_in_fma[sizeof(T) == sizeof(float)]);
+  const size_t smem = fma_smem_bytes<MAXK>();
+  cudaError_t err = opt_in(flash_fwd_kernel<T, MAXK>, smem,
+                           opted_in_fma<T, MAXK>);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, MAXK><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, hd, causal,
-      scale, q_offset);
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, hd, hdv,
+      causal, scale, q_offset);
   return cudaGetLastError();
 }
 
-template <int HD>
+// the narrow instance up to q/k head dim 128, the wide one (148 KB of
+// shared memory, one CTA an SM) above
+template <typename T>
+cudaError_t launch_fma_hd(const void* q, const void* k, const void* v,
+                          void* o, int B, int Sq, int Sk, int H, int KV,
+                          int hd, int hdv, int causal, float scale,
+                          int q_offset, cudaStream_t stream) {
+  return hd <= MAX_HD
+             ? launch_fma<T, MAX_HD>(q, k, v, o, B, Sq, Sk, H, KV, hd, hdv,
+                                     causal, scale, q_offset, stream)
+             : launch_fma<T, MAX_HDK>(q, k, v, o, B, Sq, Sk, H, KV, hd, hdv,
+                                      causal, scale, q_offset, stream);
+}
+
+template <int HDK, int HDV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       void* m, void* l, void* acc, void* arrive, int B,
                       int Sq, int Sk, int H, int KV, int causal, float scale,
                       int q_offset, int nsplit, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes();
-  cudaError_t err = opt_in(flash_fwd_tc_kernel<HD>, smem,
-                           opted_in_tc[HD / 16]);
+  constexpr size_t smem = tc_smem_bytes<HDK, HDV>();
+  cudaError_t err = opt_in(flash_fwd_tc_kernel<HDK, HDV>, smem,
+                           opted_in_tc<HDK, HDV>);
   if (err != cudaSuccess) return err;
   const int M = Sq * (H / KV);
   dim3 grid((M + TC_BM - 1) / TC_BM, KV, B * nsplit);
-  flash_fwd_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+  flash_fwd_tc_kernel<HDK, HDV><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -752,30 +814,29 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// the head dim as a template argument: every fragment loop unrolls and
-// the copy's index arithmetic is shifts
+// the head dims as template arguments: every fragment loop unrolls and
+// the copy's index arithmetic is shifts.  One q/k and v head dim, or
+// MLA's (192, 128); any other pair is refused
 cudaError_t launch_tc_hd(const void* q, const void* k, const void* v,
                          void* o, void* m, void* l, void* acc, void* arrive,
                          int B, int Sq, int Sk, int H, int KV, int hd,
-                         int causal, float scale, int q_offset, int nsplit,
-                         cudaStream_t stream) {
-#define REPRO_TC_CASE(D)                                                      \
-  case D:                                                                     \
-    return launch_tc<D>(q, k, v, o, m, l, acc, arrive, B, Sq, Sk, H, KV,      \
-                        causal, scale, q_offset, nsplit, stream);
-  switch (hd) {
-    REPRO_TC_CASE(16)
-    REPRO_TC_CASE(32)
-    REPRO_TC_CASE(48)
-    REPRO_TC_CASE(64)
-    REPRO_TC_CASE(80)
-    REPRO_TC_CASE(96)
-    REPRO_TC_CASE(112)
-    REPRO_TC_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
+                         int hdv, int causal, float scale, int q_offset,
+                         int nsplit, cudaStream_t stream) {
+#define REPRO_TC_CASE(DK, DV)                                                 \
+  if (hd == DK && hdv == DV)                                                  \
+    return launch_tc<DK, DV>(q, k, v, o, m, l, acc, arrive, B, Sq, Sk, H, KV, \
+                             causal, scale, q_offset, nsplit, stream);
+  REPRO_TC_CASE(16, 16)
+  REPRO_TC_CASE(32, 32)
+  REPRO_TC_CASE(48, 48)
+  REPRO_TC_CASE(64, 64)
+  REPRO_TC_CASE(80, 80)
+  REPRO_TC_CASE(96, 96)
+  REPRO_TC_CASE(112, 112)
+  REPRO_TC_CASE(128, 128)
+  REPRO_TC_CASE(192, 128)
 #undef REPRO_TC_CASE
+  return cudaErrorInvalidValue;
 }
 
 // kernel_attrs after the kernel's shared-memory opt-in, if it has one
@@ -788,38 +849,40 @@ cudaError_t attrs(K kernel, int threads, size_t smem, bool* opted, int* out) {
 
 }  // namespace
 
-// tensor_cores = 0: v2 (fp32 or bf16, nsplit 1, o written).  tensor_cores
-// = 1: v3 (bf16, hd % 16 == 0); nsplit == 1 writes o.  nsplit > 1 with
-// arrive (B * KV * row tiles counters, zero between launches; at most
-// TC_MAX_FUSED splits): m, l and acc are scratch of B * KV * row tiles *
-// nsplit * TC_BM rows (tile-major), and the merge into o is fused.
-// nsplit > 1 without arrive: every split's partials m, l (nsplit, B, Sq,
-// H) and acc (nsplit, B, Sq, H, hd) for flash_attention_merge; o is not
-// touched.
+// hd: the q/k head dim, hdv: the v (and output) head dim.  tensor_cores
+// = 0: v2 (fp32 or bf16, hd <= 192, hdv <= 128, nsplit 1, o written).
+// tensor_cores = 1: v3 (bf16, hd == hdv a multiple of 16 up to 128, or
+// (192, 128)); nsplit == 1 writes o.  nsplit > 1 with arrive (B * KV *
+// row tiles counters, zero between launches; at most TC_MAX_FUSED
+// splits): m, l and acc are scratch of B * KV * row tiles * nsplit * TC_BM
+// rows (tile-major), and the merge into o is fused.  nsplit > 1 without
+// arrive: every split's partials m, l (nsplit, B, Sq, H) and acc (nsplit,
+// B, Sq, H, hdv) for flash_attention_merge; o is not touched.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* m, void* l, void* acc,
                                    void* arrive, int B, int Sq, int Sk, int H,
-                                   int KV, int hd, int causal, float scale,
-                                   int q_offset, int is_bf16,
+                                   int KV, int hd, int hdv, int causal,
+                                   float scale, int q_offset, int is_bf16,
                                    int tensor_cores, int nsplit,
                                    void* stream) {
-  if (hd > MAX_HD || hd % 4 != 0 || H % KV != 0 || nsplit < 1)
+  if (hd > MAX_HDK || hdv > MAX_HD || hd % 4 != 0 || hdv % 4 != 0 ||
+      H % KV != 0 || nsplit < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_cores) {
-    if (!is_bf16 || hd % 16 != 0 || hd > TC_MAXD || B * nsplit > 65535 ||
+    if (!is_bf16 || B * nsplit > 65535 ||
         (nsplit > 1 && (m == nullptr || l == nullptr || acc == nullptr)) ||
         (arrive != nullptr && (o == nullptr || nsplit > TC_MAX_FUSED)))
       return (int)cudaErrorInvalidValue;
     return (int)launch_tc_hd(q, k, v, o, m, l, acc, arrive, B, Sq, Sk, H, KV,
-                             hd, causal, scale, q_offset, nsplit, s);
+                             hd, hdv, causal, scale, q_offset, nsplit, s);
   }
   if (nsplit != 1 || arrive != nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      is_bf16 ? launch_fma<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd,
-                                          causal, scale, q_offset, s)
-              : launch_fma<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, causal,
-                                  scale, q_offset, s);
+      is_bf16 ? launch_fma_hd<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd,
+                                             hdv, causal, scale, q_offset, s)
+              : launch_fma_hd<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, hdv,
+                                     causal, scale, q_offset, s);
   return (int)err;
 }
 
@@ -842,22 +905,33 @@ extern "C" int flash_attention_merge(const void* m, const void* l,
 // What the compiler and the occupancy calculator give each kernel:
 // out[0..4] = registers a thread, local (spill) bytes a thread, static
 // shared bytes, dynamic shared bytes a launch, CTAs an SM can hold.
-// which: 0 = v3 flash_fwd_tc_kernel<128>, 1 = v2 bf16, 2 = v2 fp32,
-// 3 = merge.
+// which: 0 = v3 flash_fwd_tc_kernel<128, 128>, 1 = v2 bf16, 2 = v2 fp32,
+// 3 = merge, 4 = v3 <192, 128> (MLA), 5 = v2 fp32 at q/k dim 192.
 extern "C" int flash_attention_attrs(int which, int* out) {
   switch (which) {
     case 0:
-      return (int)attrs(flash_fwd_tc_kernel<128>, TC_THREADS, tc_smem_bytes(),
-                        &opted_in_tc[128 / 16], out);
+      return (int)attrs(flash_fwd_tc_kernel<128, 128>, TC_THREADS,
+                        tc_smem_bytes<128, 128>(), &opted_in_tc<128, 128>,
+                        out);
     case 1:
-      return (int)attrs(flash_fwd_kernel<__nv_bfloat16>, THREADS,
-                        fma_smem_bytes(), &opted_in_fma[0], out);
+      return (int)attrs(flash_fwd_kernel<__nv_bfloat16, MAX_HD>, THREADS,
+                        fma_smem_bytes<MAX_HD>(),
+                        &opted_in_fma<__nv_bfloat16, MAX_HD>, out);
     case 2:
-      return (int)attrs(flash_fwd_kernel<float>, THREADS, fma_smem_bytes(),
-                        &opted_in_fma[1], out);
+      return (int)attrs(flash_fwd_kernel<float, MAX_HD>, THREADS,
+                        fma_smem_bytes<MAX_HD>(), &opted_in_fma<float, MAX_HD>,
+                        out);
     case 3:
       return (int)attrs(flash_fwd_merge_kernel, MERGE_THREADS, 0, nullptr,
                         out);
+    case 4:
+      return (int)attrs(flash_fwd_tc_kernel<192, 128>, TC_THREADS,
+                        tc_smem_bytes<192, 128>(), &opted_in_tc<192, 128>,
+                        out);
+    case 5:
+      return (int)attrs(flash_fwd_kernel<float, MAX_HDK>, THREADS,
+                        fma_smem_bytes<MAX_HDK>(),
+                        &opted_in_fma<float, MAX_HDK>, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

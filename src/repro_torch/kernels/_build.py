@@ -38,9 +38,9 @@ LL = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_attention": {
         # q, k, v, o, m, l, acc (null unless split), arrive (null unless
-        # the merge is fused), B, Sq, Sk, H, KV, hd, causal, scale,
-        # q_offset, is_bf16, tensor_cores, nsplit, stream
-        "flash_attention_fwd": [P] * 8 + [I] * 7 + [F, I, I, I, I, P],
+        # the merge is fused), B, Sq, Sk, H, KV, hd (q/k), hdv, causal,
+        # scale, q_offset, is_bf16, tensor_cores, nsplit, stream
+        "flash_attention_fwd": [P] * 8 + [I] * 8 + [F, I, I, I, I, P],
         # m, l, acc, o, rows, hd, nsplit, stream
         "flash_attention_merge": [P, P, P, P, I, I, I, P],
     },

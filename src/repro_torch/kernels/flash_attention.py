@@ -6,11 +6,13 @@ TPU kernel it takes a ``q_offset`` (query row i sits at position
 q_offset + i and attends to keys ≤ that position — chunked prefill over a
 cache), ragged ``Sq``/``Sk`` and causal pruning of the kv loop.
 
-Two kernels compute it, chosen by :func:`uses_tensor_cores` from the dtype
-and the head dim alone: v3 (bf16, head dim a multiple of 16) on the tensor
-cores, with GQA row packing and, for short chunks, the key range split
-over CTAs (:func:`num_splits`); v2 (fp32, and other bf16 head dims) with
-fp32 FMAs.  A split v3 call with few splits (:func:`fused_merge`) is ONE
+The v head dim may be narrower than q/k's (MLA: 192 and 128).  Two
+kernels compute it, chosen by :func:`uses_tensor_cores` from the dtype and
+the head dims alone: v3 (bf16, one head dim a multiple of 16 up to 128,
+or MLA's (192, 128)) on the tensor cores, with GQA row packing and, for
+short chunks, the key range split over CTAs (:func:`num_splits`); v2
+(fp32, and other bf16 head dims: q/k up to 192, v up to 128) with fp32
+FMAs.  A split v3 call with few splits (:func:`fused_merge`) is ONE
 launch: the live splits of a row tile (:func:`live_splits`, those with a
 kv tile) write fp32 partials, and the CTA that arrives last on the tile's
 counter merges them into the output (arrival counters shared with K2,
@@ -42,7 +44,9 @@ from .flash_decode import _arrivals
 NEG_INF = -1e30
 KERNEL = _build.KERNELS["flash_attention_fwd"]
 MERGE = _build.KERNELS["flash_attention_merge"]
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128    # v head dim (and q/k but for MLA's 192)
+MAX_QK_HEAD_DIM = 192
+TC_HEAD_DIMS = {(d, d) for d in range(16, 129, 16)} | {(192, 128)}  # v3's
 BLOCK_M = 64          # v3: packed (query, q head) rows a CTA
 BLOCK_N = 64          # v3: keys a shared-memory tile
 NUM_SMS = 132         # H100 SXM
@@ -60,7 +64,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernel's function in plain PyTorch: q cast to fp32 then scaled,
     fp32 logits and softmax, masked logits -1e30, output in q.dtype.
 
-    q: (B,Sq,H,hd)  k,v: (B,Sk,KV,hd) → (B,Sq,H,hd)."""
+    q: (B,Sq,H,hd)  k: (B,Sk,KV,hd)  v: (B,Sk,KV,hv) → (B,Sq,H,hv)."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
@@ -73,15 +77,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
 # ----------------------------------------------- the v3 decomposition, plain
 
-def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """The route: v3 (tensor cores) for bf16 with a head dim that is a
-    multiple of the MMA depth 16; v2 (fp32 FMAs) for the rest."""
-    return dtype == torch.bfloat16 and head_dim % 16 == 0
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int,
+                      v_head_dim: Optional[int] = None) -> bool:
+    """The route: v3 (tensor cores) for bf16 at the head dims it is built
+    for (:data:`TC_HEAD_DIMS`: one dim, a multiple of the MMA depth 16 up
+    to 128, or MLA's (192, 128)); v2 (fp32 FMAs) for the rest."""
+    hv = head_dim if v_head_dim is None else v_head_dim
+    return dtype == torch.bfloat16 and (head_dim, hv) in TC_HEAD_DIMS
 
 
 def num_splits(B: int, Sq: int, H: int, KV: int, Sk: int, *,
@@ -164,7 +171,7 @@ def split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None, q_offset: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Each split's fp32 partials over its keys: m (nsplit,B,Sq,H) the max
-    scaled logit, l the sum of exp(logit − m), acc (nsplit,B,Sq,H,hd) the
+    scaled logit, l the sum of exp(logit − m), acc (nsplit,B,Sq,H,hv) the
     exp-weighted sum of V.  A row with no valid key in a split gets
     m = -1e30, l = 0, acc = 0 (weight 0 in the merge)."""
     B, Sq, H, hd = q.shape
@@ -259,16 +266,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or fp32 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     B, Sq, H, hd = q.shape
+    hv = v.shape[3]
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2] != 0:
         raise ValueError(f"flash_attention: q{tuple(q.shape)} does not "
                          f"match k{tuple(k.shape)}")
-    if hd > MAX_HEAD_DIM or hd % 4 != 0:
-        raise ValueError(f"flash_attention: head_dim {hd} must be a "
-                         f"multiple of 4 and <= {MAX_HEAD_DIM}")
+    if hd > MAX_QK_HEAD_DIM or hv > MAX_HEAD_DIM or hd % 4 or hv % 4:
+        raise ValueError(f"flash_attention: head dims q/k {hd}, v {hv} must "
+                         f"be multiples of 4, <= {MAX_QK_HEAD_DIM} and "
+                         f"<= {MAX_HEAD_DIM}")
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -284,7 +294,7 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None, q_offset: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The v3 launch into fp32 partials m, l (nsplit,B,Sq,H) and acc
-    (…, hd) of :func:`split_partials_plain`; P is rounded to bf16 before
+    (…, hv) of :func:`split_partials_plain`; P is rounded to bf16 before
     the P·V product, so acc differs from the twin's by that rounding."""
     q_offset = int(q_offset)
     if q.device.type == "cpu":
@@ -292,15 +302,15 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     scale=scale, q_offset=q_offset)
     _check(q, k, v, q_offset)
     B, Sq, H, hd = q.shape
-    _, Sk, KV, _ = k.shape
-    if not uses_tensor_cores(q.dtype, hd) or nsplit < 2:
+    _, Sk, KV, hv = v.shape
+    if not uses_tensor_cores(q.dtype, hd, hv) or nsplit < 2:
         raise ValueError(f"flash_attention: split partials need bf16, "
-                         f"head_dim % 16 == 0 and >= 2 splits, got "
-                         f"{q.dtype}, {hd}, {nsplit}")
+                         f"head dims in {sorted(TC_HEAD_DIMS)} and >= 2 "
+                         f"splits, got {q.dtype}, ({hd}, {hv}), {nsplit}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    m, l, acc = _partials(nsplit, B, Sq, H, hd, q.device)
+    m, l, acc = _partials(nsplit, B, Sq, H, hv, q.device)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, m.data_ptr(),
-           l.data_ptr(), acc.data_ptr(), None, B, Sq, Sk, H, KV, hd,
+           l.data_ptr(), acc.data_ptr(), None, B, Sq, Sk, H, KV, hd, hv,
            int(causal), float(scale), q_offset, 1, 1, nsplit,
            torch.cuda.current_stream(q.device).cuda_stream)
     return m, l, acc
@@ -356,7 +366,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset=0, tensor_cores: Optional[bool] = None,
                     splits: Optional[int] = None,
                     fused: Optional[bool] = None) -> torch.Tensor:
-    """q: (B,Sq,H,hd)  k,v: (B,Sk,KV,hd) → (B,Sq,H,hd).
+    """q: (B,Sq,H,hd)  k: (B,Sk,KV,hd)  v: (B,Sk,KV,hv) → (B,Sq,H,hv).
 
     ``q_offset`` may be an int or a 0-d tensor (read on the host).
     ``tensor_cores`` and ``splits`` override :func:`uses_tensor_cores` and
@@ -373,13 +383,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=q_offset)
     _check(q, k, v, q_offset)
     B, Sq, H, hd = q.shape
-    _, Sk, KV, _ = k.shape
-    tc = uses_tensor_cores(q.dtype, hd) if tensor_cores is None \
+    _, Sk, KV, hv = v.shape
+    tc = uses_tensor_cores(q.dtype, hd, hv) if tensor_cores is None \
         else tensor_cores
-    if tc and not uses_tensor_cores(q.dtype, hd):
+    if tc and not uses_tensor_cores(q.dtype, hd, hv):
         raise ValueError(f"flash_attention: the tensor-core kernel takes "
-                         f"bf16 with head_dim % 16 == 0, got {q.dtype}, "
-                         f"{hd}")
+                         f"bf16 at head dims {sorted(TC_HEAD_DIMS)}, got "
+                         f"{q.dtype}, ({hd}, {hv})")
     nsplit = 1 if not tc else splits if splits is not None else num_splits(
         B, Sq, H, KV, Sk, causal=causal, q_offset=q_offset)
     if nsplit < 1 or (nsplit > 1 and not tc):
@@ -393,16 +403,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: {nsplit} splits, the fused "
                          f"merge takes at most {MAX_FUSED_SPLITS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, H, hv))
     m = l = acc = arrive = None
     if nsplit > 1:                   # one launch: the last CTA merges
         tiles = B * KV * -(-Sq * (H // KV) // BLOCK_M)
         # scratch of the live splits, tile-major: each CTA's rows together
-        m, l, acc = _scratch(tiles * nsplit * BLOCK_M, hd, q.device)
+        m, l, acc = _scratch(tiles * nsplit * BLOCK_M, hv, q.device)
         arrive = _arrivals(q.device, tiles, "flash_attention")
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            *(None if t is None else t.data_ptr() for t in (m, l, acc, arrive)),
-           B, Sq, Sk, H, KV, hd, int(causal), float(scale), q_offset,
+           B, Sq, Sk, H, KV, hd, hv, int(causal), float(scale), q_offset,
            int(q.dtype == torch.bfloat16), int(tc), nsplit,
            torch.cuda.current_stream(q.device).cuda_stream,
            tag="fused" if nsplit > 1 else None)
@@ -414,13 +424,17 @@ def kernel_attributes() -> Dict[str, Dict[str, int]]:
     the compiled library and the occupancy calculator report them."""
     return {name: _build.attributes("flash_attention",
                                     "flash_attention_attrs", which)
-            for which, name in enumerate(("v3 flash_fwd_tc_kernel<128>",
-                                          "v2 flash_fwd_kernel<bf16>",
-                                          "v2 flash_fwd_kernel<float>",
-                                          "flash_fwd_merge_kernel"))}
+            for which, name in enumerate((
+                "v3 flash_fwd_tc_kernel<128, 128>",
+                "v2 flash_fwd_kernel<bf16, 128>",
+                "v2 flash_fwd_kernel<float, 128>",
+                "flash_fwd_merge_kernel",
+                "v3 flash_fwd_tc_kernel<192, 128>",
+                "v2 flash_fwd_kernel<float, 192>"))}
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "uses_tensor_cores",
+           "TC_HEAD_DIMS",
            "num_splits", "fused_merge", "packed_rows", "split_key_ranges",
            "live_splits",
            "split_partials_plain", "merge_plain", "fused_merge_model",

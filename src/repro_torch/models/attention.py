@@ -1,4 +1,5 @@
-"""GQA attention — the dense subset of ``repro.models.attention``.
+"""GQA and MLA attention — the decoder-only subset of
+``repro.models.attention``.
 
 On a CUDA tensor the prefill slots (``plain_attention`` and
 ``blockwise_attention``) run the K1 kernel and ``decode_attention`` runs
@@ -247,8 +248,151 @@ def gqa_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return y, k, v
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, *,
+             lead: Tuple[int, ...] = ()) -> Params:
+    d, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = cfg.pdtype()
+    return {
+        "wq": dense_init(gen, d, H * (nd + rd), dt, lead=lead),   # queries
+        "wkv_down": dense_init(gen, d, r, dt, lead=lead),         # latent
+        "wk_rope": dense_init(gen, d, rd, dt, lead=lead),    # shared rope k
+        "wkv_up": dense_init(gen, r, H * (nd + vd), dt, lead=lead),
+        "wo": dense_init(gen, H * vd, d, dt, lead=lead),
+    }
+
+
+def mla_queries(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,D) → q_nope (B,S,H,nd), q_rope (B,S,H,rd) with RoPE."""
+    B, S, _ = x.shape
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, nd + rd)
+    return q[..., :nd], apply_rope(q[..., nd:], cos, sin)
+
+
+def _mla_payload(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """(B,S,r+rd) latent payload c_kv ++ RoPE'd k_rope."""
+    c_kv = x @ params["wkv_down"]
+    k_rope = apply_rope((x @ params["wk_rope"])[:, :, None, :], cos, sin)
+    return torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
+
+
+def _mla_up(params: Params, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W_uk (r,H,nd) and W_uv (r,H,vd), views of ``wkv_up``."""
+    nd, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    w = params["wkv_up"].reshape(cfg.kv_lora_rank, cfg.num_heads, nd + vd)
+    return w[..., :nd], w[..., nd:]
+
+
+def mla_project(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """Returns q (B,S,H,nd+rd), k (B,S,H,nd+rd), v (B,S,H,vd) and the cache
+    payload (c_kv ++ k_rope, r+rd a token); q, k and v contiguous (K1's
+    operands)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    cos, sin = rope_table(positions, rd, cfg.rope_theta)
+    q_nope, q_rope = mla_queries(params, cfg, x, cos, sin)
+    payload = _mla_payload(params, cfg, x, cos, sin)
+    kv = (payload[..., :r] @ params["wkv_up"]).reshape(B, S, H, nd + vd)
+    k = torch.cat([kv[..., :nd],
+                   payload[:, :, None, r:].expand(B, S, H, rd)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, kv[..., nd:].contiguous(), payload
+
+
+def mla_cache_payload(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """(B,S,r+rd) latent cache payload: no head expansion."""
+    cos, sin = rope_table(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    return _mla_payload(params, cfg, x, cos, sin)
+
+
+def mla_self_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor, *, causal: bool = True,
+                       q_offset: int = 0,
+                       target_chunk: int = 2048) -> torch.Tensor:
+    """Full-sequence MLA (prefill): MHA at q/k head dim nd + rd and v head
+    dim vd, scale 1/sqrt(nd + rd); K1 at (192, 128) on CUDA."""
+    B, S, D = x.shape
+    q, k, v, _ = mla_project(params, cfg, x, positions)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    if S <= 256:
+        o = plain_attention(q, k, v, causal=causal, scale=scale,
+                            q_offset=q_offset)
+    else:
+        qc, kc = attn_chunk_sizes(S, S, target_chunk=target_chunk)
+        o = blockwise_attention(q, k, v, causal=causal, scale=scale,
+                                q_chunk=qc, kv_chunk=kc, q_offset=q_offset)
+    return o.reshape(B, S, -1) @ params["wo"]
+
+
+def mla_absorbed(params: Params, cfg: ModelConfig, q_nope: torch.Tensor,
+                 q_rope: torch.Tensor, latent: torch.Tensor,
+                 valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Absorbed MLA scoring against the latent cache: W_uk folds into the
+    queries, W_uv into the output.  q_nope (B,c,H,nd), q_rope (B,c,H,rd),
+    latent (B,S,r+rd), valid (B or 1, c, S) bool → (B,c,H·vd).  Products
+    accumulate in fp32 (the reference's ``preferred_element_type``);
+    probabilities are cast to the latent's dtype before P·c_kv."""
+    B, c = q_nope.shape[:2]
+    r = cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    w_uk, w_uv = _mla_up(params, cfg)
+    q_abs = torch.einsum("bchn,rhn->bchr", q_nope, w_uk)
+    c_hist, rope_hist = latent[..., :r].float(), latent[..., r:].float()
+    logits = (torch.einsum("bchr,bsr->bhcs", q_abs.float(), c_hist)
+              + torch.einsum("bchr,bsr->bhcs", q_rope.float(), rope_hist)
+              ) * scale
+    logits = torch.where(valid[:, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bhcs,bsr->bchr", p.to(latent.dtype).float(),
+                         c_hist)
+    o = torch.einsum("bchr,rhv->bchv", o_lat.to(dtype), w_uv)
+    return o.reshape(B, c, -1)
+
+
+def mla_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
+               latent_cache: torch.Tensor, positions: torch.Tensor,
+               lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absorbed MLA decode: score directly against the latent cache
+    (B,S,r+rd).  The token's payload is written into the cache in place at
+    each row's length *before* attention (it attends to itself; a row at
+    the cache width writes nothing, the reference's mask-select), then
+    positions < lengths + 1 are attended.  Returns (y (B,1,D), the
+    cache)."""
+    B = x.shape[0]
+    S = latent_cache.shape[1]
+    cos, sin = rope_table(positions[:, None], cfg.qk_rope_head_dim,
+                          cfg.rope_theta)
+    q_nope, q_rope = mla_queries(params, cfg, x, cos, sin)
+    payload = _mla_payload(params, cfg, x, cos, sin)[:, 0]
+    rows = torch.arange(B, device=x.device)
+    at = lengths.clamp(max=S - 1).long()
+    keep = (lengths < S)[:, None]
+    latent_cache[rows, at] = torch.where(keep, payload,
+                                         latent_cache[rows, at])
+    valid = (torch.arange(S, device=x.device)[None, :]
+             < (lengths + 1)[:, None])[:, None]                  # (B,1,S)
+    o = mla_absorbed(params, cfg, q_nope, q_rope, latent_cache, valid,
+                     x.dtype)
+    return o @ params["wo"], latent_cache
+
+
 __all__ = [
     "NEG_INF", "attn_chunk_sizes", "blockwise_attention", "plain_attention",
     "decode_attention", "gqa_init", "gqa_project_qkv", "gqa_project_kv",
-    "gqa_self_attention", "gqa_decode",
+    "gqa_self_attention", "gqa_decode", "mla_init", "mla_project",
+    "mla_queries", "mla_cache_payload", "mla_self_attention",
+    "mla_absorbed", "mla_decode",
 ]

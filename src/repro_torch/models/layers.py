@@ -1,5 +1,5 @@
-"""Shared layers: RMSNorm, RoPE (full and ``rotary_dims``), SwiGLU, GELU,
-embedding.
+"""Shared layers: RMSNorm, RoPE (full and ``rotary_dims``), SwiGLU, the
+2-matrix FFN's params, GELU, embedding.
 
 Plain functions over explicit parameter trees (nested dicts of tensors), the
 counterpart of ``repro.models.layers``.  Initializers draw from an explicit
@@ -115,6 +115,19 @@ def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(g) * u) @ params["down"]
 
 
+def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int,
+                  dtype: torch.dtype, *, lead: Tuple[int, ...] = ()
+                  ) -> Params:
+    """The 2-matrix FFN with biases (zero at init), as the reference's:
+    minitron's relu² FFN takes these params (GELU's, whisper's, is not
+    ported yet)."""
+    dev = gen.device
+    return {"up": dense_init(gen, d, d_ff, dtype, lead=lead),
+            "up_b": torch.zeros(lead + (d_ff,), dtype=dtype, device=dev),
+            "down": dense_init(gen, d_ff, d, dtype, lead=lead),
+            "down_b": torch.zeros(lead + (d,), dtype=dtype, device=dev)}
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
     default is the erf form, up to ~1e-3 away)."""
@@ -137,5 +150,5 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "Params", "dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
     "rope_freqs", "rope_table", "apply_rope", "swiglu_init", "swiglu",
-    "gelu", "embedding_init", "embed",
+    "gelu_mlp_init", "gelu", "embedding_init", "embed",
 ]

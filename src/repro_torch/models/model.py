@@ -1,11 +1,13 @@
-"""The Model facade for a decoder-only LM (dense GQA, MoE, recurrent xLSTM /
-Mamba stacks): init / prefill / chunked prefill / decode — the
+"""The Model facade for a decoder-only LM (dense GQA, MLA, MoE, recurrent
+xLSTM / Mamba stacks): init / prefill / chunked prefill / decode — the
 decoder-only subset of ``repro.models.model``.
 
-Parameter and cache trees have the JAX package's layout: ``"stage"`` is a
-list with one dict per period position whose leaves are stacked over the
-period ``repeats`` (``params["stage"][p]["mixer"]["wq"]`` is (R, d, H·hd)),
-so weights convert between the packages by name (``repro_torch.weights``).
+Parameter and cache trees have the JAX package's layout: ``"prefix"`` (the
+unrolled leading layers, deepseek's dense layer) is a list of one dict a
+layer, and ``"stage"`` a list with one dict per period position whose
+leaves are stacked over the period ``repeats``
+(``params["stage"][p]["mixer"]["wq"]`` is (R, d, H·hd)), so weights convert
+between the packages by name (``repro_torch.weights``).
 
 The model lives on one explicit device, ``"cuda"`` by default; only the
 tests pass ``"cpu"``.  ``calls`` counts prefill, chunked-prefill and decode
@@ -66,11 +68,7 @@ class Model:
         self.moe = {"strategy": moe_strategy, "sort_fn": moe_sort_fn}
         self.device = resolve_device(device)
         self.prefix_specs, self.period_specs, self.repeats = stage_layout(cfg)
-        if self.prefix_specs:
-            raise NotImplementedError("unrolled prefix layers (deepseek's "
-                                      "leading dense layer): ROADMAP.md "
-                                      "Queue 1 item 8")
-        for s in self.period_specs:
+        for s in self.prefix_specs + self.period_specs:
             check_ported(cfg, s)
         self.calls = {"prefill": 0, "prefill_chunk": 0, "decode_step": 0}
 
@@ -98,13 +96,20 @@ class Model:
                                             cfg.d_model, cfg.pdtype())
         params["final_norm"] = rmsnorm_init(cfg.d_model, cfg.pdtype(),
                                             self.device)
+        if self.prefix_specs:
+            params["prefix"] = [layer_init(gen, cfg, s)
+                                for s in self.prefix_specs]
         params["stage"] = [layer_init(gen, cfg, s, lead=(self.repeats,))
                            for s in self.period_specs]
         return params
 
     # ------------------------------------------------------------- internals
     def _layers(self, params: Params, cache: Optional[Any] = None):
-        """(spec, layer params, layer cache) in layer order."""
+        """(spec, layer params, layer cache) in layer order: the prefix
+        layers, then the stage's repeats."""
+        for i, spec in enumerate(self.prefix_specs):
+            yield spec, params["prefix"][i], \
+                None if cache is None else cache["prefix"][i]
         for r in range(self.repeats):
             for pos, spec in enumerate(self.period_specs):
                 lc = None if cache is None else \
@@ -124,14 +129,20 @@ class Model:
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_seq: int) -> Any:
-        """Zero-filled cache: 'stage' list of dicts stacked (R, ...)."""
-        cache: Dict[str, Any] = {"stage": []}
-        for spec in self.period_specs:
+        """Zero-filled cache: a 'prefix' list of dicts (batch on axis 0)
+        when the model has prefix layers, and a 'stage' list of dicts
+        stacked (R, ...)."""
+        def alloc(spec, lead):
             shapes = layer_cache_shape(self.cfg, spec, batch, max_seq)
-            cache["stage"].append({
-                name: torch.zeros((self.repeats,) + shape, dtype=dt,
-                                  device=self.device)
-                for name, (shape, dt) in shapes.items()})
+            return {name: torch.zeros(lead + shape, dtype=dt,
+                                      device=self.device)
+                    for name, (shape, dt) in shapes.items()}
+
+        cache: Dict[str, Any] = {}
+        if self.prefix_specs:
+            cache["prefix"] = [alloc(s, ()) for s in self.prefix_specs]
+        cache["stage"] = [alloc(s, (self.repeats,))
+                          for s in self.period_specs]
         return cache
 
     def prefill(self, params: Params, tokens: torch.Tensor,
@@ -149,7 +160,7 @@ class Model:
                                      collect_cache=True,
                                      scan_impl=self.scan_impl, moe=self.moe)
             for name, arr in payload.items():
-                if name in ("k", "v"):
+                if name in ("k", "v", "latent"):     # by position
                     lc[name][:, :S] = arr
                 else:                       # recurrent state: O(1) per row
                     lc[name].copy_(arr)

@@ -1,17 +1,20 @@
-"""Layer specs, periods and the decoder layers — GQA attention, Mamba,
-mLSTM and sLSTM, with a dense or MoE FFN — the counterpart of
-``repro.models.transformer``.
+"""Layer specs, periods and the decoder layers — GQA and MLA attention,
+Mamba, mLSTM and sLSTM, with a dense (SwiGLU or relu²) or MoE FFN — the
+counterpart of ``repro.models.transformer``.
 
 Layers are grouped into *periods* (the smallest repeating unit of specs) and
 parameters are stacked over period repeats, as in the JAX package, so a
 weight tree converts between the two packages by name alone.  A Python loop
 over repeats takes the place of ``lax.scan``.
 
-Caches are updated in place: the prefill chunk writes its K/V into the
-cache slice, and the decode step writes the new token's K/V at each row's
-length (rows already at the cache width write nothing, the JAX package's
-mask-select semantics).  Recurrent layers overwrite their O(1) state.  The
-JAX versions return new arrays instead.
+Caches are updated in place: the prefill chunk writes its K/V (MLA: its
+latent payload) into the cache slice, and the decode step writes the new
+token's at each row's length (rows already at the cache width write
+nothing, the JAX package's mask-select semantics).  Recurrent layers
+overwrite their O(1) state.  The JAX versions return new arrays instead.
+MLA scores chunks and decode steps in the absorbed form, against the
+latent cache (plain einsums, as in the reference), and full sequences
+through K1 at q/k head dim nd + rd, v head dim vd.
 
 An MoE layer runs ``moe_apply`` with the caller's ``moe`` options
 (``strategy``, ``sort_fn``) and the reference's ``group_size``: 256 in a
@@ -29,8 +32,11 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import (attn_chunk_sizes, blockwise_attention,
                         decode_attention, gqa_init, gqa_project_kv,
-                        gqa_project_qkv, gqa_self_attention, plain_attention)
-from .layers import Params, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+                        gqa_project_qkv, gqa_self_attention, mla_absorbed,
+                        mla_cache_payload, mla_decode, mla_init, mla_queries,
+                        mla_self_attention, plain_attention)
+from .layers import (Params, gelu_mlp_init, rmsnorm, rmsnorm_init,
+                     rope_table, swiglu, swiglu_init)
 from .moe import moe_apply, moe_init
 from .ssm import (mamba_forward, mamba_init, mamba_step, mlstm_forward,
                   mlstm_init, mlstm_step, slstm_forward, slstm_init,
@@ -38,12 +44,14 @@ from .ssm import (mamba_forward, mamba_init, mamba_step, mlstm_forward,
 
 # what the JAX package has and the port does not run yet → ROADMAP item
 NOT_PORTED = {
-    "mla": "ROADMAP.md Queue 1 item 8 (MLA attention)",
     "cross": "ROADMAP.md Queue 1 item 8 (cross-attention)",
+    "gelu": "ROADMAP.md Queue 1 item 8 (encoder-decoder: layernorm and "
+            "the GELU FFN)",
 }
 SSM_KINDS = ("mamba", "mlstm", "slstm")
-_MIXER_INIT = {"mamba": mamba_init, "mlstm": mlstm_init,
-               "slstm": slstm_init}
+FFN_TYPES = ("swiglu", "relu2")
+_MIXER_INIT = {"attn": gqa_init, "mla": mla_init, "mamba": mamba_init,
+               "mlstm": mlstm_init, "slstm": slstm_init}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,16 +91,15 @@ def stage_layout(cfg: ModelConfig
 
 def check_ported(cfg: ModelConfig, spec: LayerSpec) -> None:
     """Raise for what the port cannot run yet, naming the ROADMAP item."""
-    if spec.kind not in ("attn",) + SSM_KINDS:
-        raise NotImplementedError(f"layer kind {spec.kind!r}: "
-                                  f"{NOT_PORTED[spec.kind]}")
+    if spec.kind not in _MIXER_INIT:
+        raise ValueError(f"unknown layer kind {spec.kind!r}")
     if spec.has_cross or cfg.is_encdec:
         raise NotImplementedError(
             f"cross-attention / encoder-decoder: {NOT_PORTED['cross']}")
-    if cfg.norm != "rmsnorm" or (spec.has_ffn and cfg.ffn_type != "swiglu"):
-        raise NotImplementedError(
-            f"{cfg.norm}/{cfg.ffn_type}: ROADMAP.md Queue 1 item 7 (dense "
-            f"configs)")
+    if cfg.norm != "rmsnorm" or (spec.has_ffn and
+                                 cfg.ffn_type not in FFN_TYPES):
+        raise NotImplementedError(f"{cfg.norm}/{cfg.ffn_type}: "
+                                  f"{NOT_PORTED['gelu']}")
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, *,
@@ -101,24 +108,37 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, *,
     check_ported(cfg, spec)
     dev = gen.device
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, cfg.pdtype(), dev,
-                                     lead=lead)}
-    if spec.kind == "attn":
-        p["mixer"] = gqa_init(gen, cfg, lead=lead)
-    else:
-        p["mixer"] = _MIXER_INIT[spec.kind](gen, cfg, lead=lead)
+                                     lead=lead),
+                 "mixer": _MIXER_INIT[spec.kind](gen, cfg, lead=lead)}
     if spec.has_ffn:
         p["ln2"] = rmsnorm_init(cfg.d_model, cfg.pdtype(), dev, lead=lead)
         if spec.is_moe:
             p["moe"] = moe_init(gen, cfg, lead=lead)
         else:
-            p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.dense_ffn_dim,
-                                   cfg.pdtype(), lead=lead)
+            p["ffn"] = _ffn_init(gen, cfg, cfg.dense_ffn_dim, lead=lead)
     return p
+
+
+def _ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int, *,
+              lead: Tuple[int, ...] = ()) -> Params:
+    if cfg.ffn_type == "swiglu":
+        return swiglu_init(gen, cfg.d_model, d_ff, cfg.pdtype(), lead=lead)
+    return gelu_mlp_init(gen, cfg.d_model, d_ff, cfg.pdtype(), lead=lead)
+
+
+def _ffn_apply(cfg: ModelConfig, params: Params, x: torch.Tensor
+               ) -> torch.Tensor:
+    """The dense FFN: SwiGLU, or relu² (relu(x·up + up_b)²·down + down_b,
+    minitron's)."""
+    if cfg.ffn_type == "swiglu":
+        return swiglu(params, x)
+    h = torch.relu(x @ params["up"] + params["up_b"]).square()
+    return h @ params["down"] + params["down_b"]
 
 
 def _ffn(cfg: ModelConfig, spec: LayerSpec, lp: Params, x: torch.Tensor,
          moe: Optional[Dict[str, Any]], group_size: int) -> torch.Tensor:
-    """x + the layer's FFN (dense SwiGLU, or MoE with the ``moe`` options
+    """x + the layer's FFN (dense, or MoE with the ``moe`` options
     ``strategy`` and ``sort_fn``)."""
     if not spec.has_ffn:
         return x
@@ -127,7 +147,7 @@ def _ffn(cfg: ModelConfig, spec: LayerSpec, lp: Params, x: torch.Tensor,
         y, _ = moe_apply(lp["moe"], cfg, h, group_size=group_size,
                          **(moe or {}))
         return x + y
-    return x + swiglu(lp["ffn"], h)
+    return x + _ffn_apply(cfg, lp["ffn"], h)
 
 
 def _ssm_forward(cfg: ModelConfig, spec: LayerSpec, lp: Params,
@@ -158,6 +178,12 @@ def layer_apply(cfg: ModelConfig, spec: LayerSpec, lp: Params,
         x = x + mix
         if collect_cache:
             payload = st
+    elif spec.kind == "mla":
+        x = x + mla_self_attention(lp["mixer"], cfg, h, positions,
+                                   causal=causal)
+        if collect_cache:
+            payload = {"latent": mla_cache_payload(lp["mixer"], cfg, h,
+                                                   positions)}
     else:
         x = x + gqa_self_attention(lp["mixer"], cfg, h, positions,
                                    causal=causal)
@@ -182,6 +208,10 @@ def layer_decode(cfg: ModelConfig, spec: LayerSpec, lp: Params,
     if spec.kind in SSM_KINDS:
         y, _ = _STEPS[spec.kind](lp["mixer"], cfg, h, cache)
         return _ffn(cfg, spec, lp, x + y, moe, min(256, B))
+    if spec.kind == "mla":
+        y, _ = mla_decode(lp["mixer"], cfg, h, cache["latent"], positions,
+                          lengths)
+        return _ffn(cfg, spec, lp, x + y, moe, min(256, B))
     q, k_new, v_new = gqa_project_qkv(lp["mixer"], cfg, h,
                                       positions[:, None])
     kc, vc = cache["k"], cache["v"]
@@ -203,10 +233,11 @@ def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                         moe: Optional[Dict[str, Any]] = None
                         ) -> torch.Tensor:
     """Process chunk positions [pos0, pos0+c) against cached history.
-    Attention writes the chunk's K/V into ``cache`` in place and runs over
-    the full cache width with the causal mask doing the windowing (K1
-    prunes the kv loop at pos0 + c); a recurrent layer continues from the
-    state in ``cache`` and overwrites it."""
+    Attention writes the chunk's K/V (MLA: its latent payload) into
+    ``cache`` in place and runs over the full cache width with the causal
+    mask doing the windowing (K1 prunes the kv loop at pos0 + c); a
+    recurrent layer continues from the state in ``cache`` and overwrites
+    it."""
     B, c, D = x.shape
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if spec.kind in SSM_KINDS:
@@ -214,11 +245,18 @@ def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
         for name, t in st.items():
             cache[name].copy_(t)
         return _ffn(cfg, spec, lp, x + y, moe, min(256, c))
-    S_max = cache["k"].shape[1]
+    S_max = next(iter(cache.values())).shape[1]
     if pos0 < 0 or pos0 + c > S_max:
         raise ValueError(f"chunk [{pos0}, {pos0 + c}) outside the cache "
                          f"width {S_max}")
     positions = pos0 + torch.arange(c, device=x.device).expand(B, c)
+    if spec.kind == "mla":
+        # in place into the latent slice, then absorbed chunk attention
+        cache["latent"][:, pos0:pos0 + c] = mla_cache_payload(
+            lp["mixer"], cfg, h, positions)
+        y = _mla_chunk_absorbed(lp["mixer"], cfg, h, cache["latent"],
+                                positions, pos0, c)
+        return _ffn(cfg, spec, lp, x + y, moe, min(256, c))
     q, k, v = gqa_project_qkv(lp["mixer"], cfg, h, positions)
     cache["k"][:, pos0:pos0 + c] = k      # in place into the cache slice
     cache["v"][:, pos0:pos0 + c] = v
@@ -231,6 +269,22 @@ def layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, lp: Params,
                                 kv_chunk=kvc, q_offset=pos0)
     x = x + o.reshape(B, c, -1) @ lp["mixer"]["wo"]
     return _ffn(cfg, spec, lp, x, moe, min(256, c))
+
+
+def _mla_chunk_absorbed(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                        latent: torch.Tensor, positions: torch.Tensor,
+                        pos0: int, c: int) -> torch.Tensor:
+    """MLA chunk attention in absorbed form, scoring the chunk's queries
+    against the whole latent buffer (B,S,r+rd), which already holds the
+    chunk: the causal mask (query pos0 + i sees keys ≤ pos0 + i) does the
+    windowing, as in the reference."""
+    cos, sin = rope_table(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope = mla_queries(params, cfg, h, cos, sin)
+    q_pos = pos0 + torch.arange(c, device=h.device)
+    valid = (q_pos[:, None] >= torch.arange(latent.shape[1],
+                                            device=h.device)[None, :])[None]
+    o = mla_absorbed(params, cfg, q_nope, q_rope, latent, valid, h.dtype)
+    return o @ params["wo"]
 
 
 def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -255,6 +309,9 @@ def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
         return {**{k: ((batch, d), torch.float32)
                    for k in ("c", "n", "h", "m")},
                 "conv": (conv + (d,), dt)}
+    if spec.kind == "mla":
+        return {"latent": ((batch, max_seq,
+                            cfg.kv_lora_rank + cfg.qk_rope_head_dim), dt)}
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
     return {"k": ((batch, max_seq, kv, hd), dt),
             "v": ((batch, max_seq, kv, hd), dt)}
@@ -263,4 +320,5 @@ def layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int,
 __all__ = [
     "LayerSpec", "layer_specs", "stage_layout", "check_ported", "layer_init",
     "layer_apply", "layer_decode", "layer_prefill_chunk", "layer_cache_shape",
+    "FFN_TYPES",
 ]

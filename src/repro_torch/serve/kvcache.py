@@ -15,13 +15,17 @@ from ..models.transformer import layer_cache_shape
 
 
 def cache_bytes(model: Model, batch: int, max_seq: int) -> int:
-    """Total cache bytes for (batch, max_seq) — admission-control arithmetic."""
+    """Total cache bytes for (batch, max_seq) — admission-control
+    arithmetic: the prefix layers' caches once, the stage's ``repeats``
+    times."""
     total = 0
-    for spec in model.period_specs:
-        for shape, dt in layer_cache_shape(model.cfg, spec, batch,
-                                           max_seq).values():
-            itemsize = torch.empty((), dtype=dt).element_size()
-            total += model.repeats * math.prod(shape) * itemsize
+    for specs, n in ((model.prefix_specs, 1),
+                     (model.period_specs, model.repeats)):
+        for spec in specs:
+            for shape, dt in layer_cache_shape(model.cfg, spec, batch,
+                                               max_seq).values():
+                itemsize = torch.empty((), dtype=dt).element_size()
+                total += n * math.prod(shape) * itemsize
     return total
 
 
@@ -73,11 +77,14 @@ def cache_slot_insert(big: Any, small: Any, slot: int) -> Any:
     """Copy a batch=1 cache into row ``slot`` of a batched cache, in place
     (one row copy instead of a new batched cache), and return ``big``.
 
-    Both caches share the ``Model.init_cache`` layout and width: 'stage'
-    leaves are stacked over repeats and carry batch on axis 1.  The whole
-    slot row is overwritten, so stale state a previous occupant left behind
-    is erased.
+    Both caches share the ``Model.init_cache`` layout and width: 'prefix'
+    leaves carry batch on axis 0, 'stage' leaves are stacked over repeats
+    and carry batch on axis 1.  The whole slot row is overwritten, so stale
+    state a previous occupant left behind is erased.
     """
+    for layer, s in zip(big.get("prefix", []), small.get("prefix", [])):
+        for k, b in layer.items():
+            b[slot].copy_(s[k][0])
     for layer, s in zip(big["stage"], small["stage"]):
         for k, b in layer.items():
             b[:, slot].copy_(s[k][:, 0])

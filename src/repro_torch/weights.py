@@ -3,8 +3,11 @@
 * :func:`from_numpy_params` turns a parameter tree of numpy arrays (the JAX
   package's params after ``np.asarray`` on each leaf, same nested dicts and
   lists) into the port's tree of tensors.  Both packages stack period
-  params over repeats, so this is a leaf-by-leaf conversion with no
-  renaming.
+  params over repeats and keep unrolled prefix layers (deepseek's dense
+  layer) as a 'prefix' list, so this is a leaf-by-leaf conversion with no
+  renaming: the MLA mixer (``wq``, ``wkv_down``, ``wk_rope``, ``wkv_up``,
+  ``wo``) and the relu² FFN's biases (``up_b``, ``down_b``) carry by name
+  like every other leaf.
 * :func:`load_checkpoint` reads a checkpoint directory written by
   ``repro.train.checkpoint`` with numpy alone: ``manifest.json`` plus one
   ``arr_*.npy`` per leaf, each leaf's sha256 checked against the manifest.

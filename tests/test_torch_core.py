@@ -154,7 +154,8 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "sort_turns.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "sort_turns.py",
+              ROOT / "tools" / "k1_turns.py"]
     assert len(files) > 20
     names = {f.name for f in files}
     assert {"merge_sort.py", "radix_sort.py", "ops.py",
