@@ -17,23 +17,22 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    ``radix_tile_sort_packed``, K8 ``merge_level``), each timed beside its
    twin and a per-row ``torch.sort`` / ``torch.cumsum``; K5 (one cluster
    launch) also at seven histogram shapes under its rule and forced
-   clusters, and as a 1-D scan both ways (misaligned too), timed over
-   cluster sizes; K7a (8-bit digits in registers) at tiles 1 to 8192 over
-   every bit range and digit width and on equal, sorted and reverse-sorted
-   words; both bit-identical across two launches, their registers, spills,
-   shared memory and CTAs an SM printed; K8 (v2: blocks of its own size,
-   a co-rank search a warp a diagonal, W words a thread merged in
-   registers) also at run 2^14, on all-equal, sorted, reversed and
-   sentinel-padded runs and the four 8192-word levels of the MoE argsort,
-   v1 (the first design) on the same words, two launches bit-identical,
-   v2's registers, spills and CTAs an SM printed, and v2 timed in turns
-   against v1 at runs 1024, 2^14, 2^19 (with the unpack) and the four MoE
-   levels; K6a and K6b (the keys ranked in registers; warp-striped words
-   placed by one search and a forward walk) pass by pass through case (a)
-   (3 passes, the last with the unpack), the same on all-equal,
-   one-digit, sorted, reversed and sentinel-padded keys, case (c)'s 2^24
-   keys (2 passes) and tile 8192 at radix 256, each equal to its twin and
-   to a second launch, the passes' order to
+   clusters, and as a 1-D scan both ways (misaligned too); K7a (8-bit
+   digits in registers) at tiles 1 to 8192 over every bit range and digit
+   width and on equal, sorted and reverse-sorted words; both bit-identical
+   across two launches, their registers, spills, shared memory and CTAs an
+   SM printed; K8 (v2: blocks of its own size, a co-rank search a warp a
+   diagonal, W words a thread merged in registers) also at run 2^14, on
+   all-equal, sorted, reversed and sentinel-padded runs and the four
+   8192-word levels of the MoE argsort, v1 (the first design) on the same
+   words, two launches bit-identical, v2's registers, spills and CTAs an
+   SM printed, and v2 timed at runs 1024, 2^14, 2^19 (with the unpack) and
+   the four MoE levels; K6a and K6b (the keys ranked in registers;
+   warp-striped words placed by one search and a forward walk) pass by
+   pass through case (a) (3 passes, the last with the unpack), the same on
+   all-equal, one-digit, sorted, reversed and sentinel-padded keys, case
+   (c)'s 2^24 keys (2 passes) and tile 8192 at radix 256, each equal to
+   its twin and to a second launch, the passes' order to
    ``torch.argsort(stable=True)``; their registers, spills and CTAs an SM
    printed; each timed at the first and last pass of cases (a) and (c),
    beside a copy of the same input; K7b (v2: the composite ranked in
@@ -43,8 +42,9 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    and 7-valued keys, equal to its twin, to v1 and to a second launch, at
    tile 1024 under every CTA width built too; its registers, spills and
    CTA width checked against ``k7b_shape`` and ``k7b_digits`` (the path's
-   instances within 64 registers, no spills); v2 timed in turns against
-   v1 at cases (d) and (e), and over CTA widths at 1, 32 and 1024 tiles;
+   instances within 64 registers, no spills); v2 timed at cases (d), (e)
+   and (g) (the turns against the versions and routes each kernel keeps
+   are ``tools/version_turns.py``'s);
    2b.
    the same for
    the MoE dispatch K3 ``moe_dispatch`` (a decode step's 8 rows, a
@@ -89,8 +89,7 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    route up to 2 splits) equal bit for bit to split partials + the
    standalone merge and to a second fused launch in every split case,
    forced ones included, the arrival counters back at 0; fp32 through v2;
-   v3 timed beside v2 in turns, unsplit, and over split counts, and the
-   fused launch in turns against the two at every split shape; groups 3, 8
+   v3 (its route) timed at the dense chunks, groups 3, 8
    and 16 at c=256 / 736 and MLA's ``Model.prefill`` of 4 x 2048 at
    (192, 128) beside SDPA and the bound), K2 (bf16
    through v2, the tensor-core kernel, with the merge
@@ -98,10 +97,16 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    1, 127, 128, 129, S and ragged: the fused launch equal to v2 partials +
    the standalone combine, each row equal to a B = 1 call and two launches
    bit-identical, bit for bit, all within 2e-2 of the fp32 twin; fp32 and
-   forced bf16 through v1, with a zero-length row; v2 partials timed beside
-   v1, and the fused launch beside partials + combine, in turns; both
-   kernels' registers, spills, shared memory and CTAs an SM printed), K4
-   ``logspace`` (mLSTM carry, with extreme gates) and K4
+   forced bf16 through v1, with a zero-length row; the fused launch and
+   the combine timed; both kernels' registers, spills, shared memory and
+   CTAs an SM printed), the cross-attention paths' instances (K1
+   non-causal at whisper's encoder, Sq = Sk = 1500 at 16/16 heads of 64,
+   and at the cross chunks against 1500 and vision's 1601 keys, 32/8 of
+   128, under the rule and forced splits, the fused merge equal to
+   partials + merge bit for bit; K2 v2 at group 1 over 1500 and 32/8 over
+   1601 with every row full and ragged; each within 2e-2 of its fp32
+   twin, bit-identical across launches, timed beside its twin, SDPA and
+   the bound), K4 ``logspace`` (mLSTM carry, with extreme gates) and K4
    ``affine`` (Mamba);
 5. the dense path: llama3-8b at full width and full depth (32 layers,
    bf16, seeded random weights) serves 16 requests through
@@ -153,8 +158,23 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    and depth in bf16, 8 requests each through ``ContinuousEngine`` (K1
    once a layer a chunk, K2 once a layer a step), then minitron's fp32
    checks at 2 layers;
-15. the kernels line (K1's MLA instance in its own entry), then the last
-   line
+15. the encoder-decoder path: whisper-medium at full width and depth
+   (24 encoder + 24 decoder layers, 16/16 heads of 64, LayerNorm, GELU;
+   bf16, seeded random weights): ``Model.prefill`` of 4 x 1024 decoder
+   tokens over frames of 4 x 1500 x 1024 (K1 once an encoder, self and
+   cross layer), the same through ``ChunkedPrefill.run(batch=...)`` (48 K1
+   a chunk after the encoder's 24), its logits against the full
+   prefill's within 2e-2 (relative), 32 decode steps (48 K2 a step, the
+   cross rows at 1500), the profile of one decode step; then fp32 at 2 +
+   2 layers: card logits against the CPU plain path within 1e-3, chunked
+   == full prefill;
+16. the image cross-attention path: llama-3.2-vision-11b at full width
+   and depth (40 layers, 8 with cross-attention over 1601 image
+   embeddings, 32/8 heads of 128) the same way with image embeddings of 4
+   x 1601 x 4096 (48 K1 a chunk, 48 K2 a step), the profile of one
+   256-token chunk; fp32 at one period of 5 layers;
+17. the kernels line (K1's MLA and non-causal instances and K2's group-1
+   instance in entries of their own), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase exits non-zero before the last line is printed.  Details
@@ -351,16 +371,16 @@ def main() -> None:
 
     fused_same = []          # K1 split cases: fused == two launches
 
-    def k1_fused_check(q, k, v, off, ns, out, **case):
+    def k1_fused_check(q, k, v, off, ns, out, causal=True, **case):
         """At every split count the fused launch (the tile's last CTA
         merges) equals the two launches (split partials + the standalone
         merge), a second fused launch and the wrapper's own route, bit for
         bit."""
         if ns < 2:
             return
-        pair = fa.merge(*fa.split_partials(q, k, v, ns, causal=True,
+        pair = fa.merge(*fa.split_partials(q, k, v, ns, causal=causal,
                                            q_offset=off))
-        fused = [fa.flash_attention(q, k, v, causal=True, q_offset=off,
+        fused = [fa.flash_attention(q, k, v, causal=causal, q_offset=off,
                                     splits=ns, fused=True) for _ in range(2)]
         torch.cuda.synchronize()
         fused_same.append(bool(torch.equal(out, pair) and all(
@@ -688,9 +708,137 @@ def main() -> None:
             f"{TOL['bfloat16']} of the fp32 twin, the fused split merge "
             f"equal to partials + merge bit for bit")
 
+    def cross_checks():
+        """K1 and K2 at the cross-attention paths' instances.  K1 non-causal
+        at whisper's encoder (Sq = Sk = 1500, 16/16 heads of 64: a last kv
+        tile of 28 keys), whisper's cross chunks (c 128 and 256 against
+        1500) and vision's (c 1 and 256 against 1601, 32/8 heads of 128: a
+        last tile of one key), B 1 and 4, under the split rule and forced
+        2, 3 and 5 splits: bf16 (v3) within 2e-2 of the fp32 twin, two
+        launches bit-identical, the fused launch equal to split partials +
+        the standalone merge bit for bit; fp32 (v2) at two of them.  K2 v2
+        at group 1 (16/16 of 64) over S 1500 and at 32/8 over S 1601, every
+        row full (the cross decode) and ragged with a zero-length row: the
+        fused launch within 2e-2 of the twin and equal to v2 partials + the
+        combine, to a second launch and, row by row, to B = 1 calls; fp32
+        (v1) at group 1."""
+        bf = torch.bfloat16
+        same = []
+        name = "flash_attention_fwd (non-causal)"
+        for B, Sq, Sk, Hq, kv, d in (
+                (4, 1500, 1500, 16, 16, 64), (1, 1500, 1500, 16, 16, 64),
+                (4, 128, 1500, 16, 16, 64), (1, 256, 1500, 16, 16, 64),
+                (4, 256, 1601, 32, 8, 128), (1, 256, 1601, 32, 8, 128),
+                (4, 1, 1601, 32, 8, 128)):
+            q = randn(B, Sq, Hq, d, dtype=bf)
+            k = randn(B, Sk, kv, d, dtype=bf)
+            v = randn(B, Sk, kv, d, dtype=bf)
+            ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=False)
+            rule = fa.num_splits(B, Sq, Hq, kv, Sk, causal=False)
+            for sp in (None, 2, 3, 5):
+                out = fa.flash_attention(q, k, v, causal=False, splits=sp)
+                again = fa.flash_attention(q, k, v, causal=False, splits=sp)
+                torch.cuda.synchronize()
+                ns = sp or rule
+                record(name, bf, err(out, ref), B=B, Sq=Sq, Sk=Sk, H=Hq,
+                       KV=kv, hd=d, splits=ns, rule=rule)
+                same.append(bool(torch.equal(out, again)))
+                k1_fused_check(q, k, v, 0, ns, out, causal=False, B=B,
+                               Sq=Sq, Sk=Sk, H=Hq, KV=kv, hd=d)
+            if B == 1 and Sq == 256:        # fp32: v2
+                out = fa.flash_attention(q.float(), k.float(), v.float(),
+                                         causal=False)
+                torch.cuda.synchronize()
+                record(name, torch.float32, err(out, ref), B=B, Sq=Sq,
+                       Sk=Sk, H=Hq, KV=kv, hd=d)
+            del q, k, v, ref
+        check(all(same), "K1 non-causal: two launches on the same inputs "
+              "differ")
+        say(f"K1 non-causal (Sk 1500 and 1601): within {TOL['bfloat16']} of "
+            f"the fp32 twin, two launches bit-identical in {sum(same)} of "
+            f"{len(same)} cases, the fused split merge equal to partials + "
+            f"merge bit for bit")
+        report["k1_noncausal_bit_identical"] = same
+        # whisper's decoder self-attention: causal at group 1, head dim 64,
+        # Model.prefill's 4 x 1024 and chunks at offsets in a 1056-wide cache
+        same = []
+        name = "flash_attention_fwd"
+        for B, c, off, Sk in ((4, 1024, 0, 1024), (1, 1024, 0, 1024)) + tuple(
+                (B, c, off, 1056) for B in (1, 4) for c in (128, 256)
+                for off in (0, 128, 768)):
+            q = randn(B, c, 16, 64, dtype=bf)
+            k = randn(B, Sk, 16, 64, dtype=bf)
+            v = randn(B, Sk, 16, 64, dtype=bf)
+            ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=True, q_offset=off)
+            rule = fa.num_splits(B, c, 16, 16, Sk, q_offset=off)
+            for sp in (None, 2, 3):
+                out = fa.flash_attention(q, k, v, causal=True, q_offset=off,
+                                         splits=sp)
+                again = fa.flash_attention(q, k, v, causal=True,
+                                           q_offset=off, splits=sp)
+                torch.cuda.synchronize()
+                ns = sp or rule
+                record(name, bf, err(out, ref), B=B, c=c, q_offset=off,
+                       Sk=Sk, H=16, KV=16, hd=64, splits=ns, rule=rule)
+                same.append(bool(torch.equal(out, again)))
+                k1_fused_check(q, k, v, off, ns, out, B=B, c=c, Sk=Sk, H=16,
+                               KV=16, hd=64, q_offset=off)
+            del q, k, v, ref
+        check(all(same), "K1 causal (64, 64): two launches on the same "
+              "inputs differ")
+        say(f"K1 causal at group 1, head dim 64 (whisper's decoder: 4 x 1024, "
+            f"chunks of 128 and 256 at 0, 128 and 768 against 1056): within "
+            f"{TOL['bfloat16']} of the fp32 twin, two launches bit-identical "
+            f"in {sum(same)} of {len(same)} cases, the fused split merge "
+            f"equal to partials + merge bit for bit")
+        report["k1_causal_64_bit_identical"] = same
+        same = []
+        for B, S, Hq, kv, d in ((4, 1500, 16, 16, 64), (4, 1601, 32, 8, 128)):
+            G = Hq // kv
+            kname = "flash_decode (fused, group 1)" if G == 1 else \
+                "flash_decode (fused)"
+            for lens in ([S] * B, [S, 1, 777, 0]):
+                lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+                q = randn(B, Hq, d, dtype=bf)
+                kc = randn(B, S, kv, d, dtype=bf)
+                vc = randn(B, S, kv, d, dtype=bf)
+                fused = fd.flash_decode(q, kc, vc, lens)
+                parts = fd.decode_partials(q, kc, vc, lens)
+                pair = fd.combine(*parts, bf)
+                ref = fd.flash_decode_plain(q.float(), kc.float(),
+                                            vc.float(), lens)
+                torch.cuda.synchronize()
+                record(kname, bf, err(fused, ref), B=B, S=S, H=Hq, KV=kv,
+                       hd=d, lengths=lens.tolist())
+                k2_v2_record(parts, fd.decode_partials_plain(q, kc, vc, lens),
+                             B=B, S=S, H=Hq, KV=kv, hd=d,
+                             lengths=lens.tolist())
+                ok = torch.equal(fused, pair) and torch.equal(
+                    fused, fd.flash_decode(q, kc, vc, lens)) and all(
+                    torch.equal(fused[i:i + 1], fd.flash_decode(
+                        q[i:i + 1], kc[i:i + 1], vc[i:i + 1], lens[i:i + 1]))
+                    for i in range(B))
+                same.append(bool(ok))
+                check(ok, f"K2 v2 G={G} S={S} lengths {lens.tolist()}: the "
+                      f"fused launch differs from partials + combine, a "
+                      f"second launch or a B=1 call")
+                if G == 1:                  # fp32: v1
+                    out = fd.flash_decode(q.float(), kc.float(), vc.float(),
+                                          lens)
+                    torch.cuda.synchronize()
+                    record(kname, torch.float32, err(out, ref), B=B, S=S,
+                           H=Hq, KV=kv, hd=d, lengths=lens.tolist())
+        say(f"K2 v2 at group 1 over 1500 and 32/8 over 1601, rows full and "
+            f"ragged: fused == partials + combine == a second launch == B=1 "
+            f"calls, bit for bit, in {sum(same)} of {len(same)} cases")
+        report["k2_cross_bit_identical"] = same
+
     k1_bf16_checks()
     k1_new_shapes_checks()
     k2_v2_checks()
+    cross_checks()
 
     # K1 and K2 at llama4-scout's head layout, the MoE path's: 40 q heads
     # on 8 kv heads (G = 5)
@@ -791,46 +939,29 @@ def main() -> None:
 
     bf = torch.bfloat16
 
-    def k1_case(c, off, Sk, B=1, Hq=H, kv=KV, dk=hd, dv=hd):
-        """v3 (the wrapper's route and split rule) timed in turns with v2
-        (v3, v2, v3, v2: each the mean of its two), v3 unsplit, the plain
-        twin and SDPA, all on the same inputs after an L2 flush; q/k head
-        dim ``dk``, v head dim ``dv`` (MLA: 192, 128)."""
+    def k1_case(c, off, Sk, B=1, Hq=H, kv=KV, dk=hd, dv=hd, causal=True):
+        """v3 (the wrapper's route and split rule), the plain twin and
+        SDPA, all on the same inputs after an L2 flush; q/k head dim
+        ``dk``, v head dim ``dv`` (MLA: 192, 128); ``causal=False``: no
+        mask and no offset.  v3 against v2, the fused launch against the
+        two and the split counts are timed in turns by
+        ``tools/version_turns.py``."""
         q = randn(B, c, Hq, dk, dtype=bf)
         k = randn(B, Sk, kv, dk, dtype=bf)
         v = randn(B, Sk, kv, dv, dtype=bf)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = (off + torch.arange(c, device=dev)[:, None]
-                >= torch.arange(Sk, device=dev)[None, :])
-        pairs = sum(min(Sk, off + i + 1) for i in range(c))
-        kv_len = min(Sk, off + c)
+        if causal:
+            mask = (off + torch.arange(c, device=dev)[:, None]
+                    >= torch.arange(Sk, device=dev)[None, :])
+            pairs = sum(min(Sk, off + i + 1) for i in range(c))
+            kv_len = min(Sk, off + c)
+        else:
+            mask, pairs, kv_len, off = None, c * Sk, Sk, 0
         flops = 2.0 * B * Hq * (dk + dv) * pairs
         nbytes = 2.0 * (B * c * Hq * (dk + dv) + B * kv_len * kv * (dk + dv))
         bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES)
 
-        def v3():
-            return fa.flash_attention(q, k, v, causal=True, q_offset=off)
-
-        def v2():
-            return fa.flash_attention(q, k, v, causal=True, q_offset=off,
-                                      tensor_cores=False)
-        turns = [device_ms(f, cold=True) for f in (v3, v2, v3, v2)]
-        ns = fa.num_splits(B, c, Hq, kv, Sk, q_offset=off)
-        pair = {}
-        if ns > 1:
-            # the fused launch against the two launches, in turns
-            def one():
-                return fa.flash_attention(q, k, v, causal=True, q_offset=off,
-                                          fused=True)
-
-            def two():
-                return fa.flash_attention(q, k, v, causal=True, q_offset=off,
-                                          fused=False)
-            fturns = [device_ms(f, cold=True) for f in (one, two, one, two)]
-            pair = dict(fused_ms=(fturns[0] + fturns[2]) / 2,
-                        pair_ms=(fturns[1] + fturns[3]) / 2,
-                        fused_turns_ms=fturns, route="fused"
-                        if fa.fused_merge(ns) else "two launches")
+        ns = fa.num_splits(B, c, Hq, kv, Sk, causal=causal, q_offset=off)
         try:        # SDPA's backends may refuse a v head dim != q/k's
             library = device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), cold=True)
@@ -838,19 +969,21 @@ def main() -> None:
             say(f"SDPA refuses q/k {dk}, v {dv}: {e}")
             library = None
         return dict(
-            ms=(turns[0] + turns[2]) / 2, v2_ms=(turns[1] + turns[3]) / 2,
-            turns_ms=turns, **pair,
-            unsplit_ms=device_ms(lambda: fa.flash_attention(
-                q, k, v, causal=True, q_offset=off, splits=1), cold=True),
+            ms=device_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, q_offset=off), cold=True),
+            route="unsplit" if ns == 1 else "fused" if fa.fused_merge(ns)
+            else "two launches",
             plain_ms=device_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True, q_offset=off), cold=True),
+                q, k, v, causal=causal, q_offset=off), cold=True),
             library_ms=library,
-            library_computes="the same attention (offset causal mask)",
+            library_computes="the same attention (offset causal mask)"
+            if causal else "the same attention (no mask)",
             bound_ms=bound * 1e3,
             bound_by="operations" if flops / PEAK_FLOPS["bfloat16"]
             > nbytes / PEAK_BYTES else "bytes",
             shape=dict(B=B, c=c, q_offset=off, Sk=Sk, H=Hq, KV=kv, hd=dk,
-                       hdv=dv, dtype="bfloat16", splits=ns))
+                       hdv=dv, dtype="bfloat16", splits=ns,
+                       **({} if causal else {"causal": False})))
 
     def merge_case(c, off, Sk, Hq=H):
         """The merge launch alone, on partials v3 just wrote (warm)."""
@@ -870,10 +1003,15 @@ def main() -> None:
             shape=dict(B=1, c=c, q_offset=off, Sk=Sk, H=Hq, KV=KV, hd=hd,
                        splits=ns, dtype="float32 partials, bfloat16 out"))
 
-    def k2_case(B, S, lens):
-        q = randn(B, H, hd, dtype=bf)
-        kc = randn(B, S, KV, hd, dtype=bf)
-        vc = randn(B, S, KV, hd, dtype=bf)
+    def k2_case(B, S, lens, Hq=H, kv=KV, d=hd):
+        """K2's fused bf16 launch (v2 partials with the merge), its plain
+        twin and SDPA's decode on the same inputs after an L2 flush, and
+        the standalone combine on v2's partials (warm).  v2 against v1
+        and the fused launch against partials + combine are timed in turns
+        by ``tools/version_turns.py``."""
+        q = randn(B, Hq, d, dtype=bf)
+        kc = randn(B, S, kv, d, dtype=bf)
+        vc = randn(B, S, kv, d, dtype=bf)
         lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
         qt = q[:, :, None].contiguous()
         kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
@@ -882,47 +1020,24 @@ def main() -> None:
         nk = fd.num_splits(S)
         m, l, acc = fd.decode_partials(q, kc, vc, lens)
         tot = int(lens.clamp(max=S).sum())
-        p_flops = 4.0 * H * hd * tot
-        p_bytes = (2.0 * B * H * hd + 2.0 * 2 * tot * KV * hd
-                   + 4.0 * B * H * nk * (2 + hd))
-        c_bytes = 4.0 * B * H * nk * (2 + hd) + 2.0 * B * H * hd
-        shape = dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype="bfloat16",
-                     block_k=fd.BLOCK_K, splits=nk,
-                     mean_length=tot / B)
-        library = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), cold=True)
-
-        def v2():
-            return fd.decode_partials(q, kc, vc, lens)
-
-        def v1():
-            return fd.decode_partials(q, kc, vc, lens, tensor_cores=False)
-        turns = [device_ms(f, cold=True) for f in (v2, v1, v2, v1)]
-
-        def fused():
-            return fd.flash_decode(q, kc, vc, lens)
-
-        def pair():
-            return fd.combine(*fd.decode_partials(q, kc, vc, lens), bf)
-        # the one launch against PR 20's two, in turns
-        fturns = [device_ms(f, cold=True) for f in (fused, pair, fused, pair)]
+        p_flops = 4.0 * Hq * d * tot
+        c_bytes = 4.0 * B * Hq * nk * (2 + d) + 2.0 * B * Hq * d
+        shape = dict(B=B, S=S, H=Hq, KV=kv, hd=d, dtype="bfloat16",
+                     block_k=fd.BLOCK_K, splits=nk, mean_length=tot / B)
         # the whole decode: q, the valid K/V rows and the output, once
-        f_bytes = 2.0 * (2 * B * H * hd + 2 * tot * KV * hd)
+        f_bytes = 2.0 * (2 * B * Hq * d + 2 * tot * kv * d)
         part = dict(
-            ms=(fturns[0] + fturns[2]) / 2,
-            pair_ms=(fturns[1] + fturns[3]) / 2, fused_turns_ms=fturns,
-            partials_ms=(turns[0] + turns[2]) / 2,
-            v1_ms=(turns[1] + turns[3]) / 2, turns_ms=turns,
+            ms=device_ms(lambda: fd.flash_decode(q, kc, vc, lens),
+                         cold=True),
             plain_ms=device_ms(lambda: fd.flash_decode_plain(
                 q, kc, vc, lens), cold=True),
-            library_ms=library,
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), cold=True),
             library_computes="the same decode attention",
             bound_ms=max(p_flops / PEAK_FLOPS["bfloat16"],
                          f_bytes / PEAK_BYTES) * 1e3,
             bound_by="bytes" if f_bytes / PEAK_BYTES
             > p_flops / PEAK_FLOPS["bfloat16"] else "operations",
-            partials_bound_ms=max(p_flops / PEAK_FLOPS["bfloat16"],
-                                  p_bytes / PEAK_BYTES) * 1e3,
             shape=shape)
         comb = dict(
             ms=device_ms(lambda: fd.combine(m, l, acc, bf), cold=False),
@@ -951,36 +1066,17 @@ def main() -> None:
             f" B={kw['B']} hd=({kw['dk']}, {kw['dv']})" if "dk" in kw
             else "")
         report["timings"][f"flash_attention_fwd {tag}"] = r
-        fused = "" if "pair_ms" not in r else (
-            f"; fused {r['fused_ms']:.4f} against split partials + merge "
-            f"{r['pair_ms']:.4f} in turns, route {r['route']}")
         lib = "refused" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
         say(f"K1 {tag} Sk=2048 bf16: v3 {r['ms']:.4f} ms "
-            f"({r['shape']['splits']} splits{fused}; unsplit "
-            f"{r['unsplit_ms']:.4f}), v2 {r['v2_ms']:.4f} ms"
-            f", plain {r['plain_ms']:.4f} ms, sdpa {lib}, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+            f"({r['shape']['splits']} splits, {r['route']}), plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     merge_row = merge_case(32, 1792, 2048)
     report["timings"]["flash_attention_merge c=32 off=1792"] = merge_row
     say(f"K1 merge c=32 off=1792 ({merge_row['shape']['splits']} splits): "
         f"{merge_row['ms']:.4f} ms, plain {merge_row['plain_ms']:.4f} ms, "
         f"bound {merge_row['bound_ms']:.4f} ms (bytes) [{card}]")
-    # v3 over forced split counts: the data behind the split rule
-    for Hq, c, off in ((H, 256, 736), (H, 256, 1792), (H, 32, 1792),
-                       (H, 1, 1792), (40, 256, 736), (H, 128, 1024)):
-        q = randn(1, c, Hq, hd, dtype=bf)
-        k = randn(1, 2048, KV, hd, dtype=bf)
-        v = randn(1, 2048, KV, hd, dtype=bf)
-        sweep = {sp: device_ms(lambda: fa.flash_attention(
-            q, k, v, causal=True, q_offset=off, splits=sp), cold=True)
-            for sp in (1, 2, 3, 4, 6, 9, 12, 16)}
-        rule = fa.num_splits(1, c, Hq, KV, 2048, q_offset=off)
-        report["timings"][f"flash_attention_fwd split sweep H={Hq} c={c} "
-                          f"off={off}"] = dict(rule=rule, ms=sweep)
-        say(f"K1 v3 H={Hq} c={c} q_offset={off} by splits (rule {rule}): "
-            + ", ".join(f"{sp}: {t:.4f}" for sp, t in sweep.items())
-            + f" ms [{card}]")
     lens_rng = np.random.RandomState(args.seed)
     main_lens = lens_rng.randint(64, 1089, size=8)
     for S, lens in ((2048, main_lens), (2048, [2048] * 8),
@@ -989,15 +1085,43 @@ def main() -> None:
         tag = f"B=8 S={S} mean_len={part['shape']['mean_length']:.0f}"
         report["timings"][f"flash_decode_partials {tag}"] = part
         report["timings"][f"flash_decode_combine {tag}"] = comb
-        say(f"K2 {tag} bf16: fused {part['ms']:.4f} ms against v2 "
-            f"partials + combine {part['pair_ms']:.4f} in turns (bound "
+        say(f"K2 {tag} bf16: fused {part['ms']:.4f} ms (bound "
             f"{part['bound_ms']:.4f} {part['bound_by']}, plain "
-            f"{part['plain_ms']:.4f}); partials alone v2 "
-            f"{part['partials_ms']:.4f} (v1 {part['v1_ms']:.4f} in turns, "
-            f"bound {part['partials_bound_ms']:.4f}), combine "
-            f"{comb['ms']:.4f} ms (plain {comb['plain_ms']:.4f}, bound "
-            f"{comb['bound_ms']:.4f}), sdpa decode "
-            f"{part['library_ms']:.4f} ms [{card}]")
+            f"{part['plain_ms']:.4f}), combine {comb['ms']:.4f} ms (plain "
+            f"{comb['plain_ms']:.4f}, bound {comb['bound_ms']:.4f}), sdpa "
+            f"decode {part['library_ms']:.4f} ms [{card}]")
+
+    # the cross-attention paths' instances: K1 non-causal at whisper's
+    # encoder (the row) and cross chunk, vision's cross chunks; K2 at
+    # group 1 over whisper's 1500 positions (the row), and vision's cross
+    # decode over 1601, every row full
+    k1_rows = [k1_case(c, 0, Sk, B=B, Hq=Hq, kv=kv, dk=d, dv=d, causal=False)
+               for B, c, Sk, Hq, kv, d in (
+                   (4, 1500, 1500, 16, 16, 64), (4, 256, 1500, 16, 16, 64),
+                   (4, 256, 1601, 32, 8, 128), (1, 256, 1601, 32, 8, 128))]
+    for r_ in k1_rows:
+        sh = r_["shape"]
+        say(f"K1 non-causal B={sh['B']} Sq={sh['c']} Sk={sh['Sk']} "
+            f"{sh['H']}/{sh['KV']} heads of {sh['hd']} bf16: v3 "
+            f"{r_['ms']:.4f} ms ({sh['splits']} splits, {r_['route']}), "
+            f"plain {r_['plain_ms']:.4f} ms, sdpa {r_['library_ms']:.4f} "
+            f"ms, bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}) [{card}]")
+    cross_rows = {"flash_attention_fwd (non-causal)": dict(
+        k1_rows[0], other_shapes={str(r_["shape"]): r_
+                                  for r_ in k1_rows[1:]})}
+    g1, _ = k2_case(4, 1500, [1500] * 4, Hq=16, kv=16, d=64)
+    v4, _ = k2_case(4, 1601, [1601] * 4, Hq=32, kv=8, d=128)
+    cross_rows["flash_decode_partials (group 1)"] = g1
+    for r_ in (g1, v4):
+        sh = r_["shape"]
+        say(f"K2 B={sh['B']} S={sh['S']} every row full, {sh['H']}/"
+            f"{sh['KV']} heads of {sh['hd']} bf16: fused {r_['ms']:.4f} ms, "
+            f"plain {r_['plain_ms']:.4f} ms, sdpa {r_['library_ms']:.4f} ms, "
+            f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}) [{card}]")
+    report["timings"]["flash_attention_fwd (non-causal)"] = cross_rows[
+        "flash_attention_fwd (non-causal)"]
+    report["timings"]["flash_decode_partials (group 1) B=4 S=1500"] = g1
+    report["timings"]["flash_decode_partials B=4 S=1601 32/8 full"] = v4
 
     # every complete fused launch leaves its arrival counters at 0
     arrivals = fd._arrival_counters[torch.cuda.current_device()]
@@ -1655,27 +1779,47 @@ def main() -> None:
     # ------ 14. the dense configs: yi-9b, chatglm3-6b, minitron-4b, full
     dense_configs_path(np, torch, args.seed, card, report, drain)
 
-    # --------------------------------------------------------- 15. report
+    # ----- 15-16. the encoder-decoder and image cross-attention paths, and
+    # their fp32 checks
+    cross_launches = {}
+    for arch in (WHISPER_ARCH, VISION_ARCH):
+        cross_launches[arch] = cross_path(np, torch, dev, args.seed, card,
+                                          report, breakdown, arch)
+        cross_fp32(np, torch, args.seed, report, arch)
+
+    # --------------------------------------------------------- 17. report
     # the standalone combine serves v1 only: its launches are the fp32
     # dense engine's (phase 6)
     path_launches_by_kernel = {
         **launches, "tile_scan_logspace": ssm_launches["tile_scan_logspace"],
         "tile_scan_affine": mamba_launches["tile_scan_affine"],
         "flash_decode_combine": fp32_launches["flash_decode_combine"],
-        "flash_attention_fwd (192, 128)": mla_launches["k1"]}
+        "flash_attention_fwd (192, 128)": mla_launches["k1"],
+        "flash_attention_fwd (non-causal)": sum(
+            c["noncausal"] for c in cross_launches.values()),
+        "flash_decode_partials (group 1)": sum(
+            c["group1"] for c in cross_launches.values())}
     rows["flash_attention_fwd (192, 128)"] = report["timings"][
         "flash_attention_fwd c=2048 off=0 H=16 KV=16 B=4 hd=(192, 128)"]
+    rows.update(cross_rows)
+    rows["flash_decode_partials"] = dict(
+        rows["flash_decode_partials"], other_shapes={
+            "B=4 S=1601 32/8, every row full (vision's cross decode)": v4})
     kernels = []
     meta = {
         "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:72"),
         "flash_attention_fwd (192, 128)": K1_MLA,
+        "flash_attention_fwd (non-causal)": K1_MLA,
         "flash_attention_merge": ("src/repro_torch/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:72"),
         "flash_decode_partials": ("src/repro_torch/csrc/flash_decode.cu",
                                   "src/repro/kernels/flash_decode.py:53"),
         "flash_decode_combine": ("src/repro_torch/csrc/flash_decode.cu",
                                  "src/repro/kernels/flash_decode.py:94"),
+        "flash_decode_partials (group 1)": (
+            "src/repro_torch/csrc/flash_decode.cu",
+            "src/repro/kernels/flash_decode.py:53"),
         "tile_scan_logspace": ("src/repro_torch/csrc/tile_scan.cu",
                                "src/repro/kernels/tile_scan.py:181"),
         "tile_scan_affine": ("src/repro_torch/csrc/tile_scan.cu",
@@ -1689,7 +1833,8 @@ def main() -> None:
                     "max_rel_err": w["rel"], "tol": K4_TOL,
                     "tol_kind": "relative", "max_abs_err_fp32": w["abs"]}
         else:
-            w = dict(worst[name])
+            w = dict(worst[{"flash_decode_partials (group 1)":
+                            "flash_decode (fused, group 1)"}.get(name, name)])
             if name == "flash_decode_partials":   # its launch is the fused one
                 w["bfloat16"] = max(w["bfloat16"],
                                     worst["flash_decode (fused)"]["bfloat16"])
@@ -1706,13 +1851,16 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_computes": row.get("library_computes"),
             "shape": row["shape"],
-            **{k: row[k] for k in ("v2_ms", "unsplit_ms", "v1_ms",
-                                   "pair_ms", "fused_ms", "partials_ms",
-                                   "partials_bound_ms") if k in row},
+            **({"route_at_shape": row["route"]} if "route" in row else {}),
             **({"launches_from": "fp32 dense ContinuousEngine (v1 route)"}
                if name == "flash_decode_combine" else {}),
             **({"launches_from": f"{MLA_ARCH} Model.prefill 4 x 2048"}
                if name == "flash_attention_fwd (192, 128)" else {}),
+            **({"launches_from": f"{WHISPER_ARCH} and {VISION_ARCH}: "
+                                 f"Model.prefill, chunked prefill, decode"}
+               if name in cross_rows else {}),
+            **({"other_shapes": row["other_shapes"]}
+               if "other_shapes" in row else {}),
             **({"fused_split_launches": n_fused}
                if name == "flash_attention_fwd" else {})})
     kernels += sort_kernel_entries(sort_rows, sort_errs, sort_launches)
@@ -2135,16 +2283,15 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     k6 = k6_rows()
 
     def k7b_row(k, bits, n_):
-        """K7b v2 against v1 in turns (v2, v1 three times: each the median
-        of its three), the twin and the per-row library sort."""
+        """K7b v2 (the median of three), the twin and the per-row library
+        sort; v2 against v1 and over CTA widths in turns:
+        ``tools/version_turns.py``."""
         kw_ = dict(n=n_, tile=tile, num_key_bits=bits,
                    idx_bits=max(1, (n_ - 1).bit_length()))
-        turns = [device_ms(lambda: rs.radix_tile_sort_packed(
-            k, v1=v1, **kw_), cold=True) for v1 in (False, True) * 3]
         width, passes = rs.k7b_digits(bits, tile)
         return dict(
-            ms=sorted(turns[0::2])[1], v1_ms=sorted(turns[1::2])[1],
-            turns_ms=turns, plain_ms=device_ms(
+            ms=median3(lambda: rs.radix_tile_sort_packed(k, **kw_)),
+            plain_ms=device_ms(
                 lambda: rs.radix_tile_sort_packed_plain(
                     k, n=n_, tile=tile, idx_bits=kw_["idx_bits"],
                     sort_bits=bits), cold=True),
@@ -2156,24 +2303,8 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             bound_by="bytes",
             shape=dict(n=k.numel(), tile=tile, num_key_bits=bits,
                        passes=passes, digit_bits=width,
-                       v1_passes=-(-bits // 4),
                        threads=rs.k7b_shape(tile, k.numel() // tile)[1]))
 
-    # K7b's CTA widths (the rule's and the others built at tile 1024) at one
-    # tile (case (g)), 32 (case (e)'s count) and 1024 (case (d)), each the
-    # median of three
-    k7b_shapes = {
-        nt_: {th: median3(lambda: rs.radix_tile_sort_packed(
-            keys[:nt_ * tile], n=nt_ * tile, tile=tile, num_key_bits=12,
-            idx_bits=max(1, (nt_ * tile - 1).bit_length()), threads=th))
-            for th in (128, 256, 512, 1024)}
-        for nt_ in (1, 32, nt)}
-    report["timings"]["radix_tile_sort_packed CTA widths"] = k7b_shapes
-    for nt_, per in k7b_shapes.items():
-        say(f"radix_tile_sort_packed v2 tile {tile}, {nt_} tiles, 12-bit "
-            f"keys, by threads a CTA: " + ", ".join(
-                f"{th} {t:.4f} ms" for th, t in per.items())
-            + f" (the rule: {rs.k7b_shape(tile, nt_)[1]}) [{card}]")
     hist_dm = hist0.t().contiguous().reshape(-1)
     fw, fp = _flip(torch, w).reshape(nt, tile), _flip(torch, packed)
     R = nt * 16
@@ -2195,15 +2326,12 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     }
 
     def k8_row(x8, run, um, computes=None, library_fn=None, t8=tile):
-        """K8 v2 against v1 (blocks of the path's tile t8) in turns (v2,
-        v1, v2, v1: each the mean of its two), the twin and, where given,
-        the library call."""
-        turns = [device_ms(lambda: ms._merge_level(
-            x8, run=run, tile=t8, unpack_mask=um, v1=v1),
-            cold=True) for v1 in (False, True, False, True)]
+        """K8 v2, the twin and, where given, the library call; v2 against
+        v1 in turns: ``tools/version_turns.py``."""
         return dict(
-            ms=(turns[0] + turns[2]) / 2, v1_ms=(turns[1] + turns[3]) / 2,
-            turns_ms=turns, plain_ms=device_ms(lambda: ms.merge_level_plain(
+            ms=device_ms(lambda: ms._merge_level(
+                x8, run=run, tile=t8, unpack_mask=um), cold=True),
+            plain_ms=device_ms(lambda: ms.merge_level_plain(
                 x8, run=run, unpack_mask=um), cold=True),
             library_ms=None if library_fn is None
             else device_ms(library_fn, cold=True),
@@ -2211,18 +2339,14 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
             bound_ms=4.0 * 2 * x8.numel() / PEAK_BYTES * 1e3,
             bound_by="bytes",
             shape=dict(n=x8.numel(), run=run, unpack=um is not None,
-                       block=ms.k8_block(x8.numel(), run),
-                       v1_block=min(t8, ms.MAX_BLOCK)))
+                       block=ms.k8_block(x8.numel(), run)))
 
     for name, per in k6.items():
         first, *rest = per
         rows[name] = dict(per[first], other_shapes={k: per[k] for k in rest})
-    rows["radix_tile_sort_packed"] = dict(
-        k7b_row(keys, 12, n), cta_widths_ms=k7b_shapes,
-        other_shapes={"2^15 17-bit keys (case (e))": k7b_row(
-            keys_e, 17, 1 << 15),
-            "one tile of 1024 12-bit keys": k7b_row(keys[:tile], 12,
-                                                    tile)})
+    rows["radix_tile_sort_packed"] = dict(k7b_row(keys, 12, n), other_shapes={
+        "2^15 17-bit keys (case (e))": k7b_row(keys_e, 17, 1 << 15),
+        "one tile of 1024 12-bit keys": k7b_row(keys[:tile], 12, tile)})
     rows["merge_level"] = k8_row(
         packed, tile, None, "sort of each 2-run row (top bit flipped, int32)",
         lambda: torch.sort(fp.reshape(n // (2 * tile), 2 * tile), dim=1))
@@ -2249,18 +2373,7 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
     say(f"tile_scan (1-D, n=1000003): kernel {h1['ms']:.4f} ms, plain "
         f"{h1['plain_ms']:.4f} ms, library {h1['library_ms']:.4f} ms, bound "
         f"{h1['bound_ms']:.4f} ms [{card}]")
-    # K5 over forced cluster sizes at both histograms (the rule's pick is
-    # the rows above), and the kernels' attributes
-    sweep = {}
-    for hh in (hist0, hist_c):
-        nt_ = hh.shape[0]
-        sweep[nt_] = {cl: device_ms(lambda: ts._scan_add(
-            hh, nt_, 16, False, cluster=cl), cold=True)
-            for cl in (1, 2, 4, 8, 16)}
-        say(f"tile_scan_add ({nt_} x 16) by cluster size: " + ", ".join(
-            f"{cl} CTAs {t:.4f} ms" for cl, t in sweep[nt_].items())
-            + f" [{card}]")
-    report["timings"]["tile_scan_add cluster sweep"] = sweep
+    # the kernels' attributes
     attrs = {"tile_scan_add": {f"radix {r_}, {words} words":
                                ts.kernel_attributes(words, r_)
                                for r_, words in ((16, R), (16, hist_c.numel()),
@@ -2329,14 +2442,13 @@ def sort_kernel_rows(np, torch, dev, seed, device_ms, card, report):
         say(f"radix_tile_sort_packed v2 {what}, tile {tile}: {r['ms']:.4f} "
             f"ms ({r['shape']['passes']} passes of "
             f"{r['shape']['digit_bits']} bits, {r['shape']['threads']} "
-            f"threads) against v1 {r['v1_ms']:.4f} ms "
-            f"({r['shape']['v1_passes']} passes) in turns, plain "
+            f"threads), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms (bytes) [{card}]")
     for what, r in [("run 1024", rows["merge_level"]), *other.items()]:
         say(f"merge_level v2 {what} (n {r['shape']['n']}, block "
-            f"{r['shape']['block']}): {r['ms']:.4f} ms against v1 "
-            f"{r['v1_ms']:.4f} in turns, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['shape']['block']}): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms (bytes) [{card}]")
     say(f"merge_level last level (run 2^19, unpack): kernel "
         f"{last['ms']:.4f} ms, plain {last['plain_ms']:.4f} ms, bound "
@@ -2620,9 +2732,6 @@ def sort_kernel_entries(rows, errs, launches):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_computes": r["library_computes"], "shape": r["shape"],
-            **({"v1_ms": r["v1_ms"]} if "v1_ms" in r else {}),
-            **({"cta_widths_ms": r["cta_widths_ms"]}
-               if "cta_widths_ms" in r else {}),
             **({"copy_ms": r["copy_ms"]} if "copy_ms" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r
                else {})})
@@ -3530,6 +3639,256 @@ def dense_configs_path(np, torch, seed, card, report, drain):
                               param_dtype="float32", compute_dtype="float32")
     fp32_check(np, torch, seed, report, drain, cfg, "minitron-4b",
                "fp32_minitron", rng_seed=seed + 9)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention: whisper-medium (encoder-decoder) and llama-3.2-vision-11b
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-medium"
+VISION_ARCH = "llama-3.2-vision-11b"
+CROSS_BATCH = 4
+CROSS_DECODE_STEPS = 32
+WHISPER_FRAMES = 1500       # the encoder's positions (30 s of audio)
+
+
+def _cross_stub(cfg):
+    """(batch key, length) of a cross-attention model's modality stub."""
+    return ("frames", WHISPER_FRAMES) if cfg.is_encdec else \
+        ("image_embeds", cfg.num_image_tokens)
+
+
+def _attn_counts():
+    """K1 and K2 launches since the last reset, with K1's non-causal and
+    fused launches and K2's group-1 launches (the wrappers' tags)."""
+    from repro_torch.kernels import _build
+    got = {k: n for k, n in _build.launches().items() if k in (
+        "flash_attention_fwd", "flash_attention_merge",
+        "flash_decode_partials", "flash_decode_combine")}
+    k1 = _build.KERNELS["flash_attention_fwd"].tags
+    got.update(noncausal=k1.get("noncausal", 0), fused=k1.get("fused", 0),
+               group1=_build.KERNELS["flash_decode_partials"].tags.get(
+                   "group 1", 0))
+    return got
+
+
+def cross_path(np, torch, dev, seed, card, report, breakdown, arch):
+    """A cross-attention model at full width and depth in bf16, seeded
+    random weights: ``Model.prefill`` of 4 prompts of
+    ``decoder_prefill_len`` (1024) tokens with the modality stub (whisper:
+    frames of 4 x 1500 x 1024; vision: image embeddings of 4 x 1601 x
+    4096), the same prompts through ``ChunkedPrefill.run(batch=...)``
+    (the cross K/V filled once by ``encode_to_cache``), compared with the
+    full prefill's logits, then 32 ``decode_step``s.  Launches, exactly:
+    prefill K1 once a self-attention layer (causal), once an encoder layer
+    and once a cross layer (non-causal); a chunk K1 once a layer and once a
+    cross layer; a decode step K2 once a layer and once a cross layer (the
+    cross rows at their full length), no standalone combine.  Then the
+    profile of one decode step (whisper) or one 256-token chunk at 736
+    (vision).  Returns the launches by tag."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import Model
+    from repro_torch.serve.prefill import ChunkedPrefill
+    cfg = get_config(arch)
+    V, L, D = cfg.vocab_size, cfg.num_layers, cfg.d_model
+    B, S = CROSS_BATCH, cfg.decoder_prefill_len
+    key, S_kv = _cross_stub(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    specs = model.prefix_specs + model.period_specs * model.repeats
+    n_cross, n_enc = sum(s.has_cross for s in specs), cfg.encoder_layers
+    per_chunk = L + n_cross
+    say(f"{cfg.name}: {n_enc} encoder + {L} decoder layers, {n_cross} with "
+        f"cross-attention over {S_kv} {key}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_model {D}, "
+        f"{cfg.param_count() / 1e9:.2f}B params in {cfg.param_dtype}, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 40)
+    tokens = torch.as_tensor(rng.randint(3, V, size=(B, S)),
+                             dtype=torch.int32, device=dev)
+    stub = torch.randn((B, S_kv, D), generator=torch.Generator(
+        device=dev).manual_seed(seed + 41), device=dev).to(cfg.dtype())
+    batch = {"tokens": tokens, key: stub}
+    max_seq = S + CROSS_DECODE_STEPS
+
+    def run(fn):
+        _build.reset_launches()
+        model.calls = dict.fromkeys(model.calls, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _attn_counts(), \
+            dict(model.calls)
+
+    (logits, cache), t_prefill, pre, _ = run(
+        lambda: model.prefill(params, batch, max_seq=max_seq))
+    want = dict(flash_attention_fwd=n_enc + L + n_cross,
+                noncausal=n_enc + n_cross, flash_decode_partials=0,
+                flash_decode_combine=0)
+    check({k: pre[k] for k in want} == want, f"{cfg.name} Model.prefill "
+          f"{B} x {S}: launches {pre} != {want} (K1 once an encoder, self "
+          f"and cross layer)")
+    check(tuple(logits.shape) == (B, cfg.padded_vocab) and bool(
+        torch.isfinite(logits[:, :V]).all()) and bool(
+        (logits[:, V:] < -1e20).all()), f"{cfg.name} prefill logits "
+        f"{tuple(logits.shape)}: not finite, or the padded vocab unmasked")
+    check(tuple(cache["stage"][-1]["ck"].shape)[-4:-2] == (B, S_kv),
+          f"{cfg.name}: the cross K/V cache is not {S_kv} positions long")
+    say(f"{cfg.name} Model.prefill {B} x {S} with {key} {B} x {S_kv}: "
+        f"{t_prefill:.2f} s, launches {pre} [{card}]")
+    del cache
+
+    cp = ChunkedPrefill(model)
+    (clogits, ccache, stats), t_chunk, chu, calls = run(lambda: cp.run(
+        params, tokens, model.init_cache(B, max_seq, cross_len=S_kv),
+        batch=batch))
+    n_chunks = calls["prefill_chunk"]
+    want = dict(flash_attention_fwd=n_enc + per_chunk * n_chunks,
+                noncausal=n_enc + n_cross * n_chunks,
+                flash_decode_partials=0, flash_decode_combine=0)
+    check(stats.tokens == S and n_chunks == stats.blocks > 1
+          and {k: chu[k] for k in want} == want,
+          f"{cfg.name} ChunkedPrefill.run(batch=...): launches {chu} != "
+          f"{want} ({per_chunk} K1 a chunk, the encoder's {n_enc} once)")
+    rel = float((clogits[:, :V].float() - logits[:, :V].float()).abs().max()
+                / logits[:, :V].float().abs().max())
+    check(rel <= TOL["bfloat16"], f"{cfg.name}: chunked prefill logits "
+          f"{rel:.3g} (relative) from the full prefill's, tol "
+          f"{TOL['bfloat16']}")
+    say(f"{cfg.name} ChunkedPrefill.run(batch=...): {n_chunks} chunks in "
+        f"{t_chunk:.2f} s, launches {chu} = {n_enc} encoder + {per_chunk} x "
+        f"{n_chunks} chunks ({chu['fused']} fused split launches); logits "
+        f"within {rel:.3g} of the full prefill's (max abs over max, tol "
+        f"{TOL['bfloat16']}) [{card}]")
+
+    def decode():
+        tok = torch.argmax(clogits[:, :V], -1).to(torch.int32)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        toks = []
+        for _ in range(CROSS_DECODE_STEPS):
+            out, _ = model.decode_step(params, tok, ccache, lengths)
+            tok = torch.argmax(out[:, :V], -1).to(torch.int32)
+            lengths += 1
+            toks.append(tok)
+        return out, torch.stack(toks, 1)
+
+    (dlogits, dtoks), t_decode, dec, calls = run(decode)
+    n_steps = calls["decode_step"]
+    G = cfg.num_heads // cfg.num_kv_heads
+    want = dict(flash_attention_fwd=0, flash_decode_partials=per_chunk
+                * n_steps, flash_decode_combine=0,
+                group1=per_chunk * n_steps if G == 1 else 0)
+    check(n_steps == CROSS_DECODE_STEPS and {k: dec[k] for k in want}
+          == want, f"{cfg.name} decode: launches {dec} != {want} (K2 once a "
+          f"layer and once a cross layer a step, fused)")
+    check(bool(torch.isfinite(dlogits[:, :V]).all()) and bool(
+        ((dtoks >= 0) & (dtoks < V)).all()), f"{cfg.name} decode: logits "
+        f"not finite or tokens out of range")
+    say(f"{cfg.name}: {n_steps} decode steps x {B} rows in {t_decode:.2f} s "
+        f"({B * n_steps / t_decode:.1f} tok/s), K2 launches "
+        f"{dec['flash_decode_partials']} = {per_chunk} x {n_steps} (the "
+        f"cross rows at {S_kv}) [{card}]")
+
+    if cfg.is_encdec:
+        lens = torch.full((B,), S + CROSS_DECODE_STEPS - 1,
+                          dtype=torch.int32, device=dev)
+        tok = dtoks[:, -1].contiguous()
+        what, fn, reps = (f"decode step B={B} at {S + CROSS_DECODE_STEPS - 1}"
+                          f" + cross {S_kv}", lambda: model.decode_step(
+                              params, tok, ccache, lens), 5)
+    else:
+        pcache = model.init_cache(1, 2048, cross_len=S_kv)
+        model.encode_to_cache(params, {key: stub[:1]}, pcache)
+        model.prefill_chunk(params, tokens[:1, :736], pcache, 0)
+        what, fn, reps = ("prefill chunk c=256 at 736, B=1 S=2048 + cross "
+                          f"{S_kv}", lambda: model.prefill_chunk(
+                              params, tokens[:1, 736:992], pcache, 736,
+                              all_logits=True), 3)
+    wall, groups = breakdown(fn, reps)
+    dev_ms = sum(groups.values())
+    peak = torch.cuda.max_memory_allocated()
+    say(f"{cfg.name} {what}: wall {wall:.2f} ms, device {dev_ms:.2f} ms "
+        f"({100 * dev_ms / wall:.0f}% busy: " + ", ".join(
+            f"{g} {t:.2f}" for g, t in sorted(
+                groups.items(), key=lambda kv: -kv[1]))
+        + f"); peak memory {peak / 2**30:.2f} GiB [{card}]")
+    report[f"cross_path {cfg.name}"] = dict(
+        prefill_launches=pre, chunk_launches=chu, decode_launches=dec,
+        chunks=n_chunks, prefill_s=t_prefill, chunked_s=t_chunk,
+        decode_s=t_decode, chunked_vs_full_rel=rel, peak_bytes=peak,
+        breakdown={what: dict(wall_ms=wall, device_ms=dev_ms,
+                              busy=dev_ms / wall, groups=groups)})
+    del params, model, ccache, logits, clogits, stub
+    free_card(torch)
+    return {k: pre[k] + chu[k] + dec[k] for k in pre}
+
+
+def cross_fp32(np, torch, seed, report, arch):
+    """fp32 at the model's full width: whisper with 2 encoder + 2 decoder
+    layers, vision with one period of 5 layers (the 5th with cross).  The
+    card's logits against the CPU plain path on the same weights
+    (``Model.prefill`` of 2 x 300 with the stub, then 4 decode steps), and
+    the card's ``ChunkedPrefill.run(batch=...)`` against its full prefill,
+    each within ``LOGIT_TOL``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.prefill import ChunkedPrefill
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, num_layers=2 if cfg.is_encdec else cfg.cross_attn_period,
+        encoder_layers=2 if cfg.is_encdec else 0, param_dtype="float32",
+        compute_dtype="float32")
+    V = cfg.vocab_size
+    key, S_kv = _cross_stub(cfg)
+    model = Model(cfg, device="cuda")
+    params = model.init(seed + 1)
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.RandomState(seed + 42)
+    batch = {"tokens": torch.as_tensor(rng.randint(3, V, size=(2, 300)),
+                                       dtype=torch.int32),
+             key: torch.as_tensor(rng.randn(2, S_kv, cfg.d_model)
+                                  .astype(np.float32))}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    gl, gcache = model.prefill(params, gbatch, max_seq=320)
+    cl, ccache = cpu_model.prefill(cpu_params, batch, max_seq=320)
+
+    def err(a, b):
+        return float((a[:, :V].float().cpu() - b[:, :V].float().cpu())
+                     .abs().max())
+
+    worst = err(gl, cl)
+    chunked, _, _ = ChunkedPrefill(model).run(
+        params, gbatch["tokens"], model.init_cache(2, 320, cross_len=S_kv),
+        batch=gbatch)
+    e_chunk = err(chunked, gl)
+    lengths = torch.full((2,), 300, dtype=torch.int32)
+    nxt = torch.argmax(cl[:, :V], -1).to(torch.int32)
+    for _ in range(4):
+        gl, gcache = model.decode_step(params, nxt.cuda(), gcache,
+                                       lengths.cuda())
+        cl, ccache = cpu_model.decode_step(cpu_params, nxt, ccache, lengths)
+        worst = max(worst, err(gl, cl))
+        nxt, lengths = torch.argmax(cl[:, :V], -1).to(torch.int32), \
+            lengths + 1
+    say(f"fp32 {cfg.name} logits ({cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers at full width, {key} {S_kv}), "
+        f"card vs CPU plain path (prefill 2 x 300 + 4 decode steps): max abs "
+        f"err {worst:.3g}; the card's chunked prefill vs its full prefill: "
+        f"{e_chunk:.3g} (tol {LOGIT_TOL})")
+    check(worst <= LOGIT_TOL, f"card {cfg.name} logits disagree with the "
+          f"CPU")
+    check(e_chunk <= LOGIT_TOL, f"card {cfg.name}: chunked prefill logits "
+          f"disagree with the full prefill's")
+    report[f"fp32 {cfg.name}"] = dict(max_logit_err=worst,
+                                      chunked_vs_full=e_chunk)
+    del model, params, cpu_model, cpu_params, gcache, ccache
+    free_card(torch)
 
 
 def moe_kernel_entries(rows, errs, launches):

@@ -132,27 +132,16 @@ class ModelConfig:
         return torch_dtype(self.param_dtype)
 
     def param_count(self, *, active_only: bool = False) -> int:
-        """Analytic parameter count, the reference's formula for the layer
-        kinds the port runs (GQA and MLA attention, Mamba, mLSTM, sLSTM,
-        dense SwiGLU / 2-matrix FFN, MoE, the unrolled dense prefix);
-        ``active_only`` counts the top-k experts only (MoE activated
-        parameters)."""
-        if self.cross_attn_period or self.is_encdec:
-            raise NotImplementedError(
-                "param_count of cross-attention / encoder configs: "
-                "ROADMAP.md Queue 1 item 8")
-        d, hd = self.d_model, self.resolved_head_dim
+        """Analytic parameter count, the reference's formula: embeddings,
+        each decoder layer's mixer (GQA or MLA attention, Mamba, mLSTM,
+        sLSTM), its cross-attention, its dense (SwiGLU or 2-matrix) or MoE
+        FFN, the encoder stack, the final norm; ``active_only`` counts the
+        top-k experts only (MoE activated parameters)."""
+        d = self.d_model
         di = self.ssm_expand * d
         mats = 3 if self.ffn_type == "swiglu" else 2
         dt_rank = max(1, d // 16)
-        if self.attn_type == "mla":
-            r, rd = self.kv_lora_rank, self.qk_rope_head_dim
-            nd, vd, H = self.qk_nope_head_dim, self.v_head_dim, self.num_heads
-            attn = (d * H * (nd + rd) + d * (r + rd) + r * H * (nd + vd)
-                    + H * vd * d)
-        else:
-            qd, kvd = self.num_heads * hd, self.num_kv_heads * hd
-            attn = d * (qd + 2 * kvd) + qd * d
+        attn = self._attn_params()
         per_kind = {
             "attn": attn,
             "mamba": (d * 2 * di + di * self.ssm_conv_dim
@@ -163,9 +152,12 @@ class ModelConfig:
                       ** 2 + 2 * di * self.num_heads + di * d),
             "slstm": 4 * d * d + 4 * d * d + int(4 / 3 * d * d) * 2,
         }
+        p = self.cross_attn_period
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for i in range(self.num_layers):
             n += per_kind[self.layer_kind(i)]
+            if p and i % p == p - 1:
+                n += attn
             if self.d_ff > 0 or self.is_moe:
                 if self.layer_is_moe(i):
                     k = self.top_k if active_only else self.num_experts
@@ -173,7 +165,27 @@ class ModelConfig:
                         * self.expert_d_ff
                 elif self.dense_ffn_dim > 0:
                     n += mats * d * self.dense_ffn_dim
-        return n + d
+        return n + self.encoder_param_count() + d
+
+    def encoder_param_count(self) -> int:
+        """Encoder-stack share of ``param_count``: one attention block and
+        the dense FFN a layer (0 without an encoder)."""
+        mats = 3 if self.ffn_type == "swiglu" else 2
+        return self.encoder_layers * (
+            self._attn_params() + mats * self.d_model * self.dense_ffn_dim)
+
+    def _attn_params(self) -> int:
+        """One attention block's matrices: MLA's five, or GQA's q, k, v, o
+        (cross-attention and the encoder count the same, as in the
+        reference)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        if self.attn_type == "mla":
+            r, rd = self.kv_lora_rank, self.qk_rope_head_dim
+            nd, vd, H = self.qk_nope_head_dim, self.v_head_dim, self.num_heads
+            return (d * H * (nd + rd) + d * (r + rd) + r * H * (nd + vd)
+                    + H * vd * d)
+        qd, kvd = self.num_heads * hd, self.num_kv_heads * hd
+        return d * (qd + 2 * kvd) + qd * d
 
 
 __all__ = ["ModelConfig", "torch_dtype"]

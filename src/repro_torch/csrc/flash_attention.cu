@@ -906,7 +906,8 @@ extern "C" int flash_attention_merge(const void* m, const void* l,
 // out[0..4] = registers a thread, local (spill) bytes a thread, static
 // shared bytes, dynamic shared bytes a launch, CTAs an SM can hold.
 // which: 0 = v3 flash_fwd_tc_kernel<128, 128>, 1 = v2 bf16, 2 = v2 fp32,
-// 3 = merge, 4 = v3 <192, 128> (MLA), 5 = v2 fp32 at q/k dim 192.
+// 3 = merge, 4 = v3 <192, 128> (MLA), 5 = v2 fp32 at q/k dim 192, 6 = v3
+// <64, 64> (whisper).
 extern "C" int flash_attention_attrs(int which, int* out) {
   switch (which) {
     case 0:
@@ -932,6 +933,9 @@ extern "C" int flash_attention_attrs(int which, int* out) {
       return (int)attrs(flash_fwd_kernel<float, MAX_HDK>, THREADS,
                         fma_smem_bytes<MAX_HDK>(),
                         &opted_in_fma<float, MAX_HDK>, out);
+    case 6:
+      return (int)attrs(flash_fwd_tc_kernel<64, 64>, TC_THREADS,
+                        tc_smem_bytes<64, 64>(), &opted_in_tc<64, 64>, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

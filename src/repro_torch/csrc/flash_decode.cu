@@ -747,7 +747,8 @@ extern "C" int flash_decode_combine(const void* m, const void* l,
 // out[0..4] = registers a thread, local (spill) bytes a thread, static
 // shared bytes, dynamic shared bytes a launch, CTAs an SM can hold.
 // which: 0 = v2 decode_partials_tc_kernel<128> (with the fused merge), 1 =
-// v1 bf16 at G = 4, 2 = v1 fp32 at G = 4, 3 = combine (bf16 out).
+// v1 bf16 at G = 4, 2 = v1 fp32 at G = 4, 3 = combine (bf16 out), 4 = v2
+// decode_partials_tc_kernel<64> (whisper's head dim).
 extern "C" int flash_decode_attrs(int which, int* out) {
   switch (which) {
     case 0: {
@@ -768,6 +769,12 @@ extern "C" int flash_decode_attrs(int which, int* out) {
     case 3:
       return (int)kernel_attrs(decode_combine_kernel<__nv_bfloat16>, THREADS,
                                0, out);
+    case 4: {
+      const cudaError_t err = opt_in_tc<64>();
+      if (err != cudaSuccess) return (int)err;
+      return (int)kernel_attrs(decode_partials_tc_kernel<64>, THREADS,
+                               tc_smem_bytes<64>(), out);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -96,8 +96,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
 class Kernel:
     """One C entry point plus its launch counter.  ``launches`` counts the
     calls that launched the kernel on the card, and nothing else;
-    ``tags`` counts the launches a wrapper tagged (K1's fused split
-    launches), among them."""
+    ``tags`` counts the launches a wrapper tagged, among them (K1's fused
+    split and non-causal launches, K2's GQA group); a launch may carry
+    several tags."""
 
     def __init__(self, source: str, func: str):
         self.source, self.func = source, func
@@ -105,7 +106,8 @@ class Kernel:
         self.tags: Dict[str, int] = {}
         self._lib = self._fn = None
 
-    def __call__(self, *args, tag: Optional[str] = None) -> None:
+    def __call__(self, *args, tag: Union[str, Tuple[str, ...]] = ()
+                 ) -> None:
         if self._fn is None:
             lib = ctypes.CDLL(str(build(self.source)))
             fn = getattr(lib, self.func)
@@ -120,8 +122,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.func} launch failed: cudaError {err} ({name})")
         self.launches += 1
-        if tag is not None:
-            self.tags[tag] = self.tags.get(tag, 0) + 1
+        for t in (tag,) if isinstance(tag, str) else tag:
+            self.tags[t] = self.tags.get(t, 0) + 1
 
 
 KERNELS: Dict[str, Kernel] = {

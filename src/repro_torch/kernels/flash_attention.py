@@ -27,8 +27,9 @@ and the fused merge as one tile's last CTA runs it
 :func:`flash_attention` (and :func:`split_partials` + :func:`merge`, the
 two launches the fused route replaces, kept as the route the card check
 times it against) launches a kernel for CUDA tensors and raises on what
-the kernels do not take; each runs its plain twin only for tensors on the
-CPU.
+the kernels do not take (a launch is counted under the counter's ``tags``
+as ``"noncausal"`` when it is, ``"fused"`` when it merges its splits);
+each runs its plain twin only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -312,7 +313,8 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, m.data_ptr(),
            l.data_ptr(), acc.data_ptr(), None, B, Sq, Sk, H, KV, hd, hv,
            int(causal), float(scale), q_offset, 1, 1, nsplit,
-           torch.cuda.current_stream(q.device).cuda_stream)
+           torch.cuda.current_stream(q.device).cuda_stream,
+           tag=() if causal else ("noncausal",))
     return m, l, acc
 
 
@@ -415,7 +417,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            B, Sq, Sk, H, KV, hd, hv, int(causal), float(scale), q_offset,
            int(q.dtype == torch.bfloat16), int(tc), nsplit,
            torch.cuda.current_stream(q.device).cuda_stream,
-           tag="fused" if nsplit > 1 else None)
+           tag=("fused",) * (nsplit > 1) + ("noncausal",) * (not causal))
     return out
 
 
@@ -430,7 +432,8 @@ def kernel_attributes() -> Dict[str, Dict[str, int]]:
                 "v2 flash_fwd_kernel<float, 128>",
                 "flash_fwd_merge_kernel",
                 "v3 flash_fwd_tc_kernel<192, 128>",
-                "v2 flash_fwd_kernel<float, 192>"))}
+                "v2 flash_fwd_kernel<float, 192>",
+                "v3 flash_fwd_tc_kernel<64, 64>"))}
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "uses_tensor_cores",

@@ -275,7 +275,8 @@ def _partials(q, k_cache, v_cache, lengths, block_k: int,
              None if arrive is None else arrive.data_ptr(),
              B, S, H, KV, hd, block_k, nk, float(scale),
              int(q.dtype == torch.bfloat16), int(tc),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream,
+             tag=f"group {H // KV}")
     return m, l, acc
 
 
@@ -376,12 +377,14 @@ def flash_decode(q, k_cache, v_cache, lengths, *, block_k: int = BLOCK_K,
 def kernel_attributes() -> Dict[str, Dict[str, int]]:
     """Registers, spills, shared memory and CTAs an SM of K2's kernels, as
     the compiled library and the occupancy calculator report them."""
+    names = ("v2 decode_partials_tc_kernel<128>",
+             "v1 decode_partials_kernel<bf16, 4>",
+             "v1 decode_partials_kernel<float, 4>",
+             "decode_combine_kernel<bf16>",
+             "v2 decode_partials_tc_kernel<64>")
     return {name: _build.attributes("flash_decode", "flash_decode_attrs",
                                     which)
-            for which, name in enumerate(("v2 decode_partials_tc_kernel<128>",
-                                          "v1 decode_partials_kernel<bf16, 4>",
-                                          "v1 decode_partials_kernel<float, 4>",
-                                          "decode_combine_kernel<bf16>"))}
+            for which, name in enumerate(names)}
 
 
 __all__ = ["flash_decode", "flash_decode_plain", "decode_partials",

@@ -10,7 +10,11 @@ wasted-work stats are printed.  ``--layers`` cuts the depth for a quick run
 (``--arch llama4-scout-17b-a16e --layers 12`` fits one 80 GB card); the
 width is always the config's.  MoE configs serve with the dropless sort
 dispatch routed by K3 (``moe_strategy="sort"``, ``moe_sort_fn="pallas"``).
-Weights are random, drawn from ``--seed``.
+Weights are random, drawn from ``--seed``.  Like the reference's
+launcher, it serves decoder-only models: whisper-medium and
+llama-3.2-vision-11b raise ``ValueError`` before their weights are drawn
+(their path is ``ChunkedPrefill.run(batch=...)`` and
+``Model.decode_step``).  jamba-1.5-large-398b runs with ``--smoke`` only.
 """
 
 import argparse
@@ -23,7 +27,7 @@ from repro_torch.configs.registry import (ARCH_IDS, NOT_PORTED, get_config,
                                           get_smoke_config)
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import (ContinuousEngine, Engine, EngineConfig,
-                                      Request)
+                                      Request, check_servable)
 
 
 def main(argv=None) -> None:
@@ -50,6 +54,7 @@ def main(argv=None) -> None:
     moe = dict(moe_strategy="sort", moe_sort_fn="pallas") if cfg.is_moe \
         else {}
     model = Model(cfg, device=args.device, **moe)
+    check_servable(model)
     params = model.init(args.seed)
     print(f"[launch.serve] {cfg.name}: {cfg.param_count() / 1e6:.1f}M "
           f"params, {cfg.num_layers} layers on {model.device}"

@@ -1,5 +1,5 @@
-"""GQA and MLA attention — the decoder-only subset of
-``repro.models.attention``.
+"""GQA, MLA and cross-attention — ``repro.models.attention`` but for its
+mesh-sharded layout (``sharded_mha``, which comes with the ``dist`` port).
 
 On a CUDA tensor the prefill slots (``plain_attention`` and
 ``blockwise_attention``) run the K1 kernel and ``decode_attention`` runs
@@ -169,7 +169,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, *,
-             lead: Tuple[int, ...] = ()) -> Params:
+             lead: Tuple[int, ...] = (), cross: bool = False) -> Params:
+    """q, k, v, o projections; a cross-attention block (``cross``) has the
+    same four, k and v projecting the encoder output / image embeddings."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     dt = cfg.pdtype()
@@ -231,6 +233,28 @@ def gqa_self_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         o = blockwise_attention(q, k, v, causal=causal, q_chunk=qc,
                                 kv_chunk=kc, q_offset=q_offset)
+    return o.reshape(B, S, -1) @ params["wo"]
+
+
+def cross_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                    kv_states: torch.Tensor, *,
+                    target_chunk: int = 2048) -> torch.Tensor:
+    """Queries from x (B,S,D), keys and values from kv_states (B,Skv,D):
+    no RoPE, no mask.  The reference's two routes, ``plain_attention`` for
+    S <= 256 and Skv <= 1024, else ``blockwise_attention``; both are K1
+    (non-causal) on CUDA."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    Skv = kv_states.shape[1]
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (kv_states @ params["wk"]).reshape(B, Skv, cfg.num_kv_heads, hd)
+    v = (kv_states @ params["wv"]).reshape(B, Skv, cfg.num_kv_heads, hd)
+    if S <= 256 and Skv <= 1024:
+        o = plain_attention(q, k, v, causal=False)
+    else:
+        qc, kc = attn_chunk_sizes(S, Skv, target_chunk=target_chunk)
+        o = blockwise_attention(q, k, v, causal=False, q_chunk=qc,
+                                kv_chunk=kc)
     return o.reshape(B, S, -1) @ params["wo"]
 
 
@@ -392,7 +416,7 @@ def mla_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
 __all__ = [
     "NEG_INF", "attn_chunk_sizes", "blockwise_attention", "plain_attention",
     "decode_attention", "gqa_init", "gqa_project_qkv", "gqa_project_kv",
-    "gqa_self_attention", "gqa_decode", "mla_init", "mla_project",
-    "mla_queries", "mla_cache_payload", "mla_self_attention",
+    "gqa_self_attention", "cross_attention", "gqa_decode", "mla_init",
+    "mla_project", "mla_queries", "mla_cache_payload", "mla_self_attention",
     "mla_absorbed", "mla_decode",
 ]

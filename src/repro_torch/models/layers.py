@@ -1,5 +1,5 @@
-"""Shared layers: RMSNorm, RoPE (full and ``rotary_dims``), SwiGLU, the
-2-matrix FFN's params, GELU, embedding.
+"""Shared layers: RMSNorm, LayerNorm, RoPE (full and ``rotary_dims``),
+SwiGLU, the 2-matrix FFN (GELU's, whisper's; relu²'s params), embedding.
 
 Plain functions over explicit parameter trees (nested dicts of tensors), the
 counterpart of ``repro.models.layers``.  Initializers draw from an explicit
@@ -61,6 +61,24 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5
     return (y * params["scale"].float()).to(dt)
 
 
+def layernorm_init(d: int, dtype: torch.dtype, device, *,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """Mean and population variance (``jnp.var``'s, correction 0) in fp32,
+    the result cast back to x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # RoPE — full and half ("2d" RoPE rotates the first ``rotary_dims`` dims)
 # ---------------------------------------------------------------------------
@@ -119,8 +137,7 @@ def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int,
                   dtype: torch.dtype, *, lead: Tuple[int, ...] = ()
                   ) -> Params:
     """The 2-matrix FFN with biases (zero at init), as the reference's:
-    minitron's relu² FFN takes these params (GELU's, whisper's, is not
-    ported yet)."""
+    whisper's GELU FFN and minitron's relu² FFN take these params."""
     dev = gen.device
     return {"up": dense_init(gen, d, d_ff, dtype, lead=lead),
             "up_b": torch.zeros(lead + (d_ff,), dtype=dtype, device=dev),
@@ -132,6 +149,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
     default is the erf form, up to ~1e-3 away)."""
     return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """gelu(x·up + up_b)·down + down_b."""
+    h = gelu(x @ params["up"] + params["up_b"])
+    return h @ params["down"] + params["down_b"]
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +172,7 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "Params", "dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
+    "layernorm_init", "layernorm",
     "rope_freqs", "rope_table", "apply_rope", "swiglu_init", "swiglu",
-    "gelu_mlp_init", "gelu", "embedding_init", "embed",
+    "gelu_mlp_init", "gelu", "gelu_mlp", "embedding_init", "embed",
 ]

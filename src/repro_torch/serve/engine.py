@@ -19,6 +19,10 @@ per request, so :class:`ContinuousEngine` accounts one page per request (a
 *state slot*) instead of a sequence span.  ``EngineConfig.exit_entropy``
 turns on the entropy-gated decode tick.
 
+Like the reference's, both serve decoder-only models: a model with
+cross-attention or an encoder raises ``ValueError`` (:func:`check_servable`;
+its path is ``ChunkedPrefill.run(batch=...)`` then ``Model.decode_step``).
+
 Not ported yet (raise ``NotImplementedError``): ``admission="simulate"``
 (needs the virtual-time Runtime) and the chaos/drain hooks ``kill_slot``,
 ``install_signal_handlers`` and ``handoff``.
@@ -45,6 +49,20 @@ from .slo import SLO_CLASSES, FifoServePolicy, ServePolicy
 _SIMULATE = ("admission='simulate' needs the virtual-time Runtime: "
              "ROADMAP.md Queue 1 item 14")
 _CHAOS = "slot-death and drain hooks: ROADMAP.md Queue 1 item 15"
+
+
+def check_servable(model: Model) -> None:
+    """Raise ``ValueError`` for what the engines do not serve: a model
+    with cross-attention (vision) or an encoder (whisper), whose prompts
+    need their modality stub.  The reference's engines never fill the
+    cross K/V (``encode_to_cache``); the port refuses instead."""
+    cfg = model.cfg
+    if cfg.cross_attn_period or cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name}: the engines serve decoder-only models; a "
+            f"cross-attention / encoder-decoder model runs through "
+            f"ChunkedPrefill.run(batch=...) (or Model.prefill with the "
+            f"batch dict) and Model.decode_step")
 
 
 class QueueFull(RuntimeError):
@@ -218,6 +236,7 @@ def _first_tokens(model: Model, logits: torch.Tensor) -> torch.Tensor:
 
 class Engine:
     def __init__(self, model: Model, params: Any, cfg: EngineConfig):
+        check_servable(model)
         if cfg.admission != "cap":
             raise NotImplementedError(_SIMULATE)
         self.model = model
@@ -361,6 +380,7 @@ class ContinuousEngine:
 
     def __init__(self, model: Model, params: Any, cfg: EngineConfig,
                  policy: Optional[ServePolicy] = None):
+        check_servable(model)
         if cfg.admission != "cap":
             raise NotImplementedError(_SIMULATE)
         self.model = model
@@ -697,4 +717,4 @@ class ContinuousEngine:
 
 
 __all__ = ["Engine", "ContinuousEngine", "EngineConfig", "EngineTelemetry",
-           "Request", "QueueFull"]
+           "Request", "QueueFull", "check_servable"]

@@ -14,16 +14,18 @@ from ..models.model import Model
 from ..models.transformer import layer_cache_shape
 
 
-def cache_bytes(model: Model, batch: int, max_seq: int) -> int:
+def cache_bytes(model: Model, batch: int, max_seq: int, *,
+                cross_len: int = 0) -> int:
     """Total cache bytes for (batch, max_seq) — admission-control
     arithmetic: the prefix layers' caches once, the stage's ``repeats``
-    times."""
+    times, cross-attention K/V of ``cross_len`` positions."""
     total = 0
     for specs, n in ((model.prefix_specs, 1),
                      (model.period_specs, model.repeats)):
         for spec in specs:
-            for shape, dt in layer_cache_shape(model.cfg, spec, batch,
-                                               max_seq).values():
+            for shape, dt in layer_cache_shape(
+                    model.cfg, spec, batch, max_seq,
+                    cross_len=cross_len).values():
                 itemsize = torch.empty((), dtype=dt).element_size()
                 total += n * math.prod(shape) * itemsize
     return total

@@ -11,7 +11,7 @@ per-chunk-length compilation to bound: the block start is a plain int.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,13 +38,17 @@ class ChunkedPrefill:
                                cap=max_block)
 
     def run(self, params: Any, tokens: torch.Tensor, cache: Any, *,
+            batch: Optional[Dict[str, torch.Tensor]] = None,
             should_cancel: Callable[[], bool] = lambda: False,
             start: int = 0, max_blocks: Optional[int] = None,
             row_lengths: Optional[Sequence[int]] = None,
             gathered: Optional[torch.Tensor] = None
             ) -> Tuple[Optional[torch.Tensor], Any, PrefillStats]:
         """tokens: (B, S).  Returns (logits | None-if-cancelled, cache,
-        stats); the cache is updated in place.
+        stats); the cache is updated in place.  ``batch`` carries the
+        modality stub of a cross-attention model (``frames`` or
+        ``image_embeds``): at ``start == 0`` its cross K/V are filled into
+        the cache first (:meth:`Model.encode_to_cache`).
 
         Without ``row_lengths`` the logits are the last *padded* position's
         (B, V).  With ``row_lengths`` (true per-row prompt lengths) each
@@ -55,6 +59,8 @@ class ChunkedPrefill:
         the blocks run in this call, and ``stats.next_start`` says where the
         residual begins."""
         B, S = tokens.shape
+        if batch is not None and start == 0:
+            cache = self.model.encode_to_cache(params, batch, cache)
         stats = PrefillStats()
         logits = gathered
         sel = None

@@ -6,7 +6,10 @@
   params over repeats and keep unrolled prefix layers (deepseek's dense
   layer) as a 'prefix' list, so this is a leaf-by-leaf conversion with no
   renaming: the MLA mixer (``wq``, ``wkv_down``, ``wk_rope``, ``wkv_up``,
-  ``wo``) and the relu² FFN's biases (``up_b``, ``down_b``) carry by name
+  ``wo``), the 2-matrix FFN's biases (``up_b``, ``down_b``), LayerNorm's
+  ``scale`` / ``bias``, a cross-attention layer's ``ln_cross`` /
+  ``cross`` and the encoder-decoder's ``enc_stage`` (one dict stacked over
+  the encoder layers), ``enc_final_norm`` and ``dec_pos`` carry by name
   like every other leaf.
 * :func:`load_checkpoint` reads a checkpoint directory written by
   ``repro.train.checkpoint`` with numpy alone: ``manifest.json`` plus one

@@ -155,11 +155,13 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "sort_turns.py",
-              ROOT / "tools" / "k1_turns.py"]
+              ROOT / "tools" / "k1_turns.py",
+              ROOT / "tools" / "version_turns.py"]
     assert len(files) > 20
     names = {f.name for f in files}
-    assert {"merge_sort.py", "radix_sort.py", "ops.py",
-            "tile_scan.py"} <= names
+    assert {"merge_sort.py", "radix_sort.py", "ops.py", "tile_scan.py",
+            "whisper_medium.py", "llama32_vision_11b.py",
+            "jamba_1_5_large.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert bad == []
