@@ -114,11 +114,30 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
    call must have launched a kernel (launch counters = layers x chunks /
    decode steps; bf16 decode is one launch, so the standalone combine 0;
    a split prefill chunk is one launch up to 2 splits, the merge fused,
-   else two, and both kinds occur);
+   else two, and both kinds occur); then the policy layer on the same
+   model, each run's K1 and K2 launches held to layers x chunks / steps:
+   (a) the sync ``Engine`` with ``admission="simulate"`` at 2 lanes over
+   prompts of 300, 290, 280, 1000, 900, 64, 64, 64 (its batch sizes equal
+   ``AdmissionSimulator.choose`` replayed on the host: 2 first; host ms a
+   choose), (b) a ``replay`` of 8 requests through ``ContinuousEngine``
+   under a ``SlotDeathInjector`` of 3 deaths (one naming no lane): every
+   rid once, requeues == lanes killed, pages, cap and slots freed (bf16
+   re-served tokens against the calm run's printed, not gated), (c)
+   SIGTERM after the first step: the engine drains its slots, ``handoff``
+   moves the queue to a fresh engine, every rid served once, (d)
+   ``audit_pytree`` over the 16 GB of bf16 weights on the card (ms,
+   blocks), then a NaN planted at a seeded position: ``all_finite`` names
+   its block with ``BlockStats`` equal to the host's ``by_blocks``;
 6. fp32 checks at full width, 2 layers: the card's logits against the CPU
    plain path on the same weights, and continuous-batching tokens against
    one-at-a-time tokens; the fp32 engine's decode launches K2 v1's
-   partials and the standalone combine once each a layer a step;
+   partials and the standalone combine once each a layer a step; the
+   simulated admission at 2 lanes, a slot-death ``replay`` and a drain +
+   ``handoff`` of the same requests each give the one-at-a-time tokens
+   exactly; then ``schedule_join`` and ``adaptive(132).schedule`` of an
+   int64 ``torch.sum`` over the leaves of a 2^24-element CUDA tensor equal
+   the whole sum, and ``work_loop`` with a CUDA state and a device
+   ``should_stop`` stops at the CPU's grant;
 7. the SSM path: xlstm-1.3b at full width and depth (48 blocks, bf16,
    ``scan_impl="pallas"``): ``Model.prefill`` of 4 x 2048 tokens (K4 once
    per mLSTM layer) and 32 decode steps, then 8 requests through
@@ -1191,6 +1210,7 @@ def main() -> None:
     # ---------------------------------------------------------- 5. main path
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import Model
+    from repro_torch.chaos import TraceItem, make_request
     from repro_torch.serve.engine import (ContinuousEngine, Engine,
                                           EngineConfig, Request)
 
@@ -1380,7 +1400,12 @@ def main() -> None:
         say(f"{what}, {L} layers: wall {wall:.2f} ms, device {dev_ms:.2f} "
             f"ms (" + ", ".join(f"{g} {t:.2f}" for g, t in sorted(
                 groups.items(), key=lambda kv: -kv[1])) + f") [{card}]")
-    del dcache, pcache, params, model
+    del dcache, pcache
+
+    # --------- 5a-d. simulated admission, slot deaths, drain, weight audit
+    policy_path_bf16(np, torch, model, params, cfg, args.seed, card, report,
+                     drain, path_launches)
+    del params, model
     free_card(torch)
 
     # ------------------------------------------------- 6. fp32 at full width
@@ -1418,9 +1443,10 @@ def main() -> None:
     del cpu_model, cpu_params, ccache, gcache
 
     lens6, news6 = (40, 300, 77, 520, 129, 260), (10, 6, 14, 8, 12, 5)
-    reqs6 = [Request(rid=i, prompt=rng.randint(3, cfg.vocab_size, size=n)
-                     .astype(np.int32), max_new=mn)
-             for i, (n, mn) in enumerate(zip(lens6, news6))]
+    trace6 = tuple(TraceItem(rid=i, arrival=0.0, prompt_len=n, max_new=mn)
+                   for i, (n, mn) in enumerate(zip(lens6, news6)))
+    reqs6 = [make_request(it, cfg.vocab_size, seed=args.seed)
+             for it in trace6]
     ref = {}
     for r in reqs6:
         eng = Engine(model, params, EngineConfig(max_batch=1, eos_id=7,
@@ -1468,8 +1494,14 @@ def main() -> None:
         f"{len(reqs6) - ties}/{len(reqs6)} requests ({ties} near-ties)")
     report["fp32"] = dict(max_logit_err=worst_logit, near_ties=ties,
                           launches=fp32_launches)
+    # 6a-c. the policy runs, each == ref exactly
+    policy_path_fp32(np, torch, model, params, trace6, reqs6, ref,
+                     cfg.vocab_size, args.seed, report, drain)
     del ce, params, model
     free_card(torch)
+
+    # ------------------- 6d. the schedulers and work_loop over CUDA tensors
+    policy_host_phase(torch, dev, card, report)
 
     # ------------------------------------------ 7. the SSM path: xlstm-1.3b
     xcfg = get_config("xlstm-1.3b")
@@ -3573,6 +3605,359 @@ def mla_fp32(np, torch, seed, report, drain):
                               param_dtype="float32", compute_dtype="float32")
     fp32_check(np, torch, seed, report, drain, cfg, "MLA", "fp32_mla",
                rng_seed=seed + 8, moe_strategy="sort", moe_sort_fn="pallas")
+
+# ---------------------------------------------------------------------------
+# the policy layer on the card: simulated admission, chaos and drain hooks,
+# the on-device audit, the schedulers over CUDA tensors
+# ---------------------------------------------------------------------------
+
+# phase 5a's queue: two long prompts behind three of ~300 and three short
+ADMIT_LENS = (300, 290, 280, 1000, 900, 64, 64, 64)
+# (engine step, lane): lane 11 does not exist, so that death is a no-op;
+# phase 6's first request (10 tokens, ticks of 4) is still in lane 0 at
+# step 1
+SLOT_DEATHS = ((2, 0), (4, 1), (6, 11))
+SLOT_DEATHS_FP32 = ((1, 0), (3, 1), (5, 11))
+
+
+def _replayed_sizes(sim, lens, max_batch):
+    """``AdmissionSimulator.choose`` replayed on the host over the queue."""
+    q, out = list(lens), []
+    while q:
+        k = sim.choose(q, max_batch)
+        out.append(k)
+        q = q[k:]
+    return out
+
+
+def _counted(torch, model, L, path_launches, what, fn):
+    """Run ``fn`` with the launch counts and the model's call counts set
+    to 0, then hold K1 to layers x prefill chunks and K2 to layers x
+    decode steps."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    model.calls = dict.fromkeys(model.calls, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    got, calls = path_launches(), dict(model.calls)
+    check(calls["prefill_chunk"] > 0 and calls["decode_step"] > 0
+          and got["flash_attention_fwd"] == L * calls["prefill_chunk"]
+          and got["flash_decode_partials"] == L * calls["decode_step"],
+          f"{what}: launches {got} != {L} layers x (prefill chunks, decode "
+          f"steps) {calls}")
+    return out, got, calls
+
+
+def _drain_hooks(eng, reqs, drain):
+    """Submit, take one step (a decode tick), deliver SIGTERM to this
+    process; the engine drains its slots, ``handoff`` moves the frozen
+    queue.  Returns (served before or during the drain, the queue, the
+    drained engine)."""
+    import os
+    import signal
+    prev = signal.getsignal(signal.SIGTERM)
+    done = {}
+    try:
+        old = eng.install_signal_handlers()
+        check(old == {signal.SIGTERM: prev}, "install_signal_handlers "
+              "did not return the previous handler")
+        for r in reqs:
+            eng.submit(r)
+        done.update({r.rid: r for r in eng.step()})
+        os.kill(os.getpid(), signal.SIGTERM)
+        done.update(drain(eng))
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    check(eng.preempted, "SIGTERM did not reach the engine's handler")
+    return done, eng.handoff(), eng
+
+
+def _check_freed(eng, what):
+    check(all(s is None for s in eng.slots) and eng._job is None
+          and eng._parked is None, f"{what}: slots not all freed")
+    check(len(eng.pages.free) == eng.pages.num_pages,
+          f"{what}: pages not all free")
+    check(eng._admission.counter.value == 1,
+          f"{what}: admission cap counter {eng._admission.counter.value}")
+
+
+def policy_path_bf16(np, torch, model, params, cfg, seed, card, report,
+                     drain, path_launches):
+    """Phase 5's policy runs on llama3-8b at full width and depth, bf16:
+    (a) the sync Engine with ``admission="simulate"`` at 2 lanes, (b) a
+    slot-death storm under ``replay``, (c) a SIGTERM drain + ``handoff``,
+    (d) ``audit_pytree`` over the weights and one planted NaN."""
+    from repro_torch.chaos import SlotDeathInjector, TraceItem, replay
+    from repro_torch.core import FaultPlan, SlotDeath, WorkRange, by_blocks
+    from repro_torch.data import all_finite, audit_pytree
+    from repro_torch.data.validate import _leaves
+    from repro_torch.serve.engine import (AdmissionSimulator,
+                                          ContinuousEngine, Engine,
+                                          EngineConfig, Request)
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.RandomState(seed + 50)
+    out = {}
+
+    # (a) simulated admission: the batch sizes are choose's, replayed
+    sim = AdmissionSimulator(lanes=2)
+    reqs = [Request(rid=i, prompt=rng.randint(3, V, size=n).astype(np.int32),
+                    max_new=int(rng.randint(16, 65)))
+            for i, n in enumerate(ADMIT_LENS)]
+    se = Engine(model, params, EngineConfig(max_batch=8, max_seq=2048,
+                                            eos_id=7, admission="simulate"))
+    se.admission_sim = sim
+    for r in reqs:
+        se.submit(r)
+
+    def serve_sync():
+        sizes, done = [], {}
+        while se.queue:
+            batch = se.step()
+            sizes.append(len(batch))
+            done.update({r.rid: r for r in batch})
+        return sizes, done
+
+    t0 = time.perf_counter()
+    (sizes, done), got, calls = _counted(
+        torch, model, L, path_launches, "simulated admission", serve_sync)
+    t_sync = time.perf_counter() - t0
+    want = _replayed_sizes(sim, ADMIT_LENS, 8)
+    check(sizes == want and sizes[0] == 2,
+          f"simulated admission took batches {sizes}, choose replayed on "
+          f"the host says {want}")
+    check(sorted(done) == list(range(len(reqs))) and all(
+        1 <= len(r.result) <= r.max_new for r in done.values()),
+        "simulated admission: not every request served")
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sim.choose(list(ADMIT_LENS), 8)
+    choose_ms = (time.perf_counter() - t0) / reps * 1e3
+    say(f"5a simulated admission (2 lanes): batches {sizes} == choose "
+        f"replayed; launches {got} = {L} x ({calls['prefill_chunk']} "
+        f"chunks, {calls['decode_step']} steps); {t_sync:.2f} s; host "
+        f"{choose_ms:.3f} ms a choose over {len(ADMIT_LENS)} queued "
+        f"[{card}]")
+    out["simulated_admission"] = dict(batches=sizes, launches=got,
+                                      calls=calls, seconds=t_sync,
+                                      choose_host_ms=choose_ms)
+
+    # (b) slot-death storm: calm replay, then the same trace with deaths
+    trace = tuple(TraceItem(rid=i, arrival=0.0,
+                            prompt_len=int(rng.randint(64, 1025)),
+                            max_new=int(rng.randint(48, 65)))
+                  for i in range(8))
+    econf = dict(max_batch=8, max_seq=2048, decode_tick=8, page_size=32,
+                 eos_id=7)
+    calm = replay(ContinuousEngine(model, params, EngineConfig(**econf)),
+                  trace, vocab=V, seed=seed)
+    check(calm.conserved(trace) and not calm.shed and not calm.rejected,
+          "calm replay not conserved")
+    inj = SlotDeathInjector(FaultPlan(slot_deaths=tuple(
+        SlotDeath(at_step=s, slot=k) for s, k in SLOT_DEATHS)))
+    eng = ContinuousEngine(model, params, EngineConfig(**econf))
+    stormy, got, calls = _counted(
+        torch, model, L, path_launches, "slot-death replay",
+        lambda: replay(eng, trace, vocab=V, seed=seed, on_step=inj))
+    killed = len(inj.killed)
+    check(stormy.conserved(trace) and not stormy.shed
+          and not stormy.rejected, "slot-death replay not conserved")
+    check(1 <= killed <= 2 and all(k < 8 for _, k in inj.killed),
+          f"slot deaths hit {inj.killed}")
+    check(sum(r.requeues for r in stormy.served) == killed
+          == eng.telemetry.slot_deaths, "requeues != lanes killed")
+    _check_freed(eng, "slot-death replay")
+    ref = {r.rid: np.asarray(r.result) for r in calm.served}
+    requeued = [r for r in stormy.served if r.requeues]
+    same = sum(np.array_equal(ref[r.rid], np.asarray(r.result))
+               for r in requeued)
+    say(f"5b slot-death replay: 8 conserved, killed {inj.killed}, requeues "
+        f"{killed}, pages / cap / slots freed; launches {got}; bf16 "
+        f"re-served == calm tokens for {same}/{len(requeued)} (not gated)")
+    out["slot_death"] = dict(killed=inj.killed, launches=got, calls=calls,
+                             reserved_equal_calm=same,
+                             reserved=len(requeued))
+
+    # (c) SIGTERM drain, then handoff to a fresh engine
+    reqs = [Request(rid=i, prompt=rng.randint(3, V, size=int(
+        rng.randint(64, 1025))).astype(np.int32),
+        max_new=int(rng.randint(16, 65))) for i in range(8)]
+    (done, waiting, eng), got, calls = _counted(
+        torch, model, L, path_launches, "SIGTERM drain",
+        lambda: _drain_hooks(ContinuousEngine(
+            model, params, EngineConfig(**econf)), reqs, drain))
+    check(len(waiting) > 0 and not eng.queue, "drain: no queue handed off")
+    _check_freed(eng, "SIGTERM drain")
+    fresh = ContinuousEngine(model, params, EngineConfig(**econf))
+    for r in waiting:
+        fresh.submit(r)
+    after = drain(fresh)
+    rids = sorted(list(done) + list(after))
+    check(rids == list(range(8)), f"drain + handoff served {rids}")
+    say(f"5c SIGTERM drain: {len(done)} drained in flight, {len(waiting)} "
+        f"handed off and served by a fresh engine, every rid once; "
+        f"launches {got}")
+    out["drain"] = dict(drained=len(done), handed_off=len(waiting),
+                        launches=got, calls=calls)
+
+    # (d) the weight audit on the card, then one planted NaN; timed twice:
+    # the first call allocates its block-sized temporaries
+    audit_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok, bad = audit_pytree(params)
+        torch.cuda.synchronize()
+        audit_ms.append((time.perf_counter() - t0) * 1e3)
+    leaves = list(_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    blocks = sum(len(list(by_blocks(first=1 << 14).blocks(
+        WorkRange(0, t.numel())))) for _, t in leaves)
+    check(ok and bad == [], f"audit_pytree: non-finite leaves {bad}")
+    path, leaf = max(leaves, key=lambda kv: kv[1].numel())
+    flat = leaf.view(-1)
+    pos = int(rng.randint(0, flat.numel()))
+    old = flat[pos].clone()
+    flat[pos] = float("nan")
+    res = all_finite(leaf)
+    flat[pos] = old
+
+    def host_block(blk, carry):
+        return carry or blk.start <= pos < blk.stop
+
+    _, want = by_blocks(first=1 << 14).run(
+        WorkRange(0, flat.numel()), host_block, False,
+        should_stop=lambda c: c)
+    lo, hi = res.first_bad_block or (0, 0)
+    check(not res.ok and lo <= pos < hi and res.stats == want,
+          f"planted NaN at {pos} of {path}: audit {res}, host by_blocks "
+          f"{want}")
+    check(all_finite(leaf).ok, "the weight was not restored")
+    say(f"5d audit_pytree: {len(leaves)} leaves, {n_bytes / 1e9:.2f} GB "
+        f"bf16, {blocks} blocks, all finite in {audit_ms[0]:.1f} ms, then "
+        f"{audit_ms[1]:.1f} ms ({n_bytes / audit_ms[1] / 1e6:.0f} GB/s); "
+        f"NaN at {pos} of {path} "
+        f"found in block [{lo}, {hi}), {res.stats.blocks_run} blocks == "
+        f"host by_blocks [{card}]")
+    out["audit"] = dict(ms=audit_ms[0], ms_second=audit_ms[1],
+                        bytes=n_bytes, leaves=len(leaves),
+                        blocks=blocks, nan_leaf=path, nan_pos=pos,
+                        nan_block=[lo, hi],
+                        nan_blocks_run=res.stats.blocks_run)
+    report["policy_bf16"] = out
+
+
+def policy_path_fp32(np, torch, model, params, trace6, reqs6, ref, vocab,
+                     seed, report, drain):
+    """Phase 6's policy runs at fp32, 2 layers, against the one-at-a-time
+    tokens ``ref`` of ``reqs6``: (a) ``admission="simulate"`` at 2 lanes,
+    (b) a slot-death ``replay`` of the same requests, (c) a SIGTERM drain
+    + ``handoff``.  Each gives ``ref``'s tokens exactly."""
+    from repro_torch.chaos import SlotDeathInjector, replay
+    from repro_torch.core import FaultPlan, SlotDeath
+    from repro_torch.serve.engine import (AdmissionSimulator,
+                                          ContinuousEngine, Engine,
+                                          EngineConfig, Request)
+
+    def copies():
+        return [Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+                for r in reqs6]
+
+    def exact(done, what):
+        bad = [rid for rid, r in done.items()
+               if not np.array_equal(np.asarray(r.result), ref[rid])]
+        check(sorted(done) == sorted(ref) and not bad,
+              f"fp32 {what}: tokens differ from one-at-a-time for {bad}")
+
+    se = Engine(model, params, EngineConfig(max_batch=4, max_seq=2048,
+                                            eos_id=7, admission="simulate"))
+    se.admission_sim = AdmissionSimulator(lanes=2)
+    for r in copies():
+        se.submit(r)
+    sizes, done = [], {}
+    while se.queue:
+        batch = se.step()
+        sizes.append(len(batch))
+        done.update({r.rid: r for r in batch})
+    exact(done, "simulated admission")
+    check(sizes == _replayed_sizes(se.admission_sim,
+                                   [len(r.prompt) for r in reqs6], 4),
+          f"fp32 simulated admission batches {sizes}")
+
+    econf = dict(max_batch=3, eos_id=7, max_seq=1024, decode_tick=4)
+    inj = SlotDeathInjector(FaultPlan(slot_deaths=tuple(
+        SlotDeath(at_step=s, slot=k) for s, k in SLOT_DEATHS_FP32)))
+    eng = ContinuousEngine(model, params, EngineConfig(**econf))
+    stormy = replay(eng, trace6, vocab=vocab, seed=seed, on_step=inj)
+    check(stormy.conserved(trace6) and not stormy.shed,
+          "fp32 slot-death replay not conserved")
+    check(len(inj.killed) >= 1 and sum(r.requeues for r in stormy.served)
+          == len(inj.killed), f"fp32 slot deaths {inj.killed}")
+    exact({r.rid: r for r in stormy.served}, "slot-death replay")
+    _check_freed(eng, "fp32 slot-death replay")
+
+    done, waiting, eng = _drain_hooks(ContinuousEngine(
+        model, params, EngineConfig(**econf)), copies(), drain)
+    _check_freed(eng, "fp32 drain")
+    fresh = ContinuousEngine(model, params, EngineConfig(**econf))
+    for r in waiting:
+        fresh.submit(r)
+    done.update(drain(fresh))
+    exact(done, "drain + handoff")
+    say(f"fp32 policy runs == one-at-a-time tokens exactly: simulated "
+        f"admission (2 lanes, batches {sizes}), slot-death replay (killed "
+        f"{inj.killed}), drain + handoff ({len(waiting)} handed off)")
+    report["policy_fp32"] = dict(batches=sizes, killed=inj.killed,
+                                 handed_off=len(waiting))
+
+
+def policy_host_phase(torch, dev, card, report):
+    """The schedulers mapping device work: ``schedule_join`` and
+    ``adaptive(132).schedule`` of an int64 ``torch.sum`` over the leaves of
+    a 2^24-element CUDA tensor equal the whole ``torch.sum`` exactly;
+    ``work_loop`` with a CUDA state and a device ``should_stop`` stops at
+    the grant the CPU run stops at, within ceil(log2(total)) + 1 grants."""
+    from repro_torch.core import (WorkRange, adaptive, schedule_join,
+                                  thief_splitting, work_loop)
+    n = 1 << 24
+    x = torch.randint(0, 1 << 20, (n,), dtype=torch.int64, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    whole = int(x.sum())
+
+    def leaf_sum(w):
+        return x[w.start:w.stop].sum()
+
+    t0 = time.perf_counter()
+    joined = schedule_join(thief_splitting(WorkRange(0, n), p=132),
+                           leaf_sum, lambda a, b: a + b)
+    adapt = adaptive(132).schedule(WorkRange(0, n), leaf_sum,
+                                   lambda a, b: a + b)
+    check(int(joined) == whole == int(adapt),
+          f"schedule_join {int(joined)} / adaptive {int(adapt)} != "
+          f"torch.sum {whole}")
+    t_sched = (time.perf_counter() - t0) * 1e3
+
+    def loop(device, stop_at, total):
+        grants = []
+
+        def advance(s, k):
+            grants.append(k)
+            return s + torch.ones(k, dtype=torch.int64, device=device).sum()
+
+        state = work_loop(torch.zeros((), dtype=torch.int64, device=device),
+                          advance, total, first_grant=1,
+                          should_stop=lambda s: s >= stop_at)
+        return int(state), grants
+
+    for stop_at, total in ((1000, 1 << 20), (1 << 30, 1000)):
+        got, want = loop(dev, stop_at, total), loop("cpu", stop_at, total)
+        check(got == want and len(got[1]) <= math.ceil(math.log2(total))
+              + 1, f"work_loop on the card {got[0]} after {len(got[1])} "
+              f"grants, on the CPU {want[0]} after {len(want[1])}")
+    say(f"schedulers over a 2^24 int64 CUDA tensor: schedule_join and "
+        f"adaptive(132) == torch.sum exactly ({t_sched:.1f} ms both); "
+        f"work_loop stops at the CPU's grant [{card}]")
+    report["policy_host"] = dict(schedule_ms=t_sched)
 
 
 def dense_configs_path(np, torch, seed, card, report, drain):

@@ -2,8 +2,8 @@
 
 from .early_exit import (DecodeStats, decode_until_eos, make_decode_block,
                          make_decode_tick)
-from .engine import (ContinuousEngine, Engine, EngineConfig, EngineTelemetry,
-                     QueueFull, Request)
+from .engine import (AdmissionSimulator, ContinuousEngine, Engine,
+                     EngineConfig, EngineTelemetry, QueueFull, Request)
 from .kvcache import PageTable, cache_bytes, cache_slot_insert
 from .prefill import ChunkedPrefill, PrefillStats
 from .slo import (CLASS_RANK, SLO_CLASSES, DeadlineServePolicy,
@@ -11,7 +11,7 @@ from .slo import (CLASS_RANK, SLO_CLASSES, DeadlineServePolicy,
                   request_deadline)
 
 __all__ = [
-    "ChunkedPrefill", "ContinuousEngine", "DecodeStats", "Engine",
+    "AdmissionSimulator", "ChunkedPrefill", "ContinuousEngine", "DecodeStats", "Engine",
     "EngineConfig", "EngineTelemetry", "PageTable", "PrefillStats",
     "QueueFull", "Request", "cache_bytes", "cache_slot_insert",
     "decode_until_eos", "make_decode_block", "make_decode_tick",

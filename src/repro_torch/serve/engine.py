@@ -23,32 +23,34 @@ Like the reference's, both serve decoder-only models: a model with
 cross-attention or an encoder raises ``ValueError`` (:func:`check_servable`;
 its path is ``ChunkedPrefill.run(batch=...)`` then ``Model.decode_step``).
 
-Not ported yet (raise ``NotImplementedError``): ``admission="simulate"``
-(needs the virtual-time Runtime) and the chaos/drain hooks ``kill_slot``,
-``install_signal_handlers`` and ``handoff``.
+``admission="simulate"`` makes the sync engine size each batch with the
+:class:`AdmissionSimulator` (a static partition on the virtual-time
+Runtime); :class:`ContinuousEngine` admits through ``cap`` whatever
+``admission`` says, as the reference does.  The chaos and drain hooks are
+``kill_slot`` (a decode lane dies; its request is re-served from scratch),
+``install_signal_handlers`` (SIGTERM drains the in-flight slots) and
+``handoff`` (the frozen queue moves to a fresh engine).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import signal
 import time
-from typing import Any, Dict, List, Optional, Set
+from typing import Any, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
-from ..core import Cap, WorkRange, cap
+from ..core import (Cap, CostModel, Runtime, StaticPartitionPolicy,
+                    WorkRange, cap)
 from ..models.model import Model
 from .early_exit import (DecodeStats, decode_until_eos, make_decode_block,
                          make_decode_tick, make_gated_decode_tick)
 from .kvcache import PageTable, cache_slot_insert
 from .prefill import ChunkedPrefill
 from .slo import SLO_CLASSES, FifoServePolicy, ServePolicy
-
-_SIMULATE = ("admission='simulate' needs the virtual-time Runtime: "
-             "ROADMAP.md Queue 1 item 14")
-_CHAOS = "slot-death and drain hooks: ROADMAP.md Queue 1 item 15"
 
 
 def check_servable(model: Model) -> None:
@@ -67,6 +69,39 @@ def check_servable(model: Model) -> None:
 
 class QueueFull(RuntimeError):
     """submit() refused: the waiting queue is at ``EngineConfig.max_queue``."""
+
+
+@dataclasses.dataclass
+class AdmissionSimulator:
+    """Pick how many queued requests to admit by simulating the batch.
+
+    Admitting ``k`` requests pads them to their max length ``S_k``; the
+    padded batch is ``k × S_k`` token-items executed as a static partition
+    (one chunk per request — SPMD lanes don't steal) over ``lanes`` virtual
+    workers, plus a fixed per-batch ``batch_overhead`` (dispatch, cache
+    init, compile-shape reuse).  Useful work is the sum of *true* prompt
+    lengths.  The admitted k maximizes useful-tokens/virtual-second — small
+    k wastes the overhead, large k wastes padding; the simulator finds the
+    knee.  Deterministic: no RNG is consumed by the static policy.
+    """
+
+    lanes: int = 4
+    per_token: float = 1.0
+    batch_overhead: float = 256.0
+
+    def choose(self, lengths: Sequence[int], max_batch: int) -> int:
+        best_k, best_rate = 1, -1.0
+        cost = CostModel(per_item=self.per_token, split_overhead=0.0)
+        for k in range(1, min(len(lengths), max_batch) + 1):
+            smax = max(lengths[:k])
+            res = Runtime(self.lanes, cost,
+                          StaticPartitionPolicy(num_blocks=k)).run(
+                WorkRange(0, k * smax))
+            useful = float(sum(lengths[:k]))
+            rate = useful / (res.makespan + self.batch_overhead)
+            if rate > best_rate:
+                best_k, best_rate = k, rate
+        return best_k
 
 
 @dataclasses.dataclass
@@ -93,7 +128,7 @@ class EngineConfig:
     eos_id: int = 2
     pad_id: int = 0
     max_seq: int = 512
-    admission: str = "cap"        # "cap" | "simulate" (not ported)
+    admission: str = "cap"        # "cap" (FIFO up to max_batch) | "simulate"
     prefill_block_budget: Optional[int] = None
     decode_tick: int = 8
     page_size: int = 32
@@ -163,6 +198,7 @@ class EngineTelemetry:
     shed_by_class: Dict[str, int] = dataclasses.field(default_factory=dict)
     class_preemptions: int = 0
     policy_swaps: int = 0
+    slot_deaths: int = 0          # decode lanes killed (chaos) and requeued
     early_exits: int = 0          # lanes retired by the entropy gate
     ewma: float = 0.25
     # fields already seeded by a first observation (the first sample seeds
@@ -237,8 +273,6 @@ def _first_tokens(model: Model, logits: torch.Tensor) -> torch.Tensor:
 class Engine:
     def __init__(self, model: Model, params: Any, cfg: EngineConfig):
         check_servable(model)
-        if cfg.admission != "cap":
-            raise NotImplementedError(_SIMULATE)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -248,6 +282,7 @@ class Engine:
         self.queue: List[Request] = []
         self.telemetry = EngineTelemetry()
         self.admission = cap(WorkRange(0, 1 << 30), cfg.max_batch)
+        self.admission_sim = AdmissionSimulator(lanes=cfg.max_batch)
         self._residual: Optional[_PrefillResidual] = None
 
     def submit(self, req: Request) -> None:
@@ -262,7 +297,13 @@ class Engine:
         self.queue.append(req)
 
     def _next_batch(self) -> List[Request]:
-        take = min(len(self.queue), self.cfg.max_batch)
+        if not self.queue:
+            return []
+        if self.cfg.admission == "simulate":
+            take = self.admission_sim.choose(
+                [len(r.prompt) for r in self.queue], self.cfg.max_batch)
+        else:
+            take = min(len(self.queue), self.cfg.max_batch)
         batch, self.queue = self.queue[:take], self.queue[take:]
         return batch
 
@@ -381,8 +422,6 @@ class ContinuousEngine:
     def __init__(self, model: Model, params: Any, cfg: EngineConfig,
                  policy: Optional[ServePolicy] = None):
         check_servable(model)
-        if cfg.admission != "cap":
-            raise NotImplementedError(_SIMULATE)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -422,6 +461,7 @@ class ContinuousEngine:
         else:
             self._tick = make_decode_tick(model, cfg.eos_id)
         self._policy: ServePolicy = policy or FifoServePolicy()
+        self.preempted = False    # SIGTERM drain flag
 
     # ---------------------------------------------------------------- policy
     @property
@@ -687,27 +727,65 @@ class ContinuousEngine:
             done.append(r)
         return done
 
-    # ------------------------------------------------- chaos / drain hooks
+    # ----------------------------------------------------------------- chaos
     def kill_slot(self, i: int) -> bool:
-        raise NotImplementedError(_CHAOS)
+        """Chaos hook: decode lane ``i`` dies mid-decode.  Its emitted
+        tokens, pages and leases are discarded and the request is requeued
+        at the *front* of the waiting queue to be re-served from scratch.
+        Returns False for an empty or out-of-range lane (fault plans are
+        written against step indices, not live lane assignments)."""
+        s = self.slots[i] if 0 <= i < len(self.slots) else None
+        if s is None:
+            return False
+        r = s.req
+        self.pages.release(r.rid)
+        s.lease.on_finish()
+        if s.class_lease is not None:
+            s.class_lease.on_finish()
+        self.slots[i] = None
+        self.finished[i] = True
+        self.remaining[i] = 0
+        self.lengths[i] = 0
+        self.streak[i] = 0
+        r.requeues += 1
+        r.t_first = None
+        self.queue.insert(0, r)
+        self.telemetry.slot_deaths += 1
+        return True
 
-    def install_signal_handlers(self, *args, **kwargs):
-        raise NotImplementedError(_CHAOS)
+    # -------------------------------------------------------------- preempt
+    def install_signal_handlers(self, signals=(signal.SIGTERM,)) -> Dict:
+        """Route SIGTERM to a graceful drain: the flag flips at the next
+        step() boundary — in-flight slots and the in-flight prefill run to
+        completion, the waiting queue is frozen for :meth:`handoff`.
+        Returns the previous handlers so callers can restore them."""
+        return {s: signal.signal(s, self._on_signal) for s in signals}
+
+    def _on_signal(self, signum, frame) -> None:
+        self.preempted = True
 
     def handoff(self) -> List[Request]:
-        raise NotImplementedError(_CHAOS)
+        """Detach the waiting queue (for resubmission on a fresh engine
+        after a drain).  Queued requests were never prefix-cached, so
+        resubmission is exact by construction."""
+        q, self.queue = self.queue, []
+        return q
 
     # ----------------------------------------------------------------- loop
     @property
     def pending(self) -> bool:
         in_flight = (self._job is not None or self._parked is not None
                      or any(s is not None for s in self.slots))
+        if self.preempted:
+            return in_flight      # drain mode: the queue waits for handoff
         return bool(self.queue) or in_flight
 
     def step(self) -> List[Request]:
-        shed = self._shed_expired()
-        self._maybe_park_prefill()
-        self._try_admit()
+        shed: List[Request] = []
+        if not self.preempted:
+            shed = self._shed_expired()
+            self._maybe_park_prefill()
+            self._try_admit()
         if self._job is None and self._parked is not None:
             # nothing (more) to admit ahead of it: resume the parked prefill
             self._job, self._parked = self._parked, None
@@ -717,4 +795,4 @@ class ContinuousEngine:
 
 
 __all__ = ["Engine", "ContinuousEngine", "EngineConfig", "EngineTelemetry",
-           "Request", "QueueFull", "check_servable"]
+           "Request", "AdmissionSimulator", "QueueFull", "check_servable"]

@@ -167,6 +167,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert bad == []
 
 
+def test_core_is_plain_python():
+    """``repro_torch.core`` imports neither torch nor JAX: it runs with both
+    unimportable, and no module of it names either."""
+    files = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py"))
+    assert {"runtime.py", "policies.py", "faults.py", "dnc.py"} <= \
+        {f.name for f in files}
+    bad = [(f.name, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro")]
+    assert bad == []
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['torch'] = None\n"
+            "import repro_torch.core as c\n"
+            "r = c.simulate(c.thief_splitting(c.WorkRange(0, 500), p=4), "
+            "c.AdaptivePolicy(), 4, c.CostModel())\n"
+            "assert r.items_processed == 500\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_port_runs_with_jax_unimportable():
     """``sys.modules["jax"] = None`` makes any import of JAX raise: the port
     still imports and runs a CPU decode step."""

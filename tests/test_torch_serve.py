@@ -240,18 +240,31 @@ def test_decode_until_eos_waste_matches_jax(pair):
     assert tst.wasted_tokens > 0
 
 
-def test_unported_paths_raise_and_name_roadmap(pair):
+def test_simulate_admission_and_chaos_hooks_run(pair):
+    """``admission="simulate"`` and the chaos / drain hooks are served
+    (they raised before the Runtime was ported); bad configurations still
+    raise ``ValueError``."""
     _, _, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tm, tp, EngineConfig(admission="simulate"))
+    eng = Engine(tm, tp, EngineConfig(admission="simulate", max_batch=4,
+                                      eos_id=7, max_seq=128))
+    assert eng.admission_sim.lanes == 4
+    for r in _reqs(Request, _prompts((9, 20, 5)), (3, 3, 3)):
+        eng.submit(r)
+    assert sorted(r.rid for r in eng.step()) == [0, 1, 2]
     # the gated tick is ported: only its configuration is checked
     with pytest.raises(ValueError, match="exit_entropy"):
         EngineConfig(exit_entropy=0.0)
-    eng = ContinuousEngine(tm, tp, EngineConfig(max_batch=1, max_seq=64))
-    for hook in (lambda: eng.kill_slot(0), eng.install_signal_handlers,
-                 eng.handoff):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hook()
+    eng = ContinuousEngine(tm, tp, EngineConfig(max_batch=1, max_seq=64,
+                                                admission="simulate"))
+    assert eng.kill_slot(0) is False and eng.kill_slot(5) is False
+    assert eng.handoff() == []
+    import signal
+    old = eng.install_signal_handlers()
+    try:
+        assert signal.getsignal(signal.SIGTERM) == eng._on_signal
+    finally:
+        for s, h in old.items():
+            signal.signal(s, h)
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(Request(rid=0, prompt=np.arange(50, dtype=np.int32) + 3,
                            max_new=32))
